@@ -1,0 +1,143 @@
+"""Multi-view scored color fusion ops (vectorised, fixed shapes).
+
+Port of `pointcloudprocessor_tpu/ops/fusion.py`: the reference's
+observation scoring + top-5 blend (`PointCloudProcessor.cpp:557-629`,
+`include/PointCloudProcessor.hpp:205-236`). Each point carries a fixed
+top-K register (scores + 0xRRGGBB-packed int32 colors, slot axis first)
+updated with a replace-min as keyframes stream through.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class TopKColors(NamedTuple):
+    """Per-point running best-K color observations.
+
+    scores: (K, N) finalScore per slot; empty slots hold -inf.
+    rgb:    (K, N) packed int32 colors.
+    """
+
+    scores: torch.Tensor
+    rgb: torch.Tensor
+
+
+def pack_rgb(rgb: torch.Tensor) -> torch.Tensor:
+    """Pack (..., 3) [0,255] colors into 0xRRGGBB int32 (...,)."""
+    c = torch.clamp(rgb, 0, 255).to(torch.int32)
+    return (c[..., 0] << 16) | (c[..., 1] << 8) | c[..., 2]
+
+
+def unpack_rgb(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Unpack 0xRRGGBB int32 (...,) to (..., 3) colors."""
+    r = (packed >> 16) & 0xFF
+    g = (packed >> 8) & 0xFF
+    b = packed & 0xFF
+    return torch.stack([r, g, b], dim=-1).to(dtype)
+
+
+def pack_image_rgb(image: torch.Tensor) -> torch.Tensor:
+    """Pack an (H, W, 3) uint8 image into a flat (H*W,) 0xRRGGBB int32 array,
+    so each per-point color gather fetches one word."""
+    im = image.to(torch.int32)
+    return ((im[..., 0] << 16) | (im[..., 1] << 8) | im[..., 2]).reshape(-1)
+
+
+def init_topk(num_points: int, device, k: int = 5, dtype=torch.float32) -> TopKColors:
+    return TopKColors(
+        scores=torch.full((k, num_points), float("-inf"), dtype=dtype, device=device),
+        rgb=torch.zeros((k, num_points), dtype=torch.int32, device=device),
+    )
+
+
+def update_topk(state: TopKColors, score: torch.Tensor, rgb: torch.Tensor,
+                valid: torch.Tensor) -> TopKColors:
+    """Insert one candidate observation per point: replace the current min
+    slot if the candidate beats it. O(K) vector ops, no sort.
+
+    The slot replaced is the FIRST minimal one, as `jnp.argmin` picks it
+    (all slots start at -inf, so ties are the common case): the index is
+    taken as the smallest slot number among the minima rather than relying
+    on an argmin's tie order."""
+    if rgb.ndim == score.ndim + 1:
+        rgb = pack_rgb(rgb)
+    cand = torch.where(valid, score, float("-inf"))
+    k = state.scores.shape[0]
+    min_val = torch.amin(state.scores, dim=0)  # (N,)
+    slots = torch.arange(k, device=score.device)[:, None]
+    min_idx = torch.amin(torch.where(state.scores == min_val, slots, k), dim=0)
+    do = cand > min_val
+    onehot = (slots == min_idx[None, :]) & do[None, :]
+    new_scores = torch.where(onehot, cand[None, :], state.scores)
+    new_rgb = torch.where(onehot, rgb[None, :], state.rgb)
+    return TopKColors(new_scores, new_rgb)
+
+
+def blend_topk(state: TopKColors) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score-weighted average of the stored top-K observations
+    (`smoothColors`, `PointCloudProcessor.cpp:604-631`).
+
+    Returns (rgb (N, 3) in [0, 255], colored (N,) bool)."""
+    w = torch.where(torch.isfinite(state.scores), state.scores, 0.0)  # (K, N)
+    total = torch.sum(w, dim=0)
+    colored = total > 0.0
+    inv = 1.0 / torch.clamp(total, min=1e-12)
+    r = torch.sum(((state.rgb >> 16) & 0xFF).to(w.dtype) * w, dim=0) * inv
+    g = torch.sum(((state.rgb >> 8) & 0xFF).to(w.dtype) * w, dim=0) * inv
+    b = torch.sum((state.rgb & 0xFF).to(w.dtype) * w, dim=0) * inv
+    return torch.stack([r, g, b], dim=-1), colored
+
+
+def final_score_xyz(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    z: torch.Tensor,
+    rng: torch.Tensor,  # |p| precomputed (shared with the z-buffer cull)
+    camera_position_world: torch.Tensor | None = None,
+    *,
+    optimal_distance: float = 2.0,
+    score_floor: float = 0.2,
+    reference_compat: bool = False,
+) -> torch.Tensor:
+    """(orientation + distance) / 2 (`PointCloudProcessor.cpp:588`,
+    hpp:205-236). ``reference_compat`` replicates the reference's frame
+    mix-up (a world-frame camera position subtracted from a camera-frame
+    point)."""
+    if reference_compat and camera_position_world is not None:
+        vx = x - camera_position_world[0]
+        vy = y - camera_position_world[1]
+        vz = z - camera_position_world[2]
+        vn = torch.sqrt(vx * vx + vy * vy + vz * vz)
+        cos = vz / torch.clamp(vn, min=1e-12)
+    else:
+        cos = z / torch.clamp(rng, min=1e-12)
+    o = score_floor + (1.0 - score_floor) * ((cos + 1.0) * 0.5)
+    diff = torch.clamp(torch.abs(rng - optimal_distance) / optimal_distance, max=1.0)
+    d = score_floor + (1.0 - score_floor) * (1.0 - diff)
+    return 0.5 * (o + d)
+
+
+def hsv_adjust(rgb: torch.Tensor, saturation_scale: float = 1.0,
+               brightness_scale: float = 1.0) -> torch.Tensor:
+    """Scale HSV saturation/value of RGB [0,255] colors
+    (`PointCloudProcessor.cpp:722-741`); the identity at the default scales."""
+    if saturation_scale == 1.0 and brightness_scale == 1.0:
+        return rgb
+    x = rgb / 255.0
+    mx = torch.amax(x, dim=-1)
+    mn = torch.amin(x, dim=-1)
+    delta = mx - mn
+    s = torch.where(mx > 0, delta / torch.clamp(mx, min=1e-12), 0.0)
+    s2 = torch.clamp(s * saturation_scale, 0.0, 1.0)
+    v2 = torch.clamp(mx * brightness_scale, 0.0, 1.0)
+    # Rebuild: each channel = v2 * (1 - s2 * (1 - orig_channel_ratio)).
+    ratio = torch.where(
+        delta[..., None] > 0,
+        (mx[..., None] - x) / torch.clamp(delta[..., None], min=1e-12),
+        0.0,
+    )
+    out = v2[..., None] * (1.0 - s2[..., None] * ratio)
+    return torch.clamp(out * 255.0, 0.0, 255.0)

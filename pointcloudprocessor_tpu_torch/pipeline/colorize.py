@@ -1,0 +1,138 @@
+"""Projective colorization + multi-view fusion.
+
+Port of `pointcloudprocessor_tpu/pipeline/colorize.py`, itself a rebuild of
+`pcdColorizationAndSmooth` (`PointCloudProcessor.cpp:474-631`): per
+keyframe, transform the map into the camera, z-buffer cull, sample the
+packed image, score, and update the per-point top-K registers. The JAX
+package's `lax.scan` over keyframes is a Python loop here; the registers
+are the only state carried from one keyframe to the next.
+
+Only the z-buffer culling branch is ported; HPR culling and mask labels
+raise NotImplementedError (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core import se3
+from ..models import camera as cam
+from ..ops import fusion, zbuffer
+from ..utils.numeric import to_int32
+
+
+class KeyframeObservation(NamedTuple):
+    """Per-point observation of one keyframe, aligned with the map cloud."""
+
+    visible: torch.Tensor  # (N,) bool
+    rgb_packed: torch.Tensor  # (N,) int32 0xRRGGBB
+    score: torch.Tensor  # (N,) finalScore
+
+
+def observe_keyframe(
+    camera: cam.PinholeCamera,
+    image_rgb: torch.Tensor,  # (H, W, 3) uint8
+    T_camera_world: se3.SE3,
+    points_world: torch.Tensor,
+    valid: torch.Tensor,
+    camera_position_world: Optional[torch.Tensor] = None,
+    *,
+    downsample_factor: int = 14,
+    depth_epsilon: float = 0.05,
+    optimal_distance: float = 2.0,
+    score_floor: float = 0.2,
+    saturation_scale: float = 1.0,
+    brightness_scale: float = 1.0,
+    reference_compat_orientation: bool = False,
+) -> KeyframeObservation:
+    """Project the map into one keyframe: cull, sample colors, score
+    (`PointCloudProcessor.cpp:495-591`)."""
+    x, y, z = se3.transform_xyz(
+        T_camera_world, points_world[:, 0], points_world[:, 1], points_world[:, 2]
+    )
+    rng = torch.sqrt(x * x + y * y + z * z)
+    u, v = cam.project_xyz(camera, x, y, z)
+    vis = zbuffer.cull_mask_uv(
+        camera, u, v, z, rng, valid,
+        downsample_factor=downsample_factor, depth_epsilon=depth_epsilon,
+    )
+
+    h, w = image_rgb.shape[0], image_rgb.shape[1]
+    ui = torch.clamp(to_int32(u), 0, w - 1)
+    vi = torch.clamp(to_int32(v), 0, h - 1)
+    flat = (vi * w + ui).long()
+    # Nearest sampling commutes with the per-pixel HSV map, so the samples
+    # are adjusted, not the image (12x fewer values at 4096x3000 / 1M pts).
+    rgb_packed = fusion.pack_image_rgb(image_rgb)[flat]
+    if saturation_scale != 1.0 or brightness_scale != 1.0:
+        rgb_packed = fusion.pack_rgb(
+            fusion.hsv_adjust(
+                fusion.unpack_rgb(rgb_packed), saturation_scale, brightness_scale
+            )
+        )
+    score = fusion.final_score_xyz(
+        x, y, z, rng,
+        camera_position_world,
+        optimal_distance=optimal_distance,
+        score_floor=score_floor,
+        reference_compat=reference_compat_orientation,
+    )
+    return KeyframeObservation(vis, rgb_packed, score)
+
+
+class FusionResult(NamedTuple):
+    rgb: torch.Tensor  # (N, 3) blended color [0,255]
+    colored: torch.Tensor  # (N,) bool
+    observation_count: torch.Tensor  # (N,) int32
+
+
+@torch.no_grad()
+def fuse(
+    camera: cam.PinholeCamera,
+    points_world: torch.Tensor,  # (N, 3)
+    valid: torch.Tensor,  # (N,)
+    images: torch.Tensor,  # (K, H, W, 3) uint8
+    kf_poses: se3.SE3,  # batched (K,) camera->world
+    T_correction: se3.SE3,  # scalar correction (NID), identity if none
+    *,
+    top_k: int = 5,
+    downsample_factor: int = 14,
+    depth_epsilon: float = 0.05,
+    optimal_distance: float = 2.0,
+    score_floor: float = 0.2,
+    saturation_scale: float = 1.0,
+    brightness_scale: float = 1.0,
+    reference_compat_orientation: bool = False,
+) -> FusionResult:
+    """Colorize the map from all keyframes and blend the top-K observations.
+
+    The correction composes as ``T_c2w_optimized = T_c2w * T_correction``
+    (`PointCloudProcessor.cpp:507,516`). ``images`` may live on the host:
+    each keyframe's image is moved to the map's device as it is used."""
+    n = points_world.shape[0]
+    device = points_world.device
+    topk = fusion.init_topk(n, device, top_k)
+    count = torch.zeros((n,), dtype=torch.int32, device=device)
+    for j in range(images.shape[0]):
+        T_c2w = se3.compose(se3.SE3(kf_poses.q[j], kf_poses.t[j]), T_correction)
+        obs = observe_keyframe(
+            camera,
+            images[j].to(device),
+            se3.inverse(T_c2w),
+            points_world,
+            valid,
+            camera_position_world=kf_poses.t[j],
+            downsample_factor=downsample_factor,
+            depth_epsilon=depth_epsilon,
+            optimal_distance=optimal_distance,
+            score_floor=score_floor,
+            saturation_scale=saturation_scale,
+            brightness_scale=brightness_scale,
+            reference_compat_orientation=reference_compat_orientation,
+        )
+        topk = fusion.update_topk(topk, obs.score, obs.rgb_packed, obs.visible)
+        count = count + obs.visible.to(torch.int32)
+    rgb, colored = fusion.blend_topk(topk)
+    return FusionResult(rgb=rgb, colored=colored & valid, observation_count=count)

@@ -1,0 +1,327 @@
+"""Pipeline orchestration — the `PointCloudProcessor::process()` equivalent.
+
+Port of `pointcloudprocessor_tpu/pipeline/runner.py` (stage sequence of
+`PointCloudProcessor.cpp:1007-1032`), with MLS off:
+
+    loadImagesAndOdometry -> loadPointCloud (crop) -> selectKeyframes
+    -> per-keyframe z-buffer cull -> [NID refine of the shared correction]
+    -> colorize + top-K fuse -> save outputs
+
+Stages hand off device tensors on the ``device`` the caller names; nothing
+falls back to another device. Branches outside this slice raise
+NotImplementedError (see ROADMAP.md): MLS, per-keyframe refinement,
+re-culling between outer iterations, the manual initial guess, HPR
+culling, mask images and local color smoothing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import cloud as cl
+from ..core import se3
+from ..io import images as img_io
+from ..io import pcd
+from ..models import camera as cam
+from ..ops import zbuffer
+from ..opt import nid as nid_mod
+from ..opt import refine
+from ..utils import profiling
+from ..utils.config import PipelineConfig
+from . import colorize, ingest, keyframes
+
+
+@dataclass
+class PipelineResult:
+    colored_cloud_path: str = ""
+    num_keyframes: int = 0
+    num_colored_points: int = 0
+    T_correction: Optional[se3.SE3] = None
+    nid_value: float = float("nan")
+    nid_evaluations: int = 0
+    nid_outer_iterations: int = 0
+    timings: dict = field(default_factory=dict)
+
+
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError for every configured branch the port does
+    not run yet — never a silent fallback."""
+    unported = {
+        "enable_mls": cfg.enable_mls,
+        "enable_manual_guess": cfg.enable_manual_guess,
+        "mask_image_folder": bool(cfg.mask_image_folder),
+        "culling.method='hpr'": cfg.culling.method == "hpr",
+        "fusion.local_smoothing_radius>0": cfg.fusion.local_smoothing_radius > 0,
+        "nid.per_keyframe": cfg.nid.per_keyframe,
+        "nid.recull_every_outer_iter": cfg.nid.recull_every_outer_iter,
+        "nid.frozen_taps": cfg.nid.frozen_taps,
+        "nid.coarse_outer_iterations>0": cfg.nid.coarse_outer_iterations > 0,
+    }
+    on = [name for name, flag in unported.items() if flag]
+    if on:
+        raise NotImplementedError(
+            f"pointcloudprocessor_tpu_torch does not run {', '.join(on)} yet "
+            "(see ROADMAP.md); use pointcloudprocessor_tpu for these branches"
+        )
+
+
+def _make_camera(cfg: PipelineConfig, device) -> cam.PinholeCamera:
+    return cam.create_camera(
+        cfg.camera.model, cfg.camera.intrinsic, cfg.camera.distortion,
+        cfg.camera.width, cfg.camera.height, device,
+    )
+
+
+def _extrinsic_lidar_to_cam(cfg: PipelineConfig, device) -> Optional[se3.SE3]:
+    """T_camera<-lidar from config, or None when ``extrinsic.apply`` is off
+    (the reference initializes but never applies it,
+    `PointCloudProcessor.cpp:51-54`)."""
+    if not cfg.extrinsic.apply:
+        return None
+    m = torch.eye(4, dtype=torch.float32, device=device)
+    m[:3, :3] = torch.as_tensor(cfg.extrinsic.rotation, dtype=torch.float32, device=device)
+    m[:3, 3] = torch.as_tensor(cfg.extrinsic.translation, dtype=torch.float32, device=device)
+    return se3.from_matrix(m)
+
+
+def _camera_to_world(frames, idx, T_l2c: Optional[se3.SE3], device) -> se3.SE3:
+    """Batched camera-to-world poses of frames ``idx`` (odometry, composed
+    with the inverse mounting transform when it applies)."""
+    q = np.stack([frames[i].quat_wxyz for i in idx]).astype(np.float32)
+    t = np.stack([frames[i].position for i in idx]).astype(np.float32)
+    base = se3.SE3(
+        q=se3.quat_normalize(torch.as_tensor(q, device=device)),
+        t=torch.as_tensor(t, device=device),
+    )
+    return base if T_l2c is None else se3.compose(base, se3.inverse(T_l2c))
+
+
+def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = ""):
+    """Cull per keyframe and assemble the padded NIDKeyframe batch
+    (`viewCullingAndSaveFilteredPcds` :178-224 + the loading in
+    `estimate_pose_bfgs` :160-178, without the disk round-trip; the
+    ``<ts>_beforeNID.pcd`` dumps are written when ``save_dir`` is set).
+
+    A keyframe with more visible points than ``culled_capacity`` keeps an
+    evenly spaced subset, the same indices as the JAX runner picks."""
+    device = map_cloud.points.device
+    cap = cfg.culled_capacity
+    bins = cfg.nid.bins
+    norm_cloud = cl.normalize_intensity(map_cloud)
+    poses = _camera_to_world(frames, kf_idx, _extrinsic_lidar_to_cam(cfg, device), device)
+    pts_list, int_list, val_list, bin_list = [], [], [], []
+    for j, i in enumerate(kf_idx):
+        T_c2w = se3.SE3(poses.q[j], poses.t[j])
+        pts_cam, mask = zbuffer.cull_world_points(
+            camera, se3.inverse(T_c2w), norm_cloud.points, norm_cloud.valid,
+            downsample_factor=cfg.culling.downsample_factor,
+            depth_epsilon=cfg.culling.depth_epsilon,
+        )
+        vis_idx = torch.nonzero(mask, as_tuple=True)[0]
+        n_vis = vis_idx.numel()
+        if n_vis > cap:
+            pick = np.linspace(0, n_vis - 1, cap).astype(np.int64)
+            vis_idx = vis_idx[torch.as_tensor(pick, device=device)]
+        n = vis_idx.numel()
+        p = torch.zeros((cap, 3), dtype=torch.float32, device=device)
+        it = torch.zeros((cap,), dtype=torch.float32, device=device)
+        v = torch.zeros((cap,), dtype=torch.bool, device=device)
+        p[:n] = pts_cam[vis_idx]
+        it[:n] = norm_cloud.intensity[vis_idx]
+        v[:n] = True
+        pts_list.append(p)
+        int_list.append(it)
+        val_list.append(v)
+        # Quantized on the host, as the JAX runner does, and shipped as uint8.
+        gray = img_io.load_gray_normalized(frames[i].image_path)
+        b = np.clip((gray * bins).astype(np.int32), 0, bins - 1).astype(np.uint8)
+        bin_list.append(torch.from_numpy(b).to(device).to(torch.int32))
+        if save_dir:
+            ts = ingest.cpp_timestamp(frames[i].timestamp)
+            pcd.write(
+                os.path.join(save_dir, f"{ts}_beforeNID.pcd"),
+                p[:n].cpu().numpy(),
+                intensity=it[:n].cpu().numpy(),
+            )
+    return nid_mod.NIDKeyframe(
+        points=torch.stack(pts_list),
+        intensity=torch.stack(int_list),
+        valid=torch.stack(val_list),
+        bin_image=torch.stack(bin_list),
+    )
+
+
+def process(cfg: PipelineConfig, device) -> PipelineResult:
+    """Run the pipeline per the config on ``device`` ("cuda", "cuda:1",
+    "cpu", ...). Returns paths, stats and per-stage timings (seconds; each
+    stage ends after the device has finished its work)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    check_supported(cfg)
+    t_start = time.perf_counter()
+    result = PipelineResult()
+
+    for label, path in (
+        ("point_cloud_path", cfg.point_cloud_path),
+        ("odometry_path", cfg.odometry_path),
+        ("images_folder", cfg.images_folder),
+    ):
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"{label} does not exist: {path!r}")
+
+    camera = _make_camera(cfg, device)
+    os.makedirs(cfg.output_path, exist_ok=True)
+    filtered_dir = os.path.join(cfg.output_path, "filtered_pcd")
+    os.makedirs(filtered_dir, exist_ok=True)
+    metrics_path = (
+        os.path.join(cfg.output_path, "metrics.jsonl")
+        if cfg.metrics_path == "auto"
+        else cfg.metrics_path
+    )
+    metrics = profiling.MetricsLogger(metrics_path)
+    metrics.log("pipeline_start", config_keyframes_cap=cfg.max_keyframes, device=str(device))
+    timer = profiling.StageTimer(device)
+    trace_ctx = (
+        profiling.trace(cfg.profile_trace_dir)
+        if cfg.profile_trace_dir
+        else contextlib.nullcontext()
+    )
+    with trace_ctx:
+        _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics)
+    result.timings = dict(timer.timings)
+    result.timings["total"] = time.perf_counter() - t_start
+    metrics.log("pipeline_done", **{k: round(v, 4) for k, v in result.timings.items()})
+    return result
+
+
+def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
+    # 1. Frames + odometry (loadImagesAndOdometry, :965-1005).
+    frames = ingest.load_frames(cfg.odometry_path, cfg.images_folder)
+    if not frames:
+        raise ValueError(
+            "no frames: no odometry timestamp matched an image file — check "
+            "that images are named '<ts:.6f>.jpg' for the odometry timestamps"
+        )
+    traj = ingest.frames_trajectory(frames)
+    metrics.log("frames_loaded", count=len(frames))
+
+    # 2. Map load + trajectory crop (loadPointCloud, :92-154).
+    crop_path = os.path.join(cfg.output_path, "scans-crop.pcd")
+    with timer.stage("load_crop"):
+        if cfg.resume and os.path.exists(crop_path):
+            # Stage checkpoint: artifacts double as restart points.
+            map_cloud = pcd.read_cloud(crop_path, device, capacity=cfg.map_capacity)
+            metrics.log("crop_resumed", path=crop_path)
+        else:
+            map_cloud = pcd.read_cloud(cfg.point_cloud_path, device, capacity=cfg.map_capacity)
+            map_cloud = cl.trajectory_crop(
+                map_cloud, torch.as_tensor(traj.positions, device=device),
+                padding=cfg.crop_padding,
+            )
+            pcd.write_cloud(crop_path, map_cloud)
+    metrics.log("map_ready", points=map_cloud.count())
+
+    # 3. Keyframes (selectKeyframes, :1050-1075).
+    kf_idx = keyframes.select(traj, cfg.keyframes)[: cfg.max_keyframes]
+    result.num_keyframes = len(kf_idx)
+
+    # 4. Culling + NID keyframe assembly (viewCullingAndSaveFilteredPcds).
+    with timer.stage("culling"):
+        kfs = build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir=filtered_dir)
+
+    # 5. Optional NID pose refinement (applyNIDBasedPoseOptimization, :156-164).
+    T_correction = se3.identity(device)
+    corr_path = os.path.join(cfg.output_path, "nid_correction.json")
+    if cfg.enable_nid_optimize and cfg.resume and os.path.exists(corr_path):
+        with open(corr_path) as f:
+            saved = json.load(f)
+        T_correction = se3.from_qt(
+            torch.as_tensor(saved["quat_wxyz"], dtype=torch.float32, device=device),
+            torch.as_tensor(saved["translation"], dtype=torch.float32, device=device),
+        )
+        result.nid_value = saved.get("nid", float("nan"))
+        metrics.log("nid_resumed", path=corr_path)
+    elif cfg.enable_nid_optimize:
+        with timer.stage("nid_refine"):
+            res = refine.refine_pose(
+                camera,
+                kfs,
+                T_correction,
+                bins=cfg.nid.bins,
+                max_outer_iterations=cfg.nid.max_outer_iterations,
+                max_inner_iterations=cfg.nid.max_inner_iterations,
+                delta_trans_thresh=cfg.nid.delta_trans_thresh,
+                delta_rot_thresh=float(np.radians(cfg.nid.delta_rot_thresh_deg)),
+                trust_region_trans=cfg.nid.trust_region_trans,
+                trust_region_rot=float(np.radians(cfg.nid.trust_region_rot_deg)),
+                carry_hessian=cfg.nid.carry_hessian,
+                ftol=cfg.nid.ftol,
+            )
+            T_correction = res.T_camera_lidar
+            result.nid_value = float(res.nid)
+        result.nid_evaluations = res.evaluations
+        result.nid_outer_iterations = res.outer_iterations
+        with open(corr_path, "w") as f:
+            json.dump(
+                {
+                    "quat_wxyz": T_correction.q.tolist(),
+                    "translation": T_correction.t.tolist(),
+                    "nid": result.nid_value,
+                    "per_keyframe": False,
+                    "outer_iterations": res.outer_iterations,
+                    "converged": res.converged,
+                },
+                f,
+                indent=2,
+            )
+        metrics.log(
+            "nid_refined",
+            nid=result.nid_value,
+            outer_iterations=res.outer_iterations,
+            converged=res.converged,
+            evaluations=res.evaluations,
+        )
+    del kfs
+    result.T_correction = T_correction
+
+    # 6. Colorize + fuse (pcdColorizationAndSmooth, :474-631).
+    with timer.stage("colorize_fuse"):
+        images = torch.from_numpy(
+            np.stack([img_io.load_rgb(frames[i].image_path) for i in kf_idx])
+        )
+        poses = _camera_to_world(frames, kf_idx, _extrinsic_lidar_to_cam(cfg, device), device)
+        fused = colorize.fuse(
+            camera,
+            map_cloud.points,
+            map_cloud.valid,
+            images,
+            poses,
+            T_correction,
+            top_k=cfg.fusion.top_k,
+            downsample_factor=cfg.culling.downsample_factor,
+            depth_epsilon=cfg.culling.depth_epsilon,
+            optimal_distance=cfg.fusion.optimal_distance,
+            score_floor=cfg.fusion.score_floor,
+            saturation_scale=cfg.fusion.saturation_scale,
+            brightness_scale=cfg.fusion.brightness_scale,
+            reference_compat_orientation=cfg.fusion.reference_compat_orientation,
+        )
+
+    # 7. Save outputs (saveColorizedPointCloud, :866-963).
+    with timer.stage("save_output"):
+        keep = fused.colored if cfg.fusion.drop_uncolored else map_cloud.valid
+        out_cloud = map_cloud.replace(rgb=fused.rgb, valid=keep)
+        out_path = os.path.join(cfg.output_path, "cloudInWorldWithRGB.pcd")
+        pcd.write_cloud(out_path, out_cloud, include=("rgb",))
+    result.colored_cloud_path = out_path
+    result.num_colored_points = int(keep.sum())
+    metrics.log("outputs_saved", colored_points=result.num_colored_points)

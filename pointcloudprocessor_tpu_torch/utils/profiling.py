@@ -1,0 +1,83 @@
+"""Stage timing, profiler capture and structured metrics.
+
+Port of the timing and metrics half of `pointcloudprocessor_tpu/utils/
+profiling.py`:
+
+- :class:`StageTimer` — named stage timings; with ``sync`` a stage ends
+  only after the CUDA device has finished its queued work, so the time is
+  execution, not enqueue;
+- :func:`trace` — a torch.profiler capture (CPU + CUDA activities) written
+  as a Chrome trace;
+- :class:`MetricsLogger` — append-only JSONL metrics, one object per event.
+
+The JAX module's byte/FLOP estimates are priced against TPU v5e peaks and
+are not carried over.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from typing import Optional
+
+import torch
+
+
+def synchronize(device) -> None:
+    """Wait for queued work on ``device`` (a no-op off CUDA)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class StageTimer:
+    """Collects named stage durations (seconds, host clock)."""
+
+    def __init__(self, device=None):
+        self.timings: dict[str, float] = {}
+        self._device = device
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self._device is not None:
+                synchronize(self._device)
+            self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler capture around a block, written to
+    ``<log_dir>/trace.json`` (open with Perfetto or chrome://tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics: one `{"ts": ..., "event": ..., **fields}`
+    object per line. Pass ``path=None`` (or "") to disable."""
+
+    def __init__(self, path: Optional[str]):
+        self._path = path
+        if path:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def log(self, event: str, **fields) -> None:
+        if not self._path:
+            return
+        rec = {"ts": time.time(), "event": event}
+        rec.update(fields)
+        with open(self._path, "a") as f:
+            f.write(json.dumps(rec) + "\n")

@@ -1,0 +1,134 @@
+"""PyTorch port: config tree, import isolation, CLI, unported branches and
+the kernel build's failure mode."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from pointcloudprocessor_tpu.utils import config as jcfg
+from pointcloudprocessor_tpu_torch import cli
+from pointcloudprocessor_tpu_torch.kernels import build as kbuild
+from pointcloudprocessor_tpu_torch.pipeline import runner
+from pointcloudprocessor_tpu_torch.utils import config as tcfg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tree(cls):
+    """{field: default or nested tree} of a config dataclass."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default_factory is not dataclasses.MISSING:
+            val = f.default_factory()
+            out[f.name] = _tree(type(val)) if dataclasses.is_dataclass(val) else val
+        else:
+            out[f.name] = f.default
+    return out
+
+
+def test_config_tree_equals_jax():
+    """One JSON config drives both packages: same fields, same defaults
+    (exact equality, including every float)."""
+    assert _tree(tcfg.PipelineConfig) == _tree(jcfg.PipelineConfig)
+    assert set(tcfg._NESTED) == set(jcfg._NESTED)
+
+
+def test_config_json_round_trip_across_packages():
+    cfg = jcfg.PipelineConfig()
+    cfg.nid.max_outer_iterations = 2
+    cfg.camera.width = 640
+    ported = tcfg.PipelineConfig.from_json(cfg.to_json())
+    assert json.loads(ported.to_json()) == json.loads(cfg.to_json())
+
+
+def test_port_imports_no_jax():
+    """Importing the port's runner and CLI leaves jax and the JAX package
+    out of sys.modules (a fresh interpreter: this test process has both)."""
+    code = (
+        "import sys\n"
+        "import pointcloudprocessor_tpu_torch.pipeline.runner\n"
+        "import pointcloudprocessor_tpu_torch.cli\n"
+        "import pointcloudprocessor_tpu_torch.utils.interop\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'pointcloudprocessor_tpu'\n"
+        "       or m.startswith('pointcloudprocessor_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_cli_dump_config(capsys):
+    assert cli.main(["--dump-config"]) == 0
+    cfg = json.loads(capsys.readouterr().out)
+    assert cfg["nid"]["bins"] == 16
+
+
+def test_cli_missing_args():
+    assert cli.main([]) == 2
+
+
+def test_cli_device_defaults_to_cuda():
+    assert cli.build_parser().parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize(
+    "path, value",
+    [
+        ("enable_mls", True),
+        ("enable_manual_guess", True),
+        ("mask_image_folder", "masks/"),
+        ("culling.method", "hpr"),
+        ("fusion.local_smoothing_radius", 0.05),
+        ("nid.per_keyframe", True),
+        ("nid.recull_every_outer_iter", True),
+        ("nid.frozen_taps", True),
+        ("nid.coarse_outer_iterations", 1),
+    ],
+)
+def test_unported_branches_raise(path, value):
+    """Branches outside the slice raise, never fall back."""
+    cfg = tcfg.PipelineConfig()
+    obj = cfg
+    *parents, leaf = path.split(".")
+    for p in parents:
+        obj = getattr(obj, p)
+    setattr(obj, leaf, value)
+    with pytest.raises(NotImplementedError, match=path.split(".")[-1].split("=")[0]):
+        runner.check_supported(cfg)
+
+
+def test_default_config_is_supported():
+    runner.check_supported(tcfg.PipelineConfig())
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):
+    """No silent fallback to the CPU when the named device is missing."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.process(tcfg.PipelineConfig(output_path=str(tmp_path)), "cuda")
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """A build that cannot run raises; it never falls back to the twin."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path / "_build"))
+    real_isfile = os.path.isfile
+    monkeypatch.setattr(
+        kbuild.os.path, "isfile",
+        lambda p: False if p.endswith("nvcc") else real_isfile(p),
+    )
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kbuild._compile("nid_hist")
