@@ -10,7 +10,8 @@ fallback.
 
 Usage: ``library("nid_hist")`` returns the loaded ``ctypes.CDLL``;
 ``build("nid_hist")`` returns a :class:`Build` record (path, seconds spent
-compiling in this process, ptxas report).
+compiling in this process, ptxas report). Different libraries may be built
+from different threads at once.
 """
 
 from __future__ import annotations
@@ -44,7 +45,10 @@ class Build:
     ptxas: str  # nvcc/ptxas report (registers, shared memory, spills)
 
 
-_lock = threading.Lock()
+# One lock per library, so that two libraries build concurrently (one nvcc
+# each) while a second caller of the same library waits for its build.
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, tuple[Build, ctypes.CDLL]] = {}
 
 
@@ -125,7 +129,9 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
 
 
 def _load(name: str):
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _loaded:
             b = _compile(name)
             _loaded[name] = (b, ctypes.CDLL(b.path))

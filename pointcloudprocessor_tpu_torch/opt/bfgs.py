@@ -1,6 +1,7 @@
 """BFGS with Armijo backtracking line search, as a host loop.
 
-Port of `pointcloudprocessor_tpu/opt/bfgs.py` (`minimize`, `bfgs.py:35-299`),
+Port of `pointcloudprocessor_tpu/opt/bfgs.py` (`minimize` and
+`minimize_cached`, `bfgs.py:35-299`),
 the stand-in for the reference's `ceres::GradientProblemSolver` BFGS inner
 solve (`visual_camera_calibration.cpp:204-233`). The JAX solver runs nested
 `lax.while_loop`s on device; here the loops are Python, over one
@@ -46,7 +47,42 @@ def minimize(
     ftol: float = 0.0,
     scale_initial: bool = True,
 ) -> BFGSResult:
-    """Minimize from ``x0`` (1-D). ``value_and_grad(x) -> (value, grad)``.
+    """Minimize from ``x0`` (1-D). ``value_and_grad(x) -> (value, grad)``:
+    :func:`minimize_cached` with an empty cache."""
+    res, _ = minimize_cached(
+        lambda x, cache: (*value_and_grad(x), cache),
+        x0,
+        None,
+        max_iterations=max_iterations,
+        grad_tol=grad_tol,
+        step_tol=step_tol,
+        armijo_c1=armijo_c1,
+        max_backtracks=max_backtracks,
+        H0=H0,
+        ftol=ftol,
+        scale_initial=scale_initial,
+    )
+    return res
+
+
+def minimize_cached(
+    vg_c: Callable,
+    x0: torch.Tensor,
+    cache0,
+    max_iterations: int = 64,
+    grad_tol: float = 1e-6,
+    step_tol: float = 1e-10,
+    armijo_c1: float = 1e-4,
+    max_backtracks: int = 25,
+    H0: Optional[torch.Tensor] = None,
+    ftol: float = 0.0,
+    scale_initial: bool = True,
+):
+    """BFGS over an objective with a carried evaluation cache
+    (`bfgs.py:70-299`). ``vg_c(x, cache) -> (value, grad, cache')`` may
+    update its cache on any evaluation (the frozen-tap NID gather,
+    `opt/nid.TapCache`); the cache threads through every probe, rejected
+    ones included, and the final cache is returned: ``(BFGSResult, cache)``.
 
     ``H0`` warm-starts the inverse Hessian; ``scale_initial`` applies the
     classic first-update scaling H = (sy/yy) I; ``ftol`` > 0 exits when an
@@ -56,7 +92,7 @@ def minimize(
     eye = torch.eye(d, dtype=x0.dtype, device=x0.device)
     c1 = _f32(armijo_c1, x0)
 
-    def line_search(x, direction, val, g, alpha0):
+    def line_search(x, direction, val, g, alpha0, cache):
         """Backtracking Armijo; also backtracks out of +inf regions. Each
         probe evaluates value AND gradient; the accepted probe's gradient is
         returned. A rejected finite probe proposes the minimizer of the
@@ -68,7 +104,7 @@ def minimize(
             return bool(torch.isfinite(new_val) & (new_val <= val + c1 * alpha * dg))
 
         alpha = alpha0
-        new_val, new_g = value_and_grad(x + alpha * direction)
+        new_val, new_g, cache = vg_c(x + alpha * direction, cache)
         it = 0
         while not accepted(alpha, new_val) and it < max_backtracks:
             denom = new_val - val - dg * alpha
@@ -77,14 +113,14 @@ def minimize(
                 alpha = torch.clamp(interp, 0.1 * alpha, 0.5 * alpha)
             else:
                 alpha = alpha * 0.5
-            new_val, new_g = value_and_grad(x + alpha * direction)
+            new_val, new_g, cache = vg_c(x + alpha * direction, cache)
             it += 1
         if accepted(alpha, new_val):
-            return alpha, new_val, new_g, it + 1
-        return torch.zeros_like(alpha), val, g, it + 1
+            return alpha, new_val, new_g, it + 1, cache
+        return torch.zeros_like(alpha), val, g, it + 1, cache
 
     x = x0
-    val, g = value_and_grad(x0)
+    val, g, cache = vg_c(x0, cache0)
     H = eye if H0 is None else H0
     it = 0
     evals = 1
@@ -106,7 +142,7 @@ def minimize(
             )
         else:
             alpha0 = torch.clamp(1.5 * prev_alpha, sixteenth, one)
-        alpha, val_new, g_new, probes = line_search(x, direction, val, g, alpha0)
+        alpha, val_new, g_new, probes, cache = line_search(x, direction, val, g, alpha0, cache)
         step = alpha * direction
         x_new = x + step
 
@@ -135,12 +171,15 @@ def minimize(
             x, val, g, H, prev_alpha = x_new, val_new, g_new, H_new, alpha
         it += 1
         evals += probes
-    return BFGSResult(
-        x=x,
-        value=val,
-        grad_norm=torch.linalg.norm(g),
-        iterations=it,
-        converged=done,
-        evaluations=evals,
-        H=H,
+    return (
+        BFGSResult(
+            x=x,
+            value=val,
+            grad_norm=torch.linalg.norm(g),
+            iterations=it,
+            converged=done,
+            evaluations=evals,
+            H=H,
+        ),
+        cache,
     )

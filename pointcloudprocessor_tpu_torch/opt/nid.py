@@ -15,20 +15,25 @@ differentiability structure of the reference (knots via `get_real`,
 hpp:61; `hist_points` a plain vector, hpp:49).
 
 The JAX package's `vmap` over keyframes is a written-out leading K
-dimension. Its frozen-tap cache (`TapCache`), grouped/streamed gathers and
-raster sort are not ported yet (ROADMAP.md).
+dimension. Beside the exact objective this module holds the frozen-tap
+cache (:class:`TapCache`, :func:`multi_nid_loss_cached`; margin 0 and no
+partial refresh), the raster sort that makes gathers near-monotone, and the
+grouped gathers over the slab table (`ops/tap_gather`: kernels K3/K4). Its
+``lax.cond`` branches are Python branches on host values: each costs one
+device sync.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import se3
 from ..models import camera as cam
-from ..ops import nid_hist
+from ..ops import nid_hist, tap_gather
 from ..ops.nid_hist import spline_weights, unpack_tap_nibbles  # noqa: F401 (API)
 from ..utils.numeric import to_int32
 
@@ -46,8 +51,9 @@ class NIDKeyframe:
 
     points/intensity/valid are fixed-capacity (padded); intensities are
     normalized to [0, 1] (`visual_lidar_data.cpp:87-96`). ``tap_rows`` is the
-    (K, H*W, 2) int32 table of :func:`build_tap_table`, built once per solve
-    by :func:`prepare_keyframes`.
+    (K, H*W, 2) int32 table of :func:`build_tap_table` and ``tap_slabs`` its
+    plane-concat slab layout for the grouped gathers (:func:`build_tap_slabs`),
+    both built once per solve by :func:`prepare_keyframes`.
     """
 
     points: torch.Tensor  # (K, N, 3) in the keyframe CAMERA frame (pre-correction)
@@ -55,6 +61,7 @@ class NIDKeyframe:
     valid: torch.Tensor  # (K, N) bool
     bin_image: torch.Tensor  # (K, H, W) int32
     tap_rows: Optional[torch.Tensor] = None  # (K, H*W, 2) int32 packed nibbles
+    tap_slabs: Optional[torch.Tensor] = None  # (K, H*W/S, 2S) int32
 
 
 def _to_int32_bits(w: torch.Tensor) -> torch.Tensor:
@@ -99,14 +106,52 @@ def build_tap_table(bin_image: torch.Tensor) -> torch.Tensor:
     return torch.stack([w0.reshape(-1), w1.reshape(-1)], dim=-1)
 
 
-def prepare_keyframes(kfs: NIDKeyframe) -> NIDKeyframe:
-    """Attach the pose-independent tap tables (one per keyframe). Idempotent;
-    called by the optimizer at solve entry."""
-    if kfs.tap_rows is not None:
-        return kfs
-    return replace(
-        kfs, tap_rows=torch.stack([build_tap_table(b) for b in kfs.bin_image])
-    )
+def build_tap_slabs(bin_image: torch.Tensor, slab: int) -> torch.Tensor:
+    """(H, W) bin image -> (H*W/slab, 2*slab) int32 plane-concat slab table
+    for the grouped gathers (`nid.py:170-184`): row j = [word0 of pixels
+    jS..jS+S-1 | word1 of the same pixels], built from the word planes."""
+    h, w = bin_image.shape
+    r = h * w
+    if r % slab:
+        raise ValueError(f"H*W = {r} is not a multiple of the slab {slab}")
+    w0, w1 = _tap_word_planes(bin_image)
+    return torch.cat([w0.reshape(r // slab, slab), w1.reshape(r // slab, slab)], dim=1)
+
+
+def _use_grouped_default() -> bool:
+    """The gather default: the direct per-point take (`nid.py:456-487`).
+    The grouped gathers win only while points stay raster-sorted at the
+    evaluation pose; after a solve's few-centimetre motion most groups
+    overflow into the fallback."""
+    return False
+
+
+def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool | None = None) -> NIDKeyframe:
+    """Attach the pose-independent tap tables (one per keyframe) and, when
+    ``build_slabs`` (None = :func:`_use_grouped_default`) and the shapes
+    allow, their slab layout for the grouped gathers (`nid.py:187-237`).
+    Idempotent; called by the optimizer at solve entry."""
+    if kfs.tap_rows is None:
+        kfs = replace(kfs, tap_rows=torch.stack([build_tap_table(b) for b in kfs.bin_image]))
+    if build_slabs is None:
+        build_slabs = _use_grouped_default()
+    if build_slabs and kfs.tap_slabs is None:
+        _, r, _ = kfs.tap_rows.shape
+        slab = tap_gather.default_slab(r, kfs.points.shape[1], 16)
+        if r % slab == 0 and r // slab >= 2:
+            kfs = replace(
+                kfs, tap_slabs=torch.stack([build_tap_slabs(b, slab) for b in kfs.bin_image])
+            )
+        else:
+            # An explicit grouped-gather request that cannot be honored must
+            # not degrade silently to the direct take.
+            warnings.warn(
+                f"prepare_keyframes: cannot build tap slabs (H*W={r}, "
+                f"slab={slab}); the grouped gather will fall back to the "
+                "direct per-point take",
+                stacklevel=2,
+            )
+    return kfs
 
 
 def _project_all(camera: cam.PinholeCamera, T: se3.SE3, kfs: NIDKeyframe):
@@ -126,16 +171,78 @@ def _project_all(camera: cam.PinholeCamera, T: se3.SE3, kfs: NIDKeyframe):
     return proj, knot, inl
 
 
-def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor):
-    """(K, N, 2) knots -> (K, N, 2) packed tap rows: the direct per-point
-    row take (`nid.py:513-516`), anchors clipped into the image exactly as
-    the JAX package clips them (`nid.py:508-510`)."""
-    anchor = torch.clamp(knot[..., 1], 0, camera.height - 1) * camera.width + torch.clamp(
+def sort_by_raster(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
+                   kfs: NIDKeyframe) -> NIDKeyframe:
+    """Permute each keyframe's points into projected raster order at
+    ``T_camera_lidar`` (`nid.py:240-290`), so the tap gathers of a solve
+    near that pose read near-monotone table rows. The key is the anchor
+    pixel's raster index, 2^31-1 for out-of-view or invalid points, and the
+    sort is stable, so the permutation equals the JAX package's stable
+    ``lax.sort``, ties included. The NID is a sum over points, so the
+    permutation changes only the f32 summation order."""
+    with torch.no_grad():
+        _, knot, inb = _project_all(camera, T_camera_lidar, kfs)
+        anchor = knot[..., 1] * camera.width + knot[..., 0]
+        key = torch.where(inb, anchor, 2**31 - 1)
+        order = torch.sort(key, dim=-1, stable=True).indices
+    return replace(
+        kfs,
+        points=torch.gather(kfs.points, 1, order[..., None].expand(-1, -1, 3)),
+        intensity=torch.gather(kfs.intensity, 1, order),
+        valid=torch.gather(kfs.valid, 1, order),
+    )
+
+
+def _anchors(camera: cam.PinholeCamera, knot: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int32 knots -> (...,) int32 flat pixel indices, clipped into
+    the image exactly as the JAX package clips them (`nid.py:508-510`)."""
+    return torch.clamp(knot[..., 1], 0, camera.height - 1) * camera.width + torch.clamp(
         knot[..., 0], 0, camera.width - 1
     )
-    k = kfs.tap_rows.shape[0]
-    kf_idx = torch.arange(k, device=anchor.device)[:, None]
-    return kfs.tap_rows[kf_idx, anchor.long()]
+
+
+def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor,
+                 inlier: torch.Tensor, use_grouped=None):
+    """(K, N, 2) knots -> (K, N, 2) packed tap rows (`nid.py:490-560`).
+
+    The direct per-point row take by default. ``use_grouped`` True takes
+    the slabbed grouped gather (K3), "streamed" the streamed one (K4): all
+    keyframes flatten into one call over the stacked slab tables (flat
+    index kf*H*W + anchor), with the original row table serving repairs
+    and the fallback. Rows whose ``inlier`` is False hold unspecified data
+    under the grouped gathers; the histogram gate zeroes them."""
+    anchor = _anchors(camera, knot)
+    if use_grouped is None:
+        use_grouped = _use_grouped_default()
+    k, r, c = kfs.tap_rows.shape
+    if not use_grouped or kfs.tap_slabs is None:
+        kf_idx = torch.arange(k, device=anchor.device)[:, None]
+        return kfs.tap_rows[kf_idx, anchor.long()]
+    n = anchor.shape[1]
+    slab = kfs.tap_slabs.shape[-1] // 2
+    # int32 flat indices would wrap at K*H*W >= 2^31 (~175 keyframes of
+    # 4096x3000) and gather wrong rows.
+    if k * r >= 2**31:
+        raise ValueError(
+            f"grouped gather flat index overflow: K*H*W = {k}*{r} >= 2^31; "
+            "split the keyframe batch or use use_grouped_gather=False"
+        )
+    flat_idx = anchor + torch.arange(k, dtype=torch.int32, device=anchor.device)[:, None] * r
+    impl = (
+        tap_gather.grouped_take_streamed
+        if use_grouped == "streamed"
+        else tap_gather.grouped_take_slabbed
+    )
+    rows = kfs.tap_rows.reshape(k * r, c)
+
+    def row_lookup(i):
+        # Repairs and the fallback read the original row table: one index
+        # per row instead of two from the slab planes.
+        return rows[i.long()]
+
+    taps = impl(kfs.tap_slabs, flat_idx.reshape(-1), inlier.reshape(-1), slab=slab,
+                lookup_rows=row_lookup)
+    return taps.reshape(k, n, c)
 
 
 def _histograms_from_taps(taps, s, bin_pts, inlier_f, bins: int):
@@ -177,15 +284,101 @@ def nid_from_histograms(hist_joint, hist_image, hist_points, num):
 
 
 def multi_nid_loss(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
-                   kfs: NIDKeyframe, bins: int = 16) -> torch.Tensor:
+                   kfs: NIDKeyframe, bins: int = 16, use_grouped=None) -> torch.Tensor:
     """Sum of per-keyframe NIDs — `MultiNIDCost::operator()`
-    (`visual_camera_calibration.cpp:94-123`), `nid.py:922-960`."""
+    (`visual_camera_calibration.cpp:94-123`), `nid.py:922-960`.
+    ``use_grouped`` selects the tap gather (see :func:`_gather_taps`)."""
     kfs = prepare_keyframes(kfs)
     proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
     s = proj - knot.to(proj.dtype)
-    taps = _gather_taps(camera, kfs, knot)
-    bin_pts = torch.clamp(to_int32(kfs.intensity * bins), 0, bins - 1)
-    losses = nid_from_histograms(
-        *_histograms_from_taps(taps, s, bin_pts, inl.to(proj.dtype), bins)
+    with torch.no_grad():
+        taps = _gather_taps(camera, kfs, knot, inl, use_grouped)
+    return _sum_nid(taps, s, kfs.intensity, inl.to(proj.dtype), bins)
+
+
+def _sum_nid(taps, s, intensity, inlier_f, bins: int) -> torch.Tensor:
+    bin_pts = torch.clamp(to_int32(intensity * bins), 0, bins - 1)
+    return torch.sum(nid_from_histograms(*_histograms_from_taps(taps, s, bin_pts, inlier_f, bins)))
+
+
+class TapCache(NamedTuple):
+    """Frozen gather state of the cached NID objective (`nid.py:406-432`):
+    the last gathered taps with the knots and inlier gate they were
+    gathered at. :func:`multi_nid_loss_cached` reuses them until anchors
+    measurably drift, then re-gathers. No reference analogue (the reference
+    re-reads image values per point per evaluation, `nid_cost.hpp:78-92`).
+    """
+
+    taps: torch.Tensor  # (K, N, 2) int32 nibble-packed window rows
+    knot: torch.Tensor  # (K, N, 2) int32 anchor knots at gather time
+    inlier: torch.Tensor  # (K, N) f32 0/1 gate at gather time
+    refreshes: int  # gathers made, the first included
+    partials: int  # refreshes served by a partial re-gather (always 0 here)
+    drift_accum: torch.Tensor  # () f32 sum of the drifted fraction at refreshes
+
+
+def _unported_cache_options(partial_frac: float = 0.0, margin: int = 0) -> None:
+    if partial_frac > 0 or margin > 0:
+        raise NotImplementedError(
+            "the frozen-tap cache's partial refresh (frozen_partial_frac > 0) and "
+            "wide window (frozen_margin > 0) are not ported to PyTorch yet; "
+            "see ROADMAP.md"
+        )
+
+
+def make_tap_cache(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
+                   kfs: NIDKeyframe, use_grouped=None) -> TapCache:
+    """A fresh gather at ``T_camera_lidar`` (`nid.py:699-721`; kfs must
+    carry tap_rows, see :func:`prepare_keyframes`)."""
+    with torch.no_grad():
+        proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
+        taps = _gather_taps(camera, kfs, knot, inl, use_grouped)
+    return TapCache(
+        taps, knot, inl.to(proj.dtype), 1, 0,
+        torch.zeros((), dtype=torch.float32, device=proj.device),
     )
-    return torch.sum(losses)
+
+
+def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
+                          kfs: NIDKeyframe, cache: TapCache, bins: int = 16,
+                          guard_frac: float = 0.25, allow_refresh: bool = True,
+                          use_grouped=None, partial_frac: float = 0.0):
+    """Sum of per-keyframe NIDs with a guarded frozen-tap gather
+    (`nid.py:724-879`, margin 0). Returns ``(loss, cache')``.
+
+    Equal to :func:`multi_nid_loss` whenever the gather is fresh; between
+    refreshes, points whose anchor drifted a pixel evaluate the previous
+    window's cubic extended one knot past its span. The guard re-gathers
+    when more than ``guard_frac`` of the live points drifted >= 1 px or more
+    than 0.1% drifted >= 2 px, and ``s`` is clipped to [-1.5, 2.5] so a
+    not-yet-refreshed far point cannot poison the histogram.
+    ``allow_refresh`` False suppresses the refresh (the caller will discard
+    the value). The refresh decision is a host branch: one device sync."""
+    _unported_cache_options(partial_frac)
+    if kfs.tap_rows is None:
+        raise ValueError("call prepare_keyframes first")
+    proj, knot_true, inl_true = _project_all(camera, T_camera_lidar, kfs)
+
+    with torch.no_grad():
+        # f32 on purpose: behind-camera knots reach ~1e9, and int32
+        # differences would overflow (those points are masked by `care`,
+        # but the arithmetic still runs).
+        shift = torch.amax(torch.abs(knot_true.float() - cache.knot.float()), dim=-1)
+        care = inl_true | (cache.inlier > 0)
+        n_care = torch.clamp(torch.sum(care), min=1).to(torch.float32)
+        frac1 = torch.sum((shift >= 1.0) & care) / n_care
+        frac2 = torch.sum((shift >= 2.0) & care) / n_care
+        if allow_refresh and bool((frac1 > guard_frac) | (frac2 > 0.001)):
+            cache = TapCache(
+                _gather_taps(camera, kfs, knot_true, inl_true, use_grouped),
+                knot_true,
+                inl_true.to(proj.dtype),
+                cache.refreshes + 1,
+                cache.partials,
+                cache.drift_accum + frac1,
+            )
+
+    # The clip bound lies outside everything the guard lets through, so
+    # live gradients are unaffected.
+    s = torch.clamp(proj - cache.knot.to(proj.dtype), -1.5, 2.5)
+    return _sum_nid(cache.taps, s, kfs.intensity, cache.inlier, bins), cache

@@ -1,9 +1,8 @@
 """NID pose refinement: trust-region-guarded inner BFGS + outer re-solve loop.
 
-Port of `pointcloudprocessor_tpu/opt/refine.py` (`refine_pose`'s plain
-outer/inner loop, `refine.py:336-360`), the rebuild of
-`VisualCameraCalibration::calibrate` / `estimate_pose_bfgs`
-(`visual_camera_calibration.cpp:49-129`):
+Port of `pointcloudprocessor_tpu/opt/refine.py` (`refine_pose`,
+`refine.py:79-418`), the rebuild of `VisualCameraCalibration::calibrate` /
+`estimate_pose_bfgs` (`visual_camera_calibration.cpp:49-129`):
 
 * the pose is ``T = T_init ∘ exp(xi)`` (right perturbation, :205);
 * iterates more than 0.2 m / 2° from the inner-solve start are rejected
@@ -13,21 +12,26 @@ outer/inner loop, `refine.py:336-360`), the rebuild of
   pose delta is below ``delta_trans_thresh`` / ``delta_rot_thresh`` or
   ``max_outer_iterations`` (:53-81).
 
-The JAX package's `lax.while_loop`s are Python loops. Its frozen-tap cache,
-coarse-to-fine schedule, raster sort and grouped gathers are not ported yet
-and raise NotImplementedError (ROADMAP.md).
+With no reference analogue, as in the JAX package: a coarse-to-fine
+schedule, the frozen-tap cache (`opt/nid.multi_nid_loss_cached`), the
+raster sort and the grouped gathers. The JAX package's `lax.while_loop`s
+and `lax.cond`s are Python loops and branches on host values: each branch
+costs one device sync. The cache's partial refresh and wide window are not
+ported yet and raise NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from dataclasses import replace
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import se3
 from ..models import camera as cam
 from . import bfgs
-from .nid import NIDKeyframe, multi_nid_loss, prepare_keyframes
+from . import nid as _nid
+from .nid import NIDKeyframe
 
 
 class RefineResult(NamedTuple):
@@ -36,30 +40,59 @@ class RefineResult(NamedTuple):
     outer_iterations: int
     converged: bool
     evaluations: int  # total objective (value+grad) evaluations
+    gathers: int = 0  # tap-table gathers (frozen_taps only; 0 otherwise)
+    partial_gathers: int = 0  # gathers served by a partial refresh (not ported: 0)
+    gather_drift: float = 0.0  # sum of the drifted fraction at each refresh
 
 
-def _guarded_objective(camera, kfs, bins, trust_trans, trust_rot):
-    """(xi, T_init) -> (value, grad) of the summed NID at T_init∘exp(xi).
+def _guarded_objective(trust_trans: float, trust_rot: float, loss):
+    """``loss(T, cache) -> (value, cache')`` -> ``(xi, T_init, cache) ->
+    (value, grad, cache')`` at T_init∘exp(xi).
 
     Outside the trust region (in the tangent of the inner-solve start pose)
     the value is +inf with a zero gradient, as under the JAX package's
-    `jnp.where`; the NID is not evaluated there, since the line search
-    discards a rejected probe's value and gradient."""
+    `jnp.where`. The loss is not evaluated there, since the line search
+    discards a rejected probe's value and gradient, so such a probe cannot
+    refresh a frozen-tap cache (``allow_refresh`` False in the JAX package,
+    `refine.py:258-274`)."""
 
-    def value_and_grad(xi: torch.Tensor, T_init: se3.SE3):
+    def value_and_grad(xi: torch.Tensor, T_init: se3.SE3, cache):
         with torch.no_grad():
             trans = torch.linalg.norm(se3.exp(xi).t)
             rot = torch.linalg.norm(xi[3:])
-            if bool((trans > trust_trans) | (rot > trust_rot)):
+            if bool((trans > trust_trans) | (rot > trust_rot)):  # one device sync
                 inf = torch.full((), float("inf"), dtype=xi.dtype, device=xi.device)
-                return inf, torch.zeros_like(xi)
+                return inf, torch.zeros_like(xi), cache
         x = xi.detach().requires_grad_(True)
         with torch.enable_grad():
-            value = multi_nid_loss(camera, se3.compose(T_init, se3.exp(x)), kfs, bins)
+            value, cache = loss(se3.compose(T_init, se3.exp(x)), cache)
             (grad,) = torch.autograd.grad(value, x)
-        return value.detach(), grad
+        return value.detach(), grad, cache
 
     return value_and_grad
+
+
+def _subsample_keyframes(kfs: NIDKeyframe, stride: int) -> NIDKeyframe:
+    """Every ``stride``-th point of each keyframe (`refine.py:68-76`; tap
+    tables and bin images shared). Culled points arrive in map or raster
+    order, so a strided slice is a spatially unbiased subsample."""
+    return replace(
+        kfs,
+        points=kfs.points[:, ::stride],
+        intensity=kfs.intensity[:, ::stride],
+        valid=kfs.valid[:, ::stride],
+    )
+
+
+class _Outer(NamedTuple):
+    T: se3.SE3
+    nid: torch.Tensor
+    it: int
+    done: bool
+    evals: int
+    gathers: int
+    drift: torch.Tensor  # () f32
+    H: torch.Tensor  # carried inverse-Hessian metric (carry_hessian)
 
 
 def refine_pose(
@@ -75,58 +108,135 @@ def refine_pose(
     trust_region_trans: float = 0.2,
     trust_region_rot: float = 0.034907,  # 2 degrees, :102
     coarse_outer_iterations: int = 0,
+    coarse_stride: int = 4,
     frozen_taps: bool = False,
-    sort_points: bool | None = None,
+    frozen_guard_frac: float = 0.25,
+    frozen_partial_frac: float = 0.0,
+    frozen_margin: int = 0,
+    sort_points: Optional[bool] = None,
     use_grouped_gather=None,
     carry_hessian: bool = False,
     ftol: float = 0.0,
 ) -> RefineResult:
     """Optimize the shared camera<-lidar correction over keyframes.
 
-    ``carry_hessian`` warm-starts each inner BFGS with the previous solve's
-    inverse Hessian; ``ftol`` is the inner solves' relative
-    function-decrease exit (0 disables)."""
-    unported = {
-        "frozen_taps": frozen_taps,
-        "coarse_outer_iterations": coarse_outer_iterations > 0,
-        "sort_points": bool(sort_points),
-        "use_grouped_gather": bool(use_grouped_gather),
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"refine_pose({name}=...) is not ported to PyTorch yet; "
-                "see ROADMAP.md (frozen-tap cache / coarse-to-fine / gathers)"
-            )
-    kfs = prepare_keyframes(kfs)
-    objective = _guarded_objective(camera, kfs, bins, trust_region_trans, trust_region_rot)
+    ``coarse_outer_iterations`` > 0: the first outer solves run the plain
+    objective with the direct take on every ``coarse_stride``-th point; the
+    final solves always run at full resolution with the same convergence
+    criteria. ``frozen_taps``: the full-resolution phase descends the
+    guarded frozen-tap objective (the cache is built once per phase and
+    carried across outer iterations; ``frozen_guard_frac`` is its guard),
+    and the returned ``nid`` is a fresh exact evaluation at the final pose.
+    ``sort_points`` (None: on when a grouped gather runs) raster-sorts the
+    points once at ``T_init``; ``use_grouped_gather`` True / "streamed"
+    selects the grouped gathers (kernels K3 / K4). ``carry_hessian``
+    warm-starts each inner BFGS with the previous solve's inverse Hessian;
+    ``ftol`` is the inner solves' relative function-decrease exit (0
+    disables)."""
+    _nid._unported_cache_options(frozen_partial_frac, frozen_margin)
+    grouped = (
+        use_grouped_gather if use_grouped_gather is not None else _nid._use_grouped_default()
+    )
+    if sort_points is None:
+        # The raster sort makes the grouped gathers' rows near-monotone;
+        # without them it is a sort per solve and a summation-order change.
+        sort_points = bool(grouped)
+    kfs = _nid.prepare_keyframes(kfs, build_slabs=bool(grouped))
+    if sort_points:
+        kfs = _nid.sort_by_raster(camera, T_init, kfs)
     dtype, device = T_init.t.dtype, T_init.t.device
     eye6 = torch.eye(6, dtype=dtype, device=device)
 
-    T = T_init
-    nid = torch.tensor(float("inf"), dtype=dtype, device=device)
-    it, done, evals, H = 0, False, 0, eye6
-    while not done and it < max_outer_iterations:
-        res = bfgs.minimize(
-            lambda xi, T=T: objective(xi, T),
+    def inner(vg_c, cache, H):
+        return bfgs.minimize_cached(
+            vg_c,
             torch.zeros(6, dtype=dtype, device=device),
+            cache,
             max_iterations=max_inner_iterations,
             H0=H if carry_hessian else None,
             scale_initial=bool(torch.all(H == eye6)) if carry_hessian else True,
             ftol=ftol,
         )
+
+    def solve_phase(init: _Outer, phase_kfs, max_iters, use_frozen, phase_grouped) -> _Outer:
+        if use_frozen:
+            def loss(T, cache):
+                return _nid.multi_nid_loss_cached(
+                    camera, T, phase_kfs, cache, bins, guard_frac=frozen_guard_frac,
+                    use_grouped=phase_grouped,
+                )
+
+            # Built once per phase and carried across outer iterations:
+            # knots are stored absolute, so the guard alone decides when
+            # the pose has moved enough to re-gather.
+            cache = _nid.make_tap_cache(camera, init.T, phase_kfs, use_grouped=phase_grouped)
+        else:
+            def loss(T, cache):
+                return _nid.multi_nid_loss(camera, T, phase_kfs, bins, use_grouped=phase_grouped), cache
+
+            cache = None
+        objective = _guarded_objective(trust_region_trans, trust_region_rot, loss)
+        st = init
+        while not st.done and st.it < max_iters:
+            res, cache = inner(lambda xi, c, T=st.T: objective(xi, T, c), cache, st.H)
+            with torch.no_grad():
+                T_new = se3.compose(st.T, se3.exp(res.x))
+                dt, dr = se3.delta_magnitudes(st.T, T_new)
+            st = _Outer(
+                T=T_new,
+                nid=res.value,
+                it=st.it + 1,
+                done=bool((dt < delta_trans_thresh) & (dr < delta_rot_thresh)),
+                evals=st.evals + res.evaluations,
+                # The cache counts this phase's gathers; the phase-entry
+                # total keeps earlier phases' gathers.
+                gathers=init.gathers + cache.refreshes if use_frozen else st.gathers,
+                drift=init.drift + cache.drift_accum if use_frozen else st.drift,
+                H=res.H if carry_hessian else st.H,
+            )
+        return st
+
+    state = _Outer(
+        T=T_init,
+        nid=torch.tensor(float("inf"), dtype=dtype, device=device),
+        it=0,
+        done=False,
+        evals=0,
+        gathers=0,
+        drift=torch.zeros((), dtype=torch.float32, device=device),
+        H=eye6,
+    )
+    if coarse_outer_iterations > 0 and coarse_stride > 1:
+        # The coarse phase runs the plain objective with the direct take:
+        # the stride multiplies sorted-point gaps, so grouped windows would
+        # overflow, and it takes the large steps that would refresh a
+        # frozen cache constantly.
+        coarse = solve_phase(
+            state, _subsample_keyframes(kfs, coarse_stride), coarse_outer_iterations,
+            use_frozen=False, phase_grouped=False,
+        )
+        # The fine phase starts from the coarse pose with a reset iteration
+        # and convergence state; evaluations, gathers and H carry over.
+        state = coarse._replace(nid=state.nid, it=0, done=False)
+    final = solve_phase(
+        state, kfs, max_outer_iterations, use_frozen=frozen_taps,
+        phase_grouped=use_grouped_gather,
+    )
+    nid_final = final.nid
+    if frozen_taps:
+        # The exact full-resolution objective at the final pose, not the
+        # last surrogate value (one extra forward evaluation).
         with torch.no_grad():
-            T_new = se3.compose(T, se3.exp(res.x))
-            dt, dr = se3.delta_magnitudes(T, T_new)
-        done = bool((dt < delta_trans_thresh) & (dr < delta_rot_thresh))
-        T, nid, it = T_new, res.value, it + 1
-        evals += res.evaluations
-        if carry_hessian:
-            H = res.H
+            nid_final = _nid.multi_nid_loss(
+                camera, final.T, kfs, bins, use_grouped=use_grouped_gather
+            )
     return RefineResult(
-        T_camera_lidar=T,
-        nid=nid,
-        outer_iterations=it,
-        converged=done,
-        evaluations=evals,
+        T_camera_lidar=final.T,
+        nid=nid_final,
+        outer_iterations=final.it,
+        converged=final.done,
+        evaluations=final.evals,
+        gathers=final.gathers,
+        partial_gathers=0,
+        gather_drift=float(final.drift),
     )

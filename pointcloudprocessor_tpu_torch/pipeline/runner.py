@@ -11,7 +11,8 @@ Stages hand off device tensors on the ``device`` the caller names; nothing
 falls back to another device. Branches outside this slice raise
 NotImplementedError (see ROADMAP.md): MLS, per-keyframe refinement,
 re-culling between outer iterations, the manual initial guess, HPR
-culling, mask images and local color smoothing.
+culling, mask images, local color smoothing, and the frozen-tap cache's
+partial refresh and wide window.
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ def check_supported(cfg: PipelineConfig) -> None:
         "fusion.local_smoothing_radius>0": cfg.fusion.local_smoothing_radius > 0,
         "nid.per_keyframe": cfg.nid.per_keyframe,
         "nid.recull_every_outer_iter": cfg.nid.recull_every_outer_iter,
-        "nid.frozen_taps": cfg.nid.frozen_taps,
-        "nid.coarse_outer_iterations>0": cfg.nid.coarse_outer_iterations > 0,
+        "nid.frozen_partial_frac>0": cfg.nid.frozen_partial_frac > 0,
+        "nid.frozen_margin>0": cfg.nid.frozen_margin > 0,
     }
     on = [name for name, flag in unported.items() if flag]
     if on:
@@ -251,6 +252,16 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
         result.nid_value = saved.get("nid", float("nan"))
         metrics.log("nid_resumed", path=corr_path)
     elif cfg.enable_nid_optimize:
+        # The schedule's options, forwarded as the JAX runner forwards them
+        # (`runner.py:377-410`).
+        kw = {}
+        if cfg.nid.coarse_outer_iterations:
+            kw.update(
+                coarse_outer_iterations=cfg.nid.coarse_outer_iterations,
+                coarse_stride=cfg.nid.coarse_stride,
+            )
+        if cfg.nid.frozen_taps:
+            kw.update(frozen_taps=True, frozen_guard_frac=cfg.nid.frozen_guard_frac)
         with timer.stage("nid_refine"):
             res = refine.refine_pose(
                 camera,
@@ -265,6 +276,7 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
                 trust_region_rot=float(np.radians(cfg.nid.trust_region_rot_deg)),
                 carry_hessian=cfg.nid.carry_hessian,
                 ftol=cfg.nid.ftol,
+                **kw,
             )
             T_correction = res.T_camera_lidar
             result.nid_value = float(res.nid)
@@ -289,6 +301,7 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
             outer_iterations=res.outer_iterations,
             converged=res.converged,
             evaluations=res.evaluations,
+            gathers=res.gathers,
         )
     del kfs
     result.T_correction = T_correction

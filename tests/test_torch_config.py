@@ -91,8 +91,8 @@ def test_cli_device_defaults_to_cuda():
         ("fusion.local_smoothing_radius", 0.05),
         ("nid.per_keyframe", True),
         ("nid.recull_every_outer_iter", True),
-        ("nid.frozen_taps", True),
-        ("nid.coarse_outer_iterations", 1),
+        ("nid.frozen_partial_frac", 0.25),
+        ("nid.frozen_margin", 1),
     ],
 )
 def test_unported_branches_raise(path, value):

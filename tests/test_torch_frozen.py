@@ -1,0 +1,265 @@
+"""PyTorch port vs the JAX package: the frozen-tap cache, minimize_cached,
+and the solves of the headline schedule (frozen taps + coarse-to-fine +
+ftol), through refine_pose and runner.process.
+
+Tolerance classes: bit-exact for the cache's taps, knots and gate, for the
+refresh counts, and between the port's own gather paths; f32 summation
+order for NID values (rtol 1e-5) and pose gradients (1e-4 of the
+gradient's norm: the joint histogram's einsum adds ~10^4 weights in another
+order than XLA's); objective level for solves (CLAUDE.md "Sharded vs
+unsharded BFGS"): final NIDs within 1e-3 of each other and at most the
+truth's NID + 1e-3, poses within 3 cm / 1 degree of the truth."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pointcloudprocessor_tpu.core import se3 as jse3
+from pointcloudprocessor_tpu.opt import bfgs as jbfgs
+from pointcloudprocessor_tpu.opt import nid as jnid
+from pointcloudprocessor_tpu.opt import refine as jrefine
+from pointcloudprocessor_tpu.pipeline import runner as jrunner
+from pointcloudprocessor_tpu_torch.core import se3 as tse3
+from pointcloudprocessor_tpu_torch.opt import bfgs as tbfgs
+from pointcloudprocessor_tpu_torch.opt import nid as tnid
+from pointcloudprocessor_tpu_torch.opt import refine as trefine
+from pointcloudprocessor_tpu_torch.pipeline import runner as trunner
+from pointcloudprocessor_tpu_torch.utils import config as tcfg
+from pointcloudprocessor_tpu_torch.utils import interop
+
+from test_pipeline_e2e import small_config, write_dataset
+from test_nid import nid_scene
+from test_torch_nid import _cameras, _keyframes
+from test_torch_pipeline import OFFSET, POSE_BOUND_M, POSE_BOUND_RAD, ROT_OFFSET, _nid_at, _truth
+
+CPU = "cpu"
+NID_TOL = 1e-3
+T0_XI = (0.02, -0.01, 0.01, 0.004, -0.002, 0.004)
+
+
+def _both(k=3):
+    """The same padded K-keyframe batch (off-image and z=0 padding points
+    drive knots to the int32 range: the guard's f32 shift) in both
+    packages, tap tables attached."""
+    cj, ct = _cameras()
+    pts, inten, valid, bins = _keyframes(cj, k=k)
+    kj = jnid.prepare_keyframes(
+        jnid.NIDKeyframe(jnp.asarray(pts), jnp.asarray(inten), jnp.asarray(valid),
+                         jnp.asarray(bins)), build_slabs=False)
+    kt = tnid.prepare_keyframes(interop.nid_keyframes(pts, inten, valid, bins, CPU))
+    return cj, ct, kj, kt
+
+
+def _aligned(k=2, cap=4000):
+    """K keyframes of textured walls whose images were rendered from the
+    points' own poses (truth = identity), padded to ``cap``."""
+    cj, ct = _cameras()
+    arrays = [[], [], [], []]
+    for i in range(k):
+        pts, inten, img = nid_scene(cj, wall_z=5.0 + 0.6 * i, seed=i)
+        n = len(pts)
+        for lst, a, fill in zip(arrays, (pts, inten, np.ones(n, bool)), (0, 0, False)):
+            pad = np.full((cap,) + a.shape[1:], fill, a.dtype)
+            pad[:n] = a
+            lst.append(pad)
+        arrays[3].append(np.asarray(jnid.quantize_image(jnp.asarray(img), 16)))
+    pts, inten, valid, bins = (np.stack(a) for a in arrays)
+    kj = jnid.NIDKeyframe(jnp.asarray(pts), jnp.asarray(inten), jnp.asarray(valid),
+                          jnp.asarray(bins))
+    return cj, ct, kj, interop.nid_keyframes(pts, inten, valid, bins, CPU)
+
+
+def _poses(xi):
+    Tj = jse3.exp(jnp.asarray(np.asarray(xi, np.float32)))
+    return Tj, interop.pose(np.asarray(Tj.q), np.asarray(Tj.t), CPU)
+
+
+@pytest.mark.parametrize("use_grouped", [False, True, "streamed"])
+def test_make_tap_cache_bit_exact(use_grouped):
+    """Taps, knots and inlier gate of a fresh gather equal the JAX
+    package's direct gather (the grouped gathers on inlier rows)."""
+    cj, ct, kj, kt = _both()
+    kt = tnid.prepare_keyframes(kt, build_slabs=bool(use_grouped))
+    Tj, Tt = _poses(T0_XI)
+    cj_ = jnid.make_tap_cache(cj, Tj, kj, use_grouped=False)
+    ct_ = tnid.make_tap_cache(ct, Tt, kt, use_grouped=use_grouped)
+    np.testing.assert_array_equal(ct_.knot.numpy(), np.asarray(cj_.knot))
+    np.testing.assert_array_equal(ct_.inlier.numpy(), np.asarray(cj_.inlier))
+    live = ct_.inlier.numpy() > 0
+    np.testing.assert_array_equal(ct_.taps.numpy()[live], np.asarray(cj_.taps)[live])
+    if not use_grouped:
+        np.testing.assert_array_equal(ct_.taps.numpy(), np.asarray(cj_.taps))
+    assert ct_.refreshes == int(cj_.refreshes) == 1
+
+
+@pytest.mark.parametrize("step_px, refreshes", [(0.0, 1), (0.1, 1), (8.0, 2)])
+def test_cached_loss_matches_jax(step_px, refreshes):
+    """test_nid.py:327-387 in both packages: at the gather pose, after a
+    sub-pixel step (stays frozen, close to exact) and after an 8 px step
+    (re-gathers, then equals the exact loss)."""
+    cj, ct, kj, kt = _both()
+    Tj, Tt = _poses(T0_XI)
+    fx = float(cj.intrinsic[0])
+    xi = np.asarray([step_px * 5.0 / fx, 0, 0, 0, 0, 0], np.float32)
+    cache_j = jnid.make_tap_cache(cj, Tj, kj)
+    cache_t = tnid.make_tap_cache(ct, Tt, kt)
+
+    def jf(x):
+        return jnid.multi_nid_loss_cached(cj, jse3.compose(Tj, jse3.exp(x)), kj, cache_j,
+                                          use_pallas=False, use_grouped=False)
+
+    (vj, cj2), gj = jax.value_and_grad(jf, has_aux=True)(jnp.asarray(xi))
+    x = torch.from_numpy(xi).requires_grad_(True)
+    vt, ct2 = tnid.multi_nid_loss_cached(ct, tse3.compose(Tt, tse3.exp(x)), kt, cache_t)
+    (gt,) = torch.autograd.grad(vt, x)
+    vt = vt.detach()
+    assert ct2.refreshes == int(cj2.refreshes) == refreshes
+    np.testing.assert_allclose(float(ct2.drift_accum), float(cj2.drift_accum), rtol=1e-6)
+    np.testing.assert_allclose(float(vt), float(vj), rtol=1e-5)
+    gj = np.asarray(gj)
+    assert np.linalg.norm(gt.numpy() - gj) <= 1e-4 * np.linalg.norm(gj)
+
+    # Against the port's own exact objective at the same pose.
+    x2 = torch.from_numpy(xi).requires_grad_(True)
+    ve = tnid.multi_nid_loss(ct, tse3.compose(Tt, tse3.exp(x2)), kt)
+    (ge,) = torch.autograd.grad(ve, x2)
+    ve = ve.detach()
+    if step_px == 0.1:
+        assert abs(float(vt) - float(ve)) <= 2e-3
+    else:  # a fresh gather: the same taps, knots and gate, so the same sums
+        assert float(vt) == float(ve)
+        np.testing.assert_array_equal(gt.numpy(), ge.numpy())
+
+
+def test_cached_loss_no_refresh_when_not_allowed():
+    cj, ct, kj, kt = _both(k=1)
+    _, Tt = _poses(T0_XI)
+    cache = tnid.make_tap_cache(ct, Tt, kt)
+    T1 = tse3.compose(Tt, tse3.exp(torch.tensor([8.0 * 5.0 / 120.0, 0, 0, 0, 0, 0])))
+    _, c2 = tnid.multi_nid_loss_cached(ct, T1, kt, cache, allow_refresh=False)
+    assert c2 is cache
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tnid.multi_nid_loss_cached(ct, T1, kt, cache, partial_frac=0.5)
+
+
+def test_minimize_cached_threads_cache_like_jax():
+    """minimize_cached on a quadratic whose cache counts evaluations: the
+    port and the JAX solver see the same probes and return the same
+    counter; minimize is minimize_cached with an empty cache."""
+    A = np.asarray([[3.0, 0.5, 0.0], [0.5, 2.0, 0.3], [0.0, 0.3, 1.0]], np.float32)
+    b = np.asarray([1.0, -2.0, 0.5], np.float32)
+
+    def jvg(x, c):
+        v, g = jax.value_and_grad(lambda z: 0.5 * z @ jnp.asarray(A) @ z - jnp.asarray(b) @ z)(x)
+        return v, g, c + 1
+
+    rj, cj = jbfgs.minimize_cached(jvg, jnp.zeros(3, jnp.float32), jnp.asarray(0), max_iterations=50)
+
+    def tvg(x, c):
+        x = x.detach().requires_grad_(True)
+        v = 0.5 * x @ torch.from_numpy(A) @ x - torch.from_numpy(b) @ x
+        (g,) = torch.autograd.grad(v, x)
+        return v.detach(), g, c + 1
+
+    rt, ct = tbfgs.minimize_cached(tvg, torch.zeros(3), 0, max_iterations=50)
+    assert ct == int(cj) == rt.evaluations == int(rj.evaluations)
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), atol=1e-5)
+    plain = tbfgs.minimize(lambda x: tvg(x, 0)[:2], torch.zeros(3), max_iterations=50)
+    assert plain.evaluations == rt.evaluations and torch.equal(plain.x, rt.x)
+
+
+SCHEDULES = {
+    "frozen": dict(frozen_taps=True, frozen_guard_frac=0.25),
+    "c2f": dict(coarse_outer_iterations=1, coarse_stride=4),
+    "headline": dict(coarse_outer_iterations=1, coarse_stride=16, frozen_taps=True,
+                     frozen_guard_frac=0.75, ftol=3e-4),
+}
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_refine_schedules_match_jax(schedule):
+    """refine_pose from a 1.9 cm / 0.4 deg error under each schedule:
+    objective-level parity with the JAX package and no shallower than the
+    truth (identity). On these two small walls the NID's minimum lies
+    ~1.3 cm from the truth (the plateau), so the pose is held to the loose
+    bound of test_torch_pipeline."""
+    cj, ct, kj, kt = _aligned()
+    Tj, Tt = _poses((0.015, -0.01, 0.006, 0.004, -0.003, 0.005))
+    kw = dict(max_outer_iterations=3, max_inner_iterations=20, **SCHEDULES[schedule])
+    rj = jrefine.refine_pose(cj, kj, Tj, **kw)
+    rt = trefine.refine_pose(ct, kt, Tt, **kw)
+    truth = float(tnid.multi_nid_loss(ct, tse3.identity(CPU), kt))
+    assert abs(float(rt.nid) - float(rj.nid)) <= NID_TOL
+    assert float(rt.nid) <= truth + NID_TOL and float(rj.nid) <= truth + NID_TOL
+    dt, dr = tse3.delta_magnitudes(rt.T_camera_lidar, tse3.identity(CPU))
+    assert float(dt) < POSE_BOUND_M and float(dr) < POSE_BOUND_RAD
+    if kw.get("frozen_taps"):
+        assert rt.gathers >= 1 and int(rj.gathers) >= 1
+        # The reported NID is a fresh exact evaluation at the final pose.
+        assert float(rt.nid) == float(tnid.multi_nid_loss(ct, rt.T_camera_lidar, kt))
+    else:
+        assert rt.gathers == 0
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_gather_paths_bit_identical_through_refine(frozen):
+    """test_nid.py:220 in the port: with one raster order, the direct and
+    the two grouped gathers drive refine_pose to bit-identical results."""
+    _, ct, _, kt = _aligned()
+    _, Tt = _poses((0.015, -0.01, 0.006, 0.004, -0.003, 0.005))
+    kw = dict(max_inner_iterations=25, max_outer_iterations=2, sort_points=True,
+              frozen_taps=frozen)
+    base = trefine.refine_pose(ct, kt, Tt, **kw)
+    for impl in (True, "streamed"):
+        got = trefine.refine_pose(ct, kt, Tt, use_grouped_gather=impl, **kw)
+        assert float(got.nid) == float(base.nid), impl
+        assert got.evaluations == base.evaluations and got.gathers == base.gathers
+        assert torch.equal(got.T_camera_lidar.t, base.T_camera_lidar.t)
+
+
+@pytest.fixture(scope="module")
+def headline_runs(tmp_path_factory):
+    """One dataset; both runners with the headline NIDConfig
+    (bench.py:797-805)."""
+    root = tmp_path_factory.mktemp("headline")
+    write_dataset(root, n_frames=4, odom_offset=OFFSET, odom_rot_offset=ROT_OFFSET,
+                  wall_slope=0.15, occluder=True)
+    cfg = small_config(root, enable_nid_optimize=True)
+    cfg.map_capacity = 12288
+    cfg.nid.max_outer_iterations = 2
+    cfg.nid.max_inner_iterations = 20
+    cfg.nid.coarse_outer_iterations = 1
+    cfg.nid.coarse_stride = 16
+    cfg.nid.frozen_taps = True
+    cfg.nid.frozen_guard_frac = 0.75
+    cfg.nid.ftol = 3e-4
+    res_j = jrunner.process(cfg)
+    cfg_t = tcfg.PipelineConfig.from_json(cfg.to_json())
+    cfg_t.output_path = str(root / "out_torch") + os.sep
+    res_t = trunner.process(cfg_t, CPU)
+    return root, cfg_t, res_j, res_t
+
+
+def test_runner_headline_schedule_matches_jax(headline_runs):
+    root, cfg_t, res_j, res_t = headline_runs
+    assert res_t.num_keyframes == res_j.num_keyframes == 4
+    assert np.isfinite(res_t.nid_value)
+    assert abs(res_t.nid_value - res_j.nid_value) <= NID_TOL
+    # Depth: both runners stop ~3.7e-3 above the truth's NID here (0.44 cm
+    # from the plant: the ftol exit on four small keyframes), so the port
+    # is held to the JAX runner's depth and the pose bound.
+    assert res_t.nid_value <= res_j.nid_value + NID_TOL
+    q, t = _truth()
+    truth = interop.pose(q, t, CPU)
+    assert res_t.nid_value <= _nid_at(cfg_t, root, truth) + 5e-3
+    dt, dr = tse3.delta_magnitudes(res_t.T_correction, truth)
+    assert float(dt) < POSE_BOUND_M and float(dr) < POSE_BOUND_RAD
+    assert abs(res_t.num_colored_points - res_j.num_colored_points) <= 0.01 * res_j.num_colored_points
+    with open(os.path.join(cfg_t.output_path, "metrics.jsonl")) as f:
+        refined = [line for line in f if '"nid_refined"' in line]
+    assert refined and '"gathers"' in refined[0]

@@ -158,8 +158,9 @@ def test_refine_unported_options_raise():
     kfs = interop.nid_keyframes(np.zeros((1, 4, 3)), np.zeros((1, 4)), np.ones((1, 4), bool),
                                 np.zeros((1, 8, 8), np.int32), CPU)
     camera = interop.camera((10.0, 10.0, 4.0, 4.0), (0.0,) * 5, 8, 8, CPU)
-    for kw in (dict(frozen_taps=True), dict(coarse_outer_iterations=1),
-               dict(sort_points=True), dict(use_grouped_gather="streamed")):
+    for kw in (dict(frozen_taps=True, frozen_partial_frac=0.25),
+               dict(frozen_taps=True, frozen_margin=1),
+               dict(frozen_partial_frac=0.25), dict(frozen_margin=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trefine.refine_pose(camera, kfs, tse3.identity(CPU), **kw)
 
