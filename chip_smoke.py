@@ -8,21 +8,25 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for matmuls and cuDNN.
-2. Build: compiles both kernel libraries (csrc/nid_hist.cu: K1/K2,
-   csrc/tap_gather.cu: K3/K4) with nvcc for sm_90a, one nvcc each, started
-   together, from the sources in this checkout.
+2. Build: compiles the three kernel libraries (csrc/nid_hist.cu: K1/K2,
+   csrc/tap_gather.cu: K3/K4, csrc/zbuffer.cu: K5 zmin and zbuffer_visible)
+   with nvcc for sm_90a, one nvcc each, started together, from the sources
+   in this checkout.
 3. K1/K2 against their plain torch twins at the main path's shape (K=8
    keyframes x N=262,144 points, ~30% gated out, s uniform in [-1.5, 2.5],
    inputs from a numpy seed): histogram, NID value and s-gradient errors,
    and median times over 20 calls (CUDA events).
-4. Main path at the reference's scale: a synthetic scene (4096x3000
-   images, a 1,000,000-point wall + occluder map, 8 yawing keyframes, a
-   planted odometry error T0) written to disk, then the port's
-   ``runner.process(cfg, "cuda")`` under the headline NID schedule
-   (bench.py:797-805: 2 outer x 20 inner, coarse-to-fine stride 16, frozen
-   taps with guard 0.75, ftol 3e-4). Asserts the recovered correction is
-   within 1 cm / 1 degree of T0, a finite NID, colored points whose colors
-   follow the rendered texture, and K1/K2 launches in the run.
+4. Main path at the reference's scale: the bench scene
+   (pointcloudprocessor_tpu_torch/tools/bench_scene.py: 4096x3000 images,
+   a 1,000,000-point wall + occluder map, 8 yawing keyframes, a planted
+   odometry error T0, a left-half segmentation mask per keyframe) written
+   to disk, then the port's ``runner.process(cfg, "cuda")`` under the
+   headline NID schedule (bench.py:797-805: 2 outer x 20 inner,
+   coarse-to-fine stride 16, frozen taps with guard 0.75, ftol 3e-4).
+   Asserts the recovered correction is within 1 cm / 1 degree of T0, a
+   finite NID, colored points whose colors follow the rendered texture, K1/K2
+   launches, and 16 launches each of zmin and zbuffer_visible (8 culls + 8
+   colorize observations).
 5. K3/K4 against their twins on the scene's own 8 x 4096x3000 tap tables,
    the culled points raster-sorted at the start pose: gathers at that pose
    (fast path) and at T0 (overflow; fallback), bit-exact against the twin
@@ -30,8 +34,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. The grouped path: the frozen-tap solve (2 x 20, guard 0.75, ftol 3e-4,
    raster sort, no coarse phase) with the direct take, K3 and K4; K3 and K4
    launch, the three final NIDs agree within 1e-3, each recovers T0.
-7. The earlier path: ``runner.process`` under the plain objective (2 outer
+7. K5/Z1: ``zmin_tiles`` (the K5 form) bit-equal to its twin at the probe's
+   full size (999,424 points, 62,995 cells, ranges with negatives and
+   zeros, 1% of cells out of range); ``cull_world_points`` kernel masks
+   bit-equal to the twin's on the scene's 8 keyframes; median times of
+   zmin, its twin, the twin with its gather, zbuffer_visible and its twin.
+8. The mask path: ``runner.process`` under the headline schedule with the
+   mask folder set. Asserts what tests/test_pipeline_e2e.py's
+   test_e2e_with_masks asserts (labels follow the mask, highlighted points
+   are red, one dump per keyframe, the accumulated cloud is the sum of the
+   dumps) and 24 launches each of zmin and zbuffer_visible (+8 dumps).
+9. The earlier path: ``runner.process`` under the plain objective (2 outer
    x 20 inner), as in phase 4 otherwise.
+10. Tools at full scale: ``tools/colorize_anatomy`` and
+   ``tools/zbuffer_probe``, each printing its JSON line; both must report
+   non-null kernel times and exact masks / buffers.
 
 The launch counts are set to 0 just before each path and read just after.
 The line before the last is a JSON object describing each kernel; the last
@@ -44,7 +61,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import subprocess
 import sys
 import time
 
@@ -53,12 +69,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "pointcloudprocessor_tpu_torch"
 
-# Main-path shapes (bench.py's full scale) and the scene of bench.py:101-254.
+# Main-path shapes: bench.py's full scale (tools/bench_scene.py holds the
+# scene itself).
 WIDTH, HEIGHT, N_MAP, N_CULL, K = 4096, 3000, 1_000_000, 262_144, 8
-F_PX = 4818.2
-WALL_Z, OCC_Z = 6.0, 2.5
-OCC_X, OCC_Y = (0.3, 1.5), (-0.6, 0.6)
-T0_TANGENT = (0.02, -0.01, 0.01, 0.004, -0.002, 0.004)
 SEED = 0
 # NID schedules: the headline (bench.py:797-805) and the plain objective
 # (frozen taps and coarse-to-fine off). 20 inner iterations as in bench.py's
@@ -68,16 +81,9 @@ SEED = 0
 HEADLINE = dict(max_outer_iterations=2, max_inner_iterations=20, coarse_outer_iterations=1,
                 coarse_stride=16, frozen_taps=True, frozen_guard_frac=0.75, ftol=3e-4)
 PLAIN = dict(max_outer_iterations=2, max_inner_iterations=20)
-
-
-def _field_wall(x, y):
-    return np.clip(0.5 + 0.25 * np.sin(7.0 * x) + 0.25 * np.cos(9.0 * y), 0.0, 1.0)
-
-
-def _field_occ(x, y):
-    return np.clip(
-        0.5 + 0.25 * np.sin(13.0 * x + 1.0) + 0.25 * np.cos(11.0 * y + 2.0), 0.0, 1.0
-    )
+# The K5 probe's full size (tools/zbuffer_probe.FULL): 999,424 points into
+# the 293 x 215 cells of a 14x-downsampled 4096x3000 image.
+PROBE_N, PROBE_CELLS = 999_424, 293 * 215
 
 
 def phase_env():
@@ -87,11 +93,9 @@ def phase_env():
           f"cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not measured"
+    from pointcloudprocessor_tpu_torch.utils import profiling
+
+    card = profiling.card()
     print(card)
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False")
@@ -101,13 +105,13 @@ def phase_env():
 
 
 def phase_build():
-    """Both kernel libraries, one nvcc each, started together."""
+    """The three kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pointcloudprocessor_tpu_torch.kernels import build as kbuild
 
     t0 = time.perf_counter()
-    names = ("nid_hist", "tap_gather")
+    names = ("nid_hist", "tap_gather", "zbuffer")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(kbuild.build, names))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} libraries in parallel")
@@ -120,24 +124,10 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.3f}"
 
 
-def _median_ms(fn, device="cuda", reps=20, warmup=3):
-    """Median CUDA-event time of ``fn`` in ms; None off the card."""
-    import torch
+def _median_ms(fn, device="cuda"):
+    from pointcloudprocessor_tpu_torch.utils import profiling
 
-    if device != "cuda":
-        return None
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return profiling.median_ms(fn, device)
 
 
 def phase_kernels(card):
@@ -233,69 +223,24 @@ def phase_kernels(card):
     ]
 
 
-def scene_map():
-    """The bench scene's map (bench.py:101-254, scene 1) in numpy: (N_MAP, 3)
-    f32 points on the wall and the occluder, and their f32 intensities."""
-    rng = np.random.default_rng(SEED)
-    f_px = F_PX * (WIDTH / 4096.0)
-    n_occ = N_MAP // 8
-    n_wall = N_MAP - n_occ
-    half_x = (WIDTH / 2.0) / f_px * WALL_Z
-    half_y = (HEIGHT / 2.0) / f_px * WALL_Z
-    wx = rng.uniform(-half_x - 0.6, half_x + 1.6, n_wall).astype(np.float32)
-    wy = rng.uniform(-half_y - 0.2, half_y + 0.2, n_wall).astype(np.float32)
-    ox = rng.uniform(OCC_X[0], OCC_X[1], n_occ).astype(np.float32)
-    oy = rng.uniform(OCC_Y[0], OCC_Y[1], n_occ).astype(np.float32)
-    points = np.concatenate([
-        np.stack([wx, wy, np.full_like(wx, WALL_Z)], -1),
-        np.stack([ox, oy, np.full_like(ox, OCC_Z)], -1),
-    ])
-    inten = np.concatenate([_field_wall(wx, wy), _field_occ(ox, oy)]).astype(np.float32)
-    return points, inten
-
-
-def scene_trajectory():
-    """Keyframe poses P_i (wxyz quaternions and positions, f32): +x
-    translation, yaw about y from -4 to 4 degrees."""
-    kf_x = 0.12 * np.arange(K, dtype=np.float32)
-    yaw = np.radians(np.linspace(-4.0, 4.0, K)).astype(np.float32)
-    quats = np.stack(
-        [np.cos(yaw / 2), np.zeros_like(yaw), np.sin(yaw / 2), np.zeros_like(yaw)], -1
-    ).astype(np.float32)
-    positions = np.stack([kf_x, np.zeros_like(kf_x), np.zeros_like(kf_x)], -1)
-    return quats, positions
-
-
-def scene_odometry():
-    """The odometry the scene writes: (T0, O_i = P_i ∘ T0 as an SE3 batch),
-    the planted error of bench.py:734-749."""
-    import torch
-
-    from pointcloudprocessor_tpu_torch.core import se3
-
-    quats, positions = scene_trajectory()
-    T0 = se3.exp(torch.tensor(T0_TANGENT, dtype=torch.float32))
-    return T0, se3.compose(se3.SE3(torch.from_numpy(quats), torch.from_numpy(positions)), T0)
-
-
-def write_scene(root):
+def write_scene(root, device="cuda"):
     """The bench scene written to disk as the pipeline reads it: map.pcd,
-    odometry with the planted error (:func:`scene_odometry`), one JPEG per
-    keyframe ray-cast off the wall and the occluder."""
-    import torch
-
-    from pointcloudprocessor_tpu_torch.core import se3
+    odometry with the planted error T0, one JPEG per keyframe ray-cast off
+    the wall and the occluder on ``device``, and one segmentation mask PNG
+    per keyframe, label 255 on the left half of the image (as
+    tests/test_pipeline_e2e.py writes them). Returns T0."""
     from pointcloudprocessor_tpu_torch.io import native, pcd
     from pointcloudprocessor_tpu_torch.pipeline import ingest
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
     t0 = time.perf_counter()
-    os.makedirs(os.path.join(root, "images"), exist_ok=True)
-    f_px = F_PX * (WIDTH / 4096.0)
-    points, inten = scene_map()
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    points, inten = bs.scene_map(N_MAP, WIDTH, HEIGHT, SEED)
     pcd.write(os.path.join(root, "map.pcd"), points, intensity=inten)
 
-    quats, positions = scene_trajectory()
-    T0, op = scene_odometry()
+    quats, positions = bs.scene_trajectory(K)
+    T0, op = bs.scene_odometry(K)
     times = 1700000000.0 + 0.1 * np.arange(K)
     with open(os.path.join(root, "vo_interpolated_odom.txt"), "w") as f:
         for i in range(K):
@@ -303,48 +248,48 @@ def write_scene(root):
             f.write(f"{times[i]:.6f} {t[0]!r} {t[1]!r} {t[2]!r} "
                     f"{q[0]!r} {q[1]!r} {q[2]!r} {q[3]!r}\n")
 
-    # Ray-cast each keyframe's image off the wall and the occluder.
-    uu = ((np.arange(WIDTH, dtype=np.float32) - WIDTH / 2.0) / f_px)[None, :]
-    vv = ((np.arange(HEIGHT, dtype=np.float32) - HEIGHT / 2.0) / f_px)[:, None]
-    R = se3.quat_to_matrix(torch.from_numpy(quats)).numpy()
+    mask = np.zeros((HEIGHT, WIDTH), np.uint8)
+    mask[:, : WIDTH // 2] = 255
+    import torch
+
     for i in range(K):
-        Ri, t = R[i], positions[i]
-        dx = uu * Ri[0, 0] + vv * Ri[0, 1] + Ri[0, 2]
-        dy = uu * Ri[1, 0] + vv * Ri[1, 1] + Ri[1, 2]
-        dz = uu * Ri[2, 0] + vv * Ri[2, 1] + Ri[2, 2]
-        s_occ = (OCC_Z - t[2]) / dz
-        hx, hy = t[0] + s_occ * dx, t[1] + s_occ * dy
-        hit = (hx >= OCC_X[0]) & (hx <= OCC_X[1]) & (hy >= OCC_Y[0]) & (hy <= OCC_Y[1])
-        s_wall = (WALL_Z - t[2]) / dz
-        gray = np.where(hit, _field_occ(hx, hy), _field_wall(t[0] + s_wall * dx, t[1] + s_wall * dy))
-        img = np.repeat((gray * 255.0).astype(np.uint8)[..., None], 3, axis=-1)
-        name = os.path.join(root, "images", ingest.cpp_timestamp(times[i]) + ".jpg")
+        gray = bs.render_gray(torch.from_numpy(quats[i]).to(device),
+                              torch.from_numpy(positions[i]).to(device), WIDTH, HEIGHT)
+        img = np.repeat(gray.cpu().numpy()[..., None], 3, axis=-1)
+        stem = ingest.cpp_timestamp(times[i])
+        name = os.path.join(root, "images", stem + ".jpg")
+        mask_name = os.path.join(root, "masks", stem + ".png")
         try:
             import cv2
 
             codec = f"cv2 {cv2.__version__}"
             cv2.imwrite(name, img[:, :, ::-1])
+            cv2.imwrite(mask_name, mask)
         except ImportError:
             from PIL import Image
 
             codec = "PIL"
             Image.fromarray(img).save(name, quality=95)
+            Image.fromarray(mask).save(mask_name)
     print(f"scene written in {time.perf_counter() - t0:.1f} s: {N_MAP} points, {K} "
-          f"{WIDTH}x{HEIGHT} JPEGs ({codec}); PCD codec: "
+          f"{WIDTH}x{HEIGHT} JPEGs and PNG masks ({codec}); PCD codec: "
           f"{'native' if native.available() else 'numpy fallback'}")
     return T0
 
 
-def _config(root, nid):
+def _config(root, nid, masks=False):
     """The pipeline config of the smoke scene (bench.py's e2e config,
-    `bench.py:768-806`, MLS off) with the given NIDConfig."""
+    `bench.py:768-806`, MLS off) with the given NIDConfig, and with the
+    scene's mask folder if ``masks``."""
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
     from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
 
-    f_px = F_PX * (WIDTH / 4096.0)
+    f_px = bs.focal(WIDTH)
     return cfg_mod.PipelineConfig(
         point_cloud_path=os.path.join(root, "map.pcd"),
         odometry_path=os.path.join(root, "vo_interpolated_odom.txt"),
         images_folder=os.path.join(root, "images"),
+        mask_image_folder=os.path.join(root, "masks") if masks else "",
         output_path=os.path.join(root, "out"),
         enable_mls=False,
         enable_nid_optimize=True,
@@ -363,16 +308,18 @@ def _config(root, nid):
 
 
 def _reset_counts():
-    from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather
+    from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather, zbuffer
 
     nid_hist.reset_launch_counts()
     tap_gather.reset_launch_counts()
+    zbuffer.reset_launch_counts()
 
 
 def _read_counts():
-    from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather
+    from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather, zbuffer
 
-    return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts}
+    return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
+            **zbuffer.launch_counts}
 
 
 def _pose_error(T, T0):
@@ -382,15 +329,19 @@ def _pose_error(T, T0):
     return float(dt) * 100.0, float(np.degrees(float(dr)))
 
 
-def phase_runner(card, root, T0, nid, label, device="cuda"):
-    """``runner.process`` on the smoke scene under ``nid``, the launch counts
-    set to 0 just before it and read just after. Asserts the planted error
-    is recovered to 1 cm / 1 deg, a finite NID, colored points whose colors
-    follow the rendered texture, and (on the card) K1/K2 launches."""
+def phase_runner(card, root, T0, nid, label, device="cuda", masks=False):
+    """``runner.process`` on the smoke scene under ``nid`` (with the mask
+    folder if ``masks``), the launch counts set to 0 just before it and read
+    just after. Asserts the planted error is recovered to 1 cm / 1 deg, a
+    finite NID, colored points whose colors follow the rendered texture, the
+    mask outputs (:func:`check_mask_outputs`), and on the card K1/K2
+    launches and one zmin and one zbuffer_visible launch a cull: K for the
+    NID keyframes, K for colorize, K more for the mask dumps."""
     from pointcloudprocessor_tpu_torch.io import pcd
     from pointcloudprocessor_tpu_torch.pipeline import runner
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
-    cfg = _config(root, nid)
+    cfg = _config(root, nid, masks)
     shutil.rmtree(cfg.output_path, ignore_errors=True)
     _reset_counts()
     t0 = time.perf_counter()
@@ -413,6 +364,10 @@ def phase_runner(card, root, T0, nid, label, device="cuda"):
     assert res.num_colored_points > 0
     if device == "cuda":
         assert launches["nid_hist_fwd"] > 0 and launches["nid_hist_bwd"] > 0, launches
+        culls = (3 if masks else 2) * K
+        assert launches["zmin"] == launches["zbuffer_visible"] == culls, (culls, launches)
+    if masks:
+        check_mask_outputs(res, cfg.output_path, label)
 
     # The written cloud: every colored point, colors in range, and the
     # colors carry the wall texture the images were rendered from. The bar
@@ -427,16 +382,53 @@ def phase_runner(card, root, T0, nid, label, device="cuda"):
     rgb = out.rgb
     assert np.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 255
     p = out.points
-    on_wall = np.abs(p[:, 2] - WALL_Z) < 1e-3
-    corr = float(np.corrcoef(rgb[on_wall].mean(-1), _field_wall(p[on_wall, 0], p[on_wall, 1]))[0, 1])
+    on_wall = np.abs(p[:, 2] - bs.WALL_Z) < 1e-3
+    corr = float(np.corrcoef(rgb[on_wall].mean(-1),
+                             bs.field_wall(np, p[on_wall, 0], p[on_wall, 1]))[0, 1])
     print(f"{label}: wall color/texture correlation {corr:.4f} over {int(on_wall.sum())} points")
     assert corr > 0.8, corr
     return launches
 
 
-def scene_keyframes(root, device="cuda"):
-    """The camera and the NID keyframes of the smoke scene, culled by the
-    port's runner from the crop a runner.process call wrote."""
+def check_mask_outputs(res, out_dir, label):
+    """What tests/test_pipeline_e2e.py's test_e2e_with_masks asserts, on the
+    smoke scene: world points left of every keyframe's view centre (x <
+    -0.5) carry label 255 and those right of it (x > 1.5) label 0,
+    highlighted points are red, the jet-mapped cloud exists, one
+    ``_rgb-mask.pcd`` dump per keyframe whose camera-frame labels follow the
+    left-half mask, and the accumulated cloud holds exactly the dumps'
+    points."""
+    from pointcloudprocessor_tpu_torch.io import pcd
+
+    out = pcd.read(res.mask_cloud_path)
+    labels = out.mask_label
+    assert labels is not None
+    left = (labels[out.points[:, 0] < -0.5] == 255).mean()
+    right = (labels[out.points[:, 0] > 1.5] == 0).mean()
+    red = out.rgb[labels == 255]
+    assert left > 0.9 and right > 0.9, (left, right)
+    assert len(red) > 0 and (red[:, 0] == 255).all() and (red[:, 1:] == 0).all()
+    assert os.path.exists(os.path.join(out_dir, "cloudInWorldWithMaskAndMappedColor.pcd"))
+    filtered = os.path.join(out_dir, "filtered_pcd")
+    dumps = sorted(d for d in os.listdir(filtered) if d.endswith("_rgb-mask.pcd"))
+    assert len(dumps) == res.num_keyframes == K, dumps
+    sizes = []
+    for d in dumps:
+        kf = pcd.read(os.path.join(filtered, d))
+        sizes.append(len(kf.points))
+        if len(sizes) == 1:
+            assert kf.mask_label is not None and len(kf.points) > 500
+            assert (kf.mask_label[kf.points[:, 0] < -0.3] == 255).mean() > 0.9
+            assert (kf.mask_label[kf.points[:, 0] > 0.3] == 0).mean() > 0.9
+    assert len(out.points) == sum(sizes), (len(out.points), sizes)
+    print(f"{label}: mask cloud {len(out.points)} points = sum of {len(dumps)} dumps {sizes}; "
+          f"label 255 on {left:.4f} of x < -0.5, 0 on {right:.4f} of x > 1.5; "
+          f"{len(red)} highlighted points all red")
+
+
+def scene_cloud(root, device="cuda"):
+    """(cfg, camera, crop cloud, frames, keyframe indices) of the smoke
+    scene, from the crop a runner.process call wrote."""
     from pointcloudprocessor_tpu_torch.io import pcd
     from pointcloudprocessor_tpu_torch.pipeline import ingest, keyframes, runner
     from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
@@ -447,6 +439,15 @@ def scene_keyframes(root, device="cuda"):
                            capacity=cfg.map_capacity)
     frames = ingest.load_frames(cfg.odometry_path, cfg.images_folder)
     kf_idx = keyframes.select(ingest.frames_trajectory(frames), cfg.keyframes)[:K]
+    return cfg, camera, cloud, frames, kf_idx
+
+
+def scene_keyframes(root, device="cuda"):
+    """The camera and the NID keyframes of the smoke scene, culled by the
+    port's runner from the crop a runner.process call wrote."""
+    from pointcloudprocessor_tpu_torch.pipeline import runner
+
+    cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
     return camera, runner.build_nid_keyframes(camera, cloud, frames, kf_idx, cfg)
 
 
@@ -561,6 +562,108 @@ def phase_grouped(card, camera, kfs, T0, device="cuda"):
     return counts
 
 
+def phase_zbuffer(card, root, device="cuda"):
+    """K5/Z1: the K5 form against its twin at the probe's full size, the
+    culls of the scene's keyframes against the twin, and times at the main
+    path's shapes (keyframe 0 of the crop). Returns per-kernel records."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.models import camera as cam
+    from pointcloudprocessor_tpu_torch.ops import zbuffer as zb
+    from pointcloudprocessor_tpu_torch.pipeline import runner
+    from pointcloudprocessor_tpu_torch.tools import zbuffer_probe as zp
+
+    # The K5 form: ranges in [-5, 12) with 5% exact zeros, half of them
+    # -0.0, 1% of the cells outside the (rows, 128) buffer (dropped by both).
+    rs = np.random.default_rng(SEED)
+    slots = zp.n_rows(PROBE_CELLS) * 128
+    cell_np = rs.integers(0, PROBE_CELLS, PROBE_N).astype(np.int32)
+    far = rs.uniform(size=PROBE_N) < 0.01
+    cell_np[far] = rs.choice(np.asarray([-1, -7, slots, slots + 5, 2**31 - 1], np.int32), int(far.sum()))
+    rng_np = rs.uniform(-5.0, 12.0, PROBE_N).astype(np.float32)
+    zero = rs.uniform(size=PROBE_N) < 0.05
+    rng_np[zero] = np.where(rs.uniform(size=int(zero.sum())) < 0.5, -0.0, 0.0).astype(np.float32)
+    cell, rng = torch.from_numpy(cell_np).to(device), torch.from_numpy(rng_np).to(device)
+    buf_k = zp.zmin_tiles(cell, rng, PROBE_CELLS)
+    buf_t = zp.zmin_tiles(cell, rng, PROBE_CELLS, plain=True)
+    n_diff = int((buf_k.view(torch.int32) != buf_t.view(torch.int32)).sum())
+    zmin_err = float((buf_k - buf_t).abs().max())
+    print(f"K5 zmin_tiles {PROBE_N} points / {PROBE_CELLS} cells -> {tuple(buf_k.shape)}: "
+          f"{n_diff} slots differ from the twin (bit-equal required); {int((buf_t < 0).sum())} "
+          f"negative and {int((buf_t == 0).sum())} zero minima from {int(np.signbit(rng_np[zero]).sum())} "
+          f"-0.0 and {int((~np.signbit(rng_np[zero])).sum())} +0.0 ranges, {int(far.sum())} points "
+          "out of range")
+    assert n_diff == 0, "K5 disagrees with its twin"
+
+    # Z1 on the scene: the runner's culls, kernel against twin.
+    cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
+    ds, eps = cfg.culling.downsample_factor, cfg.culling.depth_epsilon
+    poses = runner._camera_to_world(frames, kf_idx, None, device)
+    vis_err, n_differ, n_vis = 0.0, 0, []
+    for j in range(len(kf_idx)):
+        T_w2c = se3.inverse(se3.SE3(poses.q[j], poses.t[j]))
+        pts_cam, mask_k = zb.cull_world_points(camera, T_w2c, cloud.points, cloud.valid, ds, eps)
+        u, v = cam.project_uv(camera, pts_cam)
+        x, y, z = pts_cam.unbind(-1)
+        r = torch.sqrt(x * x + y * y + z * z)
+        mask_t = zb.cull_mask_uv_plain(camera, u, v, z, r, cloud.valid, ds, eps)
+        # Masks as 0/1: the largest |kernel - twin| is 0 or 1; the count says how many.
+        vis_err = max(vis_err, float((mask_k.float() - mask_t.float()).abs().max()))
+        n_differ += int((mask_k != mask_t).sum())
+        n_vis.append(int(mask_k.sum()))
+        if j == 0:
+            first = (u, v, z, r)
+    print(f"Z1 cull_world_points on {len(kf_idx)} keyframes of {cloud.points.shape[0]} points: "
+          f"visible {n_vis}; {n_differ} mask bits differ from the twin (bit-equal required)")
+    assert n_differ == 0, "Z1 disagrees with its twin"
+
+    # Times at keyframe 0's shapes, in turns.
+    u, v, z, r = first
+    ok, cell0, n_cells = zb.cells(camera, u, v, z, cloud.valid, ds)
+    big = float(torch.finfo(torch.float32).max)
+    r_m = torch.where(ok, r, big)
+    buf0 = zb.zmin(cell0, r_m, big, n_cells + 1)
+    t = {
+        "zmin": _median_ms(lambda: zb.zmin(cell0, r_m, big, n_cells + 1), device),
+        "zmin twin": _median_ms(lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1), device),
+        "zmin twin + gather": _median_ms(
+            lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1)[cell0.long()], device),
+        "visible": _median_ms(lambda: zb.visible(ok, r, buf0, cell0, eps), device),
+        "visible twin": _median_ms(lambda: zb.visible_plain(ok, r, buf0, cell0, eps), device),
+        "cull (zmin + visible + gate)": _median_ms(
+            lambda: zb.cull_mask_uv(camera, u, v, z, r, cloud.valid, ds, eps), device),
+        "cull twin": _median_ms(
+            lambda: zb.cull_mask_uv_plain(camera, u, v, z, r, cloud.valid, ds, eps), device),
+        "zmin again": _median_ms(lambda: zb.zmin(cell0, r_m, big, n_cells + 1), device),
+    }
+    print(f"[{card}] K5/Z1 at {cell0.shape[0]} points, {n_cells + 1} slots (ms): "
+          + ", ".join(f"{k} {_ms(v)}" for k, v in t.items()))
+    return [
+        {"name": "zmin", "route": "cuda", "source": f"{PKG}/csrc/zbuffer.cu",
+         "replaces": "pointcloudprocessor_tpu/tools/zbuffer_probe.py:42",
+         "max_abs_err": zmin_err, "ms": t["zmin"], "plain_ms": t["zmin twin"]},
+        {"name": "zbuffer_visible", "route": "cuda", "source": f"{PKG}/csrc/zbuffer.cu",
+         "replaces": "pointcloudprocessor_tpu/ops/zbuffer.py:69",
+         "max_abs_err": vis_err, "mismatches": n_differ, "ms": t["visible"],
+         "plain_ms": t["visible twin"]},
+    ]
+
+
+def phase_tools(device="cuda"):
+    """The z-buffer tools at full scale on the card (``--quick`` off it):
+    each prints its JSON line; both must be exact, with kernel times."""
+    from pointcloudprocessor_tpu_torch.tools import colorize_anatomy, zbuffer_probe
+
+    argv = [] if device == "cuda" else ["--quick", "--device", device]
+    anatomy = colorize_anatomy.main(argv)
+    probe = zbuffer_probe.main(argv)
+    assert anatomy["exact"] and probe["exact"], (anatomy, probe)
+    if device == "cuda":
+        assert anatomy["zbuffer_scatter"] is not None and probe["kernel_ms"] is not None, (
+            anatomy, probe)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PKG)):
         print(f"chip_smoke.py: {PKG}/ not found beside this script; run it from a "
@@ -584,10 +687,14 @@ def main() -> int:
         kernels += phase_tap_gather(card, camera, kfs, T0)
         grouped = phase_grouped(card, camera, kfs, T0)
         del kfs
+        kernels += phase_zbuffer(card, root)
+        # The mask path under the headline schedule.
+        phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE), "mask path", masks=True)
         # The earlier path: the plain objective (2 outer x 20 inner).
         phase_runner(card, root, T0, cfg_mod.NIDConfig(**PLAIN), "plain schedule")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    phase_tools()
     launches.update(tap_select=grouped[True]["tap_select"],
                     tap_streamed=grouped["streamed"]["tap_streamed"])
     for k in kernels:

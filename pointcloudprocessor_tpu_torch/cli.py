@@ -90,6 +90,7 @@ def main(argv=None) -> int:
         "keyframes": result.num_keyframes,
         "colored_points": result.num_colored_points,
         "colored_cloud": result.colored_cloud_path,
+        "mask_cloud": result.mask_cloud_path or None,
         "nid": result.nid_value,
         "nid_evaluations": result.nid_evaluations,
         "timings_s": {k: round(v, 3) for k, v in result.timings.items()},

@@ -2,11 +2,11 @@
 
 The reference reads images with OpenCV (`cv::imread` at
 `PointCloudProcessor/src/PointCloudProcessor.cpp:716`,
-`visual_camera_calibration.cpp:171`). Decoding stays on the host here; the
-decoded arrays are shipped to device once per keyframe batch.
+`visual_camera_calibration.cpp:171`, masks at `:775`). Decoding stays on
+the host here; the decoded arrays are shipped to device once per keyframe
+batch.
 
-A copy of `pointcloudprocessor_tpu/io/images.py` (numpy only) without the
-mask loader, which belongs to the mask path (not ported yet, ROADMAP.md).
+A copy of `pointcloudprocessor_tpu/io/images.py` (numpy only).
 """
 
 from __future__ import annotations
@@ -46,3 +46,18 @@ def load_gray_normalized(path: str) -> np.ndarray:
     # ITU-R BT.601 luma, matching cv2.cvtColor(..., COLOR_RGB2GRAY).
     gray = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
     return (gray / 255.0).astype(np.float32)
+
+
+def load_mask(path: str) -> np.ndarray:
+    """(H, W) int32 segmentation label image (grayscale PNG), or raises."""
+    try:
+        import cv2
+
+        m = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+        if m is None:
+            raise FileNotFoundError(path)
+    except ImportError:
+        from PIL import Image
+
+        m = np.asarray(Image.open(path).convert("L"))
+    return np.asarray(m, dtype=np.int32)

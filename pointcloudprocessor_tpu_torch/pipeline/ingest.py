@@ -6,11 +6,16 @@ Port of `pointcloudprocessor_tpu/pipeline/ingest.py` (semantics of
 ``<ts>.jpg`` in the images folder, skipping frames whose image is missing;
 with a mask folder, bind ``<ts>.png``. Timestamps are formatted like C++
 ``std::to_string`` (6 fixed decimals). Host-side numpy only.
+
+Also hosts the mask-timestamp matcher, the job of
+`src/extractMaskImg.py:14-43` (copy each mask PNG to the nearest odometry
+timestamp within 0.5 s).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -73,3 +78,32 @@ def frames_trajectory(frames: List[FrameRecord]) -> Trajectory:
         positions=np.stack([f.position for f in frames]).astype(np.float32),
         quats_wxyz=np.stack([f.quat_wxyz for f in frames]).astype(np.float32),
     )
+
+
+def match_masks_to_timestamps(
+    mask_folder: str,
+    odometry_path: str,
+    output_folder: str,
+    tolerance: float = 0.5,
+) -> int:
+    """Copy mask PNGs to the nearest odometry timestamp within ``tolerance``
+    seconds, named ``<ts>.png`` (`src/extractMaskImg.py:14-43`). Returns the
+    number of masks matched."""
+    traj = odom_io.read(odometry_path)
+    times = np.asarray(traj.times, np.float64)
+    os.makedirs(output_folder, exist_ok=True)
+    matched = 0
+    for name in sorted(os.listdir(mask_folder)):
+        stem, ext = os.path.splitext(name)
+        if ext.lower() != ".png":
+            continue
+        try:
+            ts = float(stem)
+        except ValueError:
+            continue
+        j = int(np.argmin(np.abs(times - ts)))
+        if abs(times[j] - ts) <= tolerance:
+            dst = os.path.join(output_folder, cpp_timestamp(float(times[j])) + ".png")
+            shutil.copyfile(os.path.join(mask_folder, name), dst)
+            matched += 1
+    return matched

@@ -11,8 +11,9 @@ Stages hand off device tensors on the ``device`` the caller names; nothing
 falls back to another device. Branches outside this slice raise
 NotImplementedError (see ROADMAP.md): MLS, per-keyframe refinement,
 re-culling between outer iterations, the manual initial guess, HPR
-culling, mask images, local color smoothing, and the frozen-tap cache's
-partial refresh and wide window.
+culling, local color smoothing, and the frozen-tap cache's partial refresh
+and wide window. With a mask folder, the mask path runs as the JAX
+runner's does (`runner.py:517-526, 585-649`).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from . import colorize, ingest, keyframes
 @dataclass
 class PipelineResult:
     colored_cloud_path: str = ""
+    mask_cloud_path: str = ""
     num_keyframes: int = 0
     num_colored_points: int = 0
     T_correction: Optional[se3.SE3] = None
@@ -58,7 +60,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     unported = {
         "enable_mls": cfg.enable_mls,
         "enable_manual_guess": cfg.enable_manual_guess,
-        "mask_image_folder": bool(cfg.mask_image_folder),
         "culling.method='hpr'": cfg.culling.method == "hpr",
         "fusion.local_smoothing_radius>0": cfg.fusion.local_smoothing_radius > 0,
         "nid.per_keyframe": cfg.nid.per_keyframe,
@@ -206,7 +207,7 @@ def process(cfg: PipelineConfig, device) -> PipelineResult:
 
 def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
     # 1. Frames + odometry (loadImagesAndOdometry, :965-1005).
-    frames = ingest.load_frames(cfg.odometry_path, cfg.images_folder)
+    frames = ingest.load_frames(cfg.odometry_path, cfg.images_folder, cfg.mask_image_folder)
     if not frames:
         raise ValueError(
             "no frames: no odometry timestamp matched an image file — check "
@@ -311,6 +312,7 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
         images = torch.from_numpy(
             np.stack([img_io.load_rgb(frames[i].image_path) for i in kf_idx])
         )
+        masks = _load_masks(frames, kf_idx, cfg) if cfg.mask_image_folder else None
         poses = _camera_to_world(frames, kf_idx, _extrinsic_lidar_to_cam(cfg, device), device)
         fused = colorize.fuse(
             camera,
@@ -319,6 +321,7 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
             images,
             poses,
             T_correction,
+            mask_images=masks,
             top_k=cfg.fusion.top_k,
             downsample_factor=cfg.culling.downsample_factor,
             depth_epsilon=cfg.culling.depth_epsilon,
@@ -337,4 +340,79 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
         pcd.write_cloud(out_path, out_cloud, include=("rgb",))
     result.colored_cloud_path = out_path
     result.num_colored_points = int(keep.sum())
+    if masks is not None:
+        with timer.stage("save_masks"):
+            result.mask_cloud_path = _save_mask_outputs(
+                cfg, camera, map_cloud, frames, kf_idx, images, masks, poses, T_correction,
+                fused.best_label, out_cloud, filtered_dir,
+            )
     metrics.log("outputs_saved", colored_points=result.num_colored_points)
+
+
+def _load_masks(frames, kf_idx, cfg) -> torch.Tensor:
+    """(K, H, W) int32 host masks of the keyframes; a missing or unreadable
+    PNG gives a zero mask (JAX `runner.py:517-526`)."""
+    loaded = []
+    for i in kf_idx:
+        try:
+            loaded.append(img_io.load_mask(frames[i].mask_path))
+        except (FileNotFoundError, OSError):
+            loaded.append(np.zeros((cfg.camera.height, cfg.camera.width), np.int32))
+    return torch.from_numpy(np.stack(loaded))
+
+
+def _save_mask_outputs(cfg, camera, map_cloud, frames, kf_idx, images, masks, poses,
+                       T_correction, best_label, out_cloud, filtered_dir) -> str:
+    """The mask path's artifacts (`PointCloudProcessor.cpp:539-550, 818-928`;
+    JAX `runner.py:585-649`): per keyframe, its visible points in the camera
+    frame with their own sampled colors and labels (``<ts>_rgb-mask.pcd``);
+    their concatenation at the map points' world coordinates
+    (``cloudInWorldWithRGBandMask.pcd``, duplicates across keyframes kept);
+    and the fused cloud colored by the jet map of each point's best label
+    (``cloudInWorldWithMaskAndMappedColor.pcd``). Returns the path of the
+    concatenated cloud."""
+    from ..utils import colormap
+
+    device = map_cloud.points.device
+    acc_pts, acc_rgb, acc_lab = [], [], []
+    for j, i in enumerate(kf_idx):
+        pts_cam, rgb_k, lab_k, vis_k = colorize.keyframe_rgb_mask(
+            camera,
+            map_cloud.points,
+            map_cloud.valid,
+            images[j].to(device),
+            masks[j].to(device),
+            se3.SE3(poses.q[j], poses.t[j]),
+            T_correction,
+            downsample_factor=cfg.culling.downsample_factor,
+            depth_epsilon=cfg.culling.depth_epsilon,
+            saturation_scale=cfg.fusion.saturation_scale,
+            brightness_scale=cfg.fusion.brightness_scale,
+            mask_highlight_value=cfg.fusion.mask_highlight_value,
+        )
+        sel = torch.nonzero(vis_k, as_tuple=True)[0]
+        rgb_sel, lab_sel = rgb_k[sel].cpu().numpy(), lab_k[sel].cpu().numpy()
+        pcd.write(
+            os.path.join(filtered_dir, f"{ingest.cpp_timestamp(frames[i].timestamp)}_rgb-mask.pcd"),
+            pts_cam[sel].cpu().numpy(),
+            rgb=rgb_sel,
+            mask_label=lab_sel,
+        )
+        acc_pts.append(map_cloud.points[sel].cpu().numpy())
+        acc_rgb.append(rgb_sel)
+        acc_lab.append(lab_sel)
+    mask_path = os.path.join(cfg.output_path, "cloudInWorldWithRGBandMask.pcd")
+    pcd.write(
+        mask_path,
+        np.concatenate(acc_pts) if acc_pts else np.zeros((0, 3), np.float32),
+        rgb=np.concatenate(acc_rgb) if acc_rgb else None,
+        mask_label=np.concatenate(acc_lab) if acc_lab else None,
+    )
+    # Jet-colormapped label cloud (generateSegmentMapWithColor, :818-864).
+    mapped = colormap.jet(best_label.to(torch.float32) / 255.0)
+    pcd.write_cloud(
+        os.path.join(cfg.output_path, "cloudInWorldWithMaskAndMappedColor.pcd"),
+        out_cloud.replace(rgb=mapped * 255.0),
+        include=("rgb",),
+    )
+    return mask_path

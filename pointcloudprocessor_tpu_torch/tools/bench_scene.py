@@ -1,0 +1,142 @@
+"""The benchmark scene of `bench.py:101-254` (scene 1), for the port.
+
+A textured wall at z = 6 m and an occluding slab at z = 2.5 m, seen by K
+keyframes that step along +x and yaw from -4 to 4 degrees, with a planted
+odometry error T0 (`bench.py:734-749`). `bench.py` builds it with jax; this
+module builds it without: the map and the trajectory are drawn with numpy
+from a seed (so that `chip_smoke.py`'s on-disk scene and :func:`build` are
+one scene), the keyframe images are ray-cast with torch on the device.
+
+    scene = build(device="cuda")             # 4096x3000, 1M points, 8 keyframes
+    scene = build(512, 384, 100_000, 4, "cpu")
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import se3
+from ..models import camera as cam
+
+# The reference scale of bench.py and its scene-1 geometry.
+WIDTH, HEIGHT, N_MAP, N_CULL, K = 4096, 3000, 1_000_000, 262_144, 8
+F_PX = 4818.2  # focal length at 4096 px wide; smaller images keep the field of view
+WALL_Z, OCC_Z = 6.0, 2.5
+OCC_X, OCC_Y = (0.3, 1.5), (-0.6, 0.6)
+T0_TANGENT = (0.02, -0.01, 0.01, 0.004, -0.002, 0.004)
+SEED = 0
+
+
+def focal(width: int) -> float:
+    return F_PX * (width / 4096.0)
+
+
+def field_wall(mod, x, y):
+    """Wall texture in [0, 1]; ``mod`` is numpy or torch."""
+    return mod.clip(0.5 + 0.25 * mod.sin(7.0 * x) + 0.25 * mod.cos(9.0 * y), 0.0, 1.0)
+
+
+def field_occ(mod, x, y):
+    """Occluder texture in [0, 1]; ``mod`` is numpy or torch."""
+    return mod.clip(0.5 + 0.25 * mod.sin(13.0 * x + 1.0) + 0.25 * mod.cos(11.0 * y + 2.0), 0.0, 1.0)
+
+
+def scene_map(n_map: int = N_MAP, width: int = WIDTH, height: int = HEIGHT, seed: int = SEED):
+    """(n_map, 3) f32 points, 7/8 on the wall (spanning every keyframe's
+    view with a margin) and 1/8 on the occluder, and their f32 intensities
+    (the textures at the points)."""
+    rng = np.random.default_rng(seed)
+    f_px = focal(width)
+    n_occ = n_map // 8
+    n_wall = n_map - n_occ
+    half_x = (width / 2.0) / f_px * WALL_Z
+    half_y = (height / 2.0) / f_px * WALL_Z
+    wx = rng.uniform(-half_x - 0.6, half_x + 1.6, n_wall).astype(np.float32)
+    wy = rng.uniform(-half_y - 0.2, half_y + 0.2, n_wall).astype(np.float32)
+    ox = rng.uniform(OCC_X[0], OCC_X[1], n_occ).astype(np.float32)
+    oy = rng.uniform(OCC_Y[0], OCC_Y[1], n_occ).astype(np.float32)
+    points = np.concatenate([
+        np.stack([wx, wy, np.full_like(wx, WALL_Z)], -1),
+        np.stack([ox, oy, np.full_like(ox, OCC_Z)], -1),
+    ])
+    inten = np.concatenate([field_wall(np, wx, wy), field_occ(np, ox, oy)]).astype(np.float32)
+    return points, inten
+
+
+def scene_trajectory(k: int = K):
+    """Keyframe poses P_i (wxyz quaternions and positions, f32): +x
+    translation of 0.12 m a keyframe, yaw about y from -4 to 4 degrees."""
+    kf_x = 0.12 * np.arange(k, dtype=np.float32)
+    yaw = np.radians(np.linspace(-4.0, 4.0, k)).astype(np.float32)
+    quats = np.stack(
+        [np.cos(yaw / 2), np.zeros_like(yaw), np.sin(yaw / 2), np.zeros_like(yaw)], -1
+    ).astype(np.float32)
+    positions = np.stack([kf_x, np.zeros_like(kf_x), np.zeros_like(kf_x)], -1)
+    return quats, positions
+
+
+def scene_odometry(k: int = K):
+    """(T0, the odometry O_i = P_i ∘ T0 as an SE3 batch) on the CPU: the
+    planted error of `bench.py:734-749`."""
+    quats, positions = scene_trajectory(k)
+    T0 = se3.exp(torch.tensor(T0_TANGENT, dtype=torch.float32))
+    return T0, se3.compose(se3.SE3(torch.from_numpy(quats), torch.from_numpy(positions)), T0)
+
+
+def render_gray(q: torch.Tensor, t: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(height, width) uint8 image of the scene from the camera at pose
+    (q wxyz, t), ray-cast off the occluder and the wall, on q's device."""
+    f_px = focal(width)
+    dev = q.device
+    uu = ((torch.arange(width, dtype=torch.float32, device=dev) - width / 2.0) / f_px)[None, :]
+    vv = ((torch.arange(height, dtype=torch.float32, device=dev) - height / 2.0) / f_px)[:, None]
+    R = se3.quat_to_matrix(q)
+    dx = uu * R[0, 0] + vv * R[0, 1] + R[0, 2]
+    dy = uu * R[1, 0] + vv * R[1, 1] + R[1, 2]
+    dz = uu * R[2, 0] + vv * R[2, 1] + R[2, 2]
+    s_occ = (OCC_Z - t[2]) / dz
+    hx, hy = t[0] + s_occ * dx, t[1] + s_occ * dy
+    hit = (hx >= OCC_X[0]) & (hx <= OCC_X[1]) & (hy >= OCC_Y[0]) & (hy <= OCC_Y[1])
+    s_wall = (WALL_Z - t[2]) / dz
+    gray = torch.where(hit, field_occ(torch, hx, hy),
+                       field_wall(torch, t[0] + s_wall * dx, t[1] + s_wall * dy))
+    return (gray * 255.0).to(torch.uint8)
+
+
+class BenchScene(NamedTuple):
+    camera: cam.PinholeCamera
+    poses: se3.SE3  # (K,) camera -> world, the true keyframe poses
+    points: torch.Tensor  # (N, 3) f32 world points
+    intensity: torch.Tensor  # (N,) f32
+    valid: torch.Tensor  # (N,) bool
+    images: torch.Tensor  # (K, H, W, 3) uint8 RGB (gray in all three channels)
+    T0: se3.SE3  # the planted odometry error
+
+
+def build(width: int = WIDTH, height: int = HEIGHT, n_map: int = N_MAP, k: int = K,
+          device="cuda", seed: int = SEED) -> BenchScene:
+    """The scene on ``device``: the map and the true poses from the seed,
+    the K images rendered there."""
+    f_px = focal(width)
+    camera = cam.create_camera("pinhole", (f_px, f_px, width / 2.0, height / 2.0), (0.0,) * 5,
+                               width, height, device)
+    points, inten = scene_map(n_map, width, height, seed)
+    quats, positions = scene_trajectory(k)
+    poses = se3.SE3(torch.from_numpy(quats).to(device), torch.from_numpy(positions).to(device))
+    images = torch.stack([
+        render_gray(poses.q[i], poses.t[i], width, height)[..., None].expand(height, width, 3)
+        for i in range(k)
+    ]).contiguous()
+    T0, _ = scene_odometry(k)
+    return BenchScene(
+        camera=camera,
+        poses=poses,
+        points=torch.from_numpy(points).to(device),
+        intensity=torch.from_numpy(inten).to(device),
+        valid=torch.ones((n_map,), dtype=torch.bool, device=device),
+        images=images,
+        T0=se3.SE3(T0.q.to(device), T0.t.to(device)),
+    )

@@ -8,7 +8,10 @@ profiling.py`:
   execution, not enqueue;
 - :func:`trace` — a torch.profiler capture (CPU + CUDA activities) written
   as a Chrome trace;
-- :class:`MetricsLogger` — append-only JSONL metrics, one object per event.
+- :class:`MetricsLogger` — append-only JSONL metrics, one object per event;
+- :func:`median_ms` — the median CUDA-event time of a call on the card, and
+  :func:`card` — the card's name and power limit, which every such time
+  carries.
 
 The JAX module's byte/FLOP estimates are priced against TPU v5e peaks and
 are not carried over.
@@ -19,6 +22,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
+import subprocess
 import time
 from typing import Optional
 
@@ -81,3 +86,38 @@ class MetricsLogger:
         rec.update(fields)
         with open(self._path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+
+def median_ms(fn, device, reps: int = 20, warmup: int = 3) -> Optional[float]:
+    """Median time of ``fn()`` in ms over ``reps`` calls, each timed with
+    CUDA events after ``warmup`` calls; None off the card (a CPU run gives
+    no device time), where ``fn`` runs once so that its path still runs."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return None
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(statistics.median(times))
+
+
+def card() -> str:
+    """``name, power.limit`` of the first card as nvidia-smi reports them,
+    or "not measured" where it cannot."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired):
+        return "not measured"
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if smi.returncode == 0 and lines else "not measured"

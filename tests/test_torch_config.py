@@ -86,7 +86,6 @@ def test_cli_device_defaults_to_cuda():
     [
         ("enable_mls", True),
         ("enable_manual_guess", True),
-        ("mask_image_folder", "masks/"),
         ("culling.method", "hpr"),
         ("fusion.local_smoothing_radius", 0.05),
         ("nid.per_keyframe", True),
@@ -109,6 +108,11 @@ def test_unported_branches_raise(path, value):
 
 def test_default_config_is_supported():
     runner.check_supported(tcfg.PipelineConfig())
+
+
+def test_mask_path_is_supported():
+    """The mask path runs in the port (tests/test_torch_masks.py)."""
+    runner.check_supported(tcfg.PipelineConfig(mask_image_folder="masks/"))
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):

@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: the culling step of the main path at
-the reference scale (chip_smoke's scene: a 1,000,000-point map seen by
-4096x3000 keyframes), without images.
+the reference scale (the bench scene of chip_smoke.py and
+`tools/bench_scene.py`: a 1,000,000-point map seen by 4096x3000 keyframes),
+without images.
 
 The JAX runner's ``cull_keyframe_host`` and the port's
 ``zbuffer.cull_world_points`` see the same map and the same camera-to-world
@@ -13,7 +14,6 @@ import torch
 
 import jax.numpy as jnp
 
-import chip_smoke
 from pointcloudprocessor_tpu.core import cloud as jcl
 from pointcloudprocessor_tpu.core import se3 as jse3
 from pointcloudprocessor_tpu.models import camera as jcam
@@ -21,6 +21,7 @@ from pointcloudprocessor_tpu.pipeline import runner as jrunner
 from pointcloudprocessor_tpu.utils import config as jcfg
 from pointcloudprocessor_tpu_torch.core import se3 as tse3
 from pointcloudprocessor_tpu_torch.ops import zbuffer as tzb
+from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 from pointcloudprocessor_tpu_torch.utils import interop
 
 CPU = "cpu"
@@ -28,16 +29,16 @@ CPU = "cpu"
 
 @pytest.fixture(scope="module")
 def scene():
-    points, inten = chip_smoke.scene_map()
-    _, odom = chip_smoke.scene_odometry()
+    points, inten = bs.scene_map()
+    _, odom = bs.scene_odometry()
     return points, inten, odom.q.numpy(), odom.t.numpy()
 
 
-@pytest.mark.parametrize("kf", [0, chip_smoke.K - 1])
+@pytest.mark.parametrize("kf", [0, bs.K - 1])
 def test_full_scale_cull_masks_and_picks_bit_equal(scene, kf):
     points, inten, q, t = scene
-    w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
-    f_px = chip_smoke.F_PX * (w / 4096.0)
+    w, h = bs.WIDTH, bs.HEIGHT
+    f_px = bs.focal(w)
     intrinsic = (f_px, f_px, w / 2.0, h / 2.0)
     cfg = jcfg.PipelineConfig()
     cj = jcam.create_camera("pinhole", intrinsic, (0.0,) * 5, w, h)
@@ -59,7 +60,7 @@ def test_full_scale_cull_masks_and_picks_bit_equal(scene, kf):
     vis_t = torch.nonzero(mask, as_tuple=True)[0].numpy()
 
     np.testing.assert_array_equal(vis_t, vis_j)
-    cap = chip_smoke.N_CULL
+    cap = bs.N_CULL
     assert len(vis_j) > cap  # the linspace pick runs at this scale
     pick = np.linspace(0, len(vis_j) - 1, cap).astype(np.int64)
     np.testing.assert_array_equal(vis_t[pick], vis_j[pick])
