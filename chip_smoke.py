@@ -15,7 +15,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. K1/K2 against their plain torch twins at the main path's shape (K=8
    keyframes x N=262,144 points, ~30% gated out, s uniform in [-1.5, 2.5],
    inputs from a numpy seed): histogram, NID value and s-gradient errors,
-   and median times over 20 calls (CUDA events).
+   and median times over 20 calls (CUDA events), beside each kernel's bound.
 4. Main path at the reference's scale: the bench scene
    (pointcloudprocessor_tpu_torch/tools/bench_scene.py: 4096x3000 images,
    a 1,000,000-point wall + occluder map, 8 yawing keyframes, a planted
@@ -27,13 +27,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite NID, colored points whose colors follow the rendered texture, K1/K2
    launches, and 16 launches each of zmin and zbuffer_visible (8 culls + 8
    colorize observations).
-5. K3/K4 against their twins on the scene's own 8 x 4096x3000 tap tables,
-   the culled points raster-sorted at the start pose: gathers at that pose
-   (fast path) and at T0 (overflow; fallback), bit-exact against the twin
-   and the direct take, with median times of kernel, twin and direct take.
+5. K3/K4 (each one launch that plans and selects) on the scene's own 8 x
+   4096x3000 row tables, the culled points raster-sorted at the start pose:
+   at that pose (clean groups; fast path) and at T0 (overflow; fallback),
+   each kernel bit-equal to its twin on every row, flag and count (also
+   with a masked step and a ragged point count), equal to the direct take
+   on the ok rows of clean groups, and the whole grouped take equal to it
+   on every ok row. Median times of the kernel, the twin,
+   ``index_select``, the direct take with an int64 index and as
+   ``_gather_taps`` pays it, the whole grouped take at the sort pose and at
+   T0, and whole ``_gather_taps`` calls; the bound and its share.
 6. The grouped path: the frozen-tap solve (2 x 20, guard 0.75, ftol 3e-4,
-   raster sort, no coarse phase) with the direct take, K3 and K4; K3 and K4
-   launch, the three final NIDs agree within 1e-3, each recovers T0.
+   raster sort, no coarse phase) with the direct take, K3 and K4, and once
+   more with K3 and the slab table built at entry, as the grouped path held
+   it before; peak device memory of each. K3 and K4 launch once per grouped
+   take and fall back at least once; the final NIDs agree within 1e-3 and
+   each recovers T0.
 7. K5/Z1: ``zmin_tiles`` (the K5 form) bit-equal to its twin at the probe's
    full size (999,424 points, 62,995 cells, ranges with negatives and
    zeros, 1% of cells out of range); ``cull_world_points`` kernel masks
@@ -51,8 +60,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    non-null kernel times and exact masks / buffers.
 
 The launch counts are set to 0 just before each path and read just after.
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. The script imports nothing of jax
+The line before the last is a JSON object describing each kernel: ``ms``,
+``plain_ms`` and ``library_ms`` are device times (a sleep kernel queued
+ahead of the start event hides the host's enqueue; where a twin's host side
+outlasts it, as the histogram twins' does, ``plain_ms`` is its call time),
+``call_ms`` the time a call as its caller pays it, host included, and
+``bound_ms`` the least time the card could take (bytes over 3.35 TB/s or
+f32 operations over 67 TFLOP/s, whichever is larger). The last line is
+``{"ok": true, "device": {...}}``. The script imports nothing of jax
 or of the JAX package.
 """
 
@@ -84,6 +99,14 @@ PLAIN = dict(max_outer_iterations=2, max_inner_iterations=20)
 # The K5 probe's full size (tools/zbuffer_probe.FULL): 999,424 points into
 # the 293 x 215 cells of a 14x-downsampled 4096x3000 image.
 PROBE_N, PROBE_CELLS = 999_424, 293 * 215
+# The H100's published peaks (NVIDIA's data sheet, SXM part, at 700 W):
+# device-memory bytes/s and f32 operations/s outside the tensor cores.
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+# f32 operations a point of K1 / K2, counted from csrc/nid_hist.cu: two
+# cubic B-spline weight sets (~20 each), then per tap a weight product and
+# an add (K1: 16 x 3), or both derivative products and adds (K2: 16 x 6,
+# with two derivative sets).
+K1_OPS, K2_OPS = 88, 176
 
 
 def phase_env():
@@ -124,10 +147,44 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.3f}"
 
 
-def _median_ms(fn, device="cuda"):
+def _bound(nbytes, ops=0.0):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ``nbytes`` over its memory rate and ``ops`` over its f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _median_ms(fn, device="cuda", hide_host=False):
+    """Median CUDA-event time of ``fn()``: as its caller pays it, or with
+    ``hide_host`` its device time alone (profiling.median_ms)."""
     from pointcloudprocessor_tpu_torch.utils import profiling
 
-    return profiling.median_ms(fn, device)
+    return profiling.median_ms(fn, device, hide_host=hide_host)
+
+
+def _device_ms(fn, device="cuda"):
+    return _median_ms(fn, device, hide_host=True)
+
+
+def _host_us(fn, device="cuda", reps=200):
+    """Host time a call in us: ``reps`` calls queued back to back (fewer
+    launches than the queue holds, so the host never waits on the card)."""
+    import torch
+
+    if device != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def phase_kernels(card):
@@ -194,31 +251,51 @@ def phase_kernels(card):
     assert nid_err <= 1e-5 and grad_err <= grad_tol, "NID value/gradient disagree"
 
     # Timings: median of 20 after warm-up, kernel / twin / kernel in one
-    # call on one card.
-    fwd_ms = _median_ms(lambda: nid_hist.hist_fwd_cuda(taps, s, bp, il, bins))
-    fwd_plain = _median_ms(lambda: nid_hist.joint_histogram_plain(taps, s, bp, il, bins))
-    bwd_ms = _median_ms(lambda: nid_hist.hist_bwd_cuda(g, taps, s, bp, il, bins))
-    bwd_plain = _median_ms(
-        lambda: torch.autograd.grad(torch.sum(g * ht), st, retain_graph=True)
-    )
-    fwd_ms2 = _median_ms(lambda: nid_hist.hist_fwd_cuda(taps, s, bp, il, bins))
-    bwd_ms2 = _median_ms(lambda: nid_hist.hist_bwd_cuda(g, taps, s, bp, il, bins))
-    print(f"[{card}] K1 fwd {K}x{N_CULL}: kernel {fwd_ms:.3f} / {fwd_ms2:.3f} ms, "
-          f"twin {fwd_plain:.3f} ms")
-    print(f"[{card}] K2 bwd {K}x{N_CULL}: kernel {bwd_ms:.3f} / {bwd_ms2:.3f} ms, "
-          f"twin (autograd backward) {bwd_plain:.3f} ms")
+    # call on one card; per call (as the caller pays it) and device time.
+    def fwd():
+        return nid_hist.hist_fwd_cuda(taps, s, bp, il, bins)
+
+    def fwd_twin():
+        return nid_hist.joint_histogram_plain(taps, s, bp, il, bins)
+
+    def bwd():
+        return nid_hist.hist_bwd_cuda(g, taps, s, bp, il, bins)
+
+    def bwd_twin():
+        return torch.autograd.grad(torch.sum(g * ht), st, retain_graph=True)
+
+    fwd_ms, fwd_plain, bwd_ms, bwd_plain = map(_median_ms, (fwd, fwd_twin, bwd, bwd_twin))
+    fwd_ms2, bwd_ms2 = _median_ms(fwd), _median_ms(bwd)
+    fwd_dev, fwd_plain_dev, bwd_dev, bwd_plain_dev = map(
+        _device_ms, (fwd, fwd_twin, bwd, bwd_twin))
+    print(f"[{card}] K1 fwd {K}x{N_CULL}: kernel {fwd_ms:.3f} / {fwd_ms2:.3f} ms a call, "
+          f"device {_ms(fwd_dev)} ms; twin {fwd_plain:.3f} ms a call, device "
+          f"{_ms(fwd_plain_dev)} ms")
+    print(f"[{card}] K2 bwd {K}x{N_CULL}: kernel {bwd_ms:.3f} / {bwd_ms2:.3f} ms a call, "
+          f"device {_ms(bwd_dev)} ms; twin (autograd backward) {bwd_plain:.3f} ms a call, "
+          f"device {_ms(bwd_plain_dev)} ms")
+    n_pts = K * N_CULL
+    fwd_bound = _bound(_nbytes(taps, s, bp, il, h_k), K1_OPS * n_pts)
+    bwd_bound = _bound(_nbytes(g, taps, s, bp, il, ds_k), K2_OPS * n_pts)
+    for name, (b_ms, by), t in (("K1", fwd_bound, fwd_dev), ("K2", bwd_bound, bwd_dev)):
+        print(f"{name} bound {b_ms * 1e3:.1f} us ({by}); kernel at {b_ms / t:.2f} of it"
+              if t else f"{name} bound {b_ms * 1e3:.1f} us ({by})")
     return [
         {
             "name": "nid_hist_fwd", "route": "cuda",
             "source": f"{PKG}/csrc/nid_hist.cu",
             "replaces": "pointcloudprocessor_tpu/ops/nid_hist.py:71",
-            "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain,
+            "max_abs_err": fwd_err, "ms": fwd_dev, "plain_ms": fwd_plain_dev or fwd_plain,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
+            "call_ms": fwd_ms, "plain_call_ms": fwd_plain,
         },
         {
             "name": "nid_hist_bwd", "route": "cuda",
             "source": f"{PKG}/csrc/nid_hist.cu",
             "replaces": "pointcloudprocessor_tpu/ops/nid_hist.py:112",
-            "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain,
+            "max_abs_err": bwd_err, "ms": bwd_dev, "plain_ms": bwd_plain_dev or bwd_plain,
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
+            "call_ms": bwd_ms, "plain_call_ms": bwd_plain,
         },
     ]
 
@@ -319,6 +396,7 @@ def _read_counts():
     from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather, zbuffer
 
     return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
+            **{f"{k}_fallbacks": v for k, v in tap_gather.fallback_counts.items()},
             **zbuffer.launch_counts}
 
 
@@ -452,11 +530,13 @@ def scene_keyframes(root, device="cuda"):
 
 
 def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
-    """K3/K4 against their twins on the scene's 8 x 4096x3000 tables, the
-    culled points raster-sorted at the start pose (identity): gathers at
-    that pose (fast path expected) and at the planted error T0 (heavy
-    overflow, fallback expected). Kernel, twin and the direct take agree
-    bit for bit on every ok row. Returns per-kernel records."""
+    """K3/K4 on the scene's 8 x 4096x3000 row tables, the culled points
+    raster-sorted at the start pose (identity): at that pose (clean groups,
+    the fast path expected) and at the planted error T0 (heavy overflow,
+    the fallback expected). Each kernel equals its twin on every row, flag
+    and count, and the direct take on the ok rows of clean groups; the
+    whole grouped take equals the direct take on every ok row and launches
+    its kernel once. Returns per-kernel records."""
     import torch
 
     from pointcloudprocessor_tpu_torch.core import se3
@@ -464,61 +544,125 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
     from pointcloudprocessor_tpu_torch.opt import nid
 
     kfs = nid.sort_by_raster(camera, se3.identity(device),
-                             nid.prepare_keyframes(kfs, build_slabs=True))
+                             nid.prepare_keyframes(kfs, grouped=True))
     k, r, _ = kfs.tap_rows.shape
-    slab = kfs.tap_slabs.shape[-1] // 2
+    slab = kfs.slab_width
     rows = kfs.tap_rows.reshape(k * r, 2)
-    variants = {
-        "tap_select": (tg.plan_slabbed, tg.select_slabbed, tg.select_slabbed_plain,
-                       tg.grouped_take_slabbed,
-                       lambda p: (p.slabs2, p.slab_id, p.offs, slab),
-                       lambda out: out.reshape(-1, 2)),
-        "tap_streamed": (tg.plan_streamed, tg.select_streamed, tg.select_streamed_plain,
-                         tg.grouped_take_streamed,
-                         lambda p: (p.slabs2, p.blk0, p.rel, p.offs, slab),
-                         lambda out: out.reshape(-1, 2, out.shape[-1]).transpose(1, 2).reshape(-1, 2)),
-    }
-    records = {}
+    kf_idx = torch.arange(k, device=device)[:, None]
+    kernels = {"tap_select": tg.grouped_select_slabbed, "tap_streamed": tg.grouped_select_streamed}
+    twins = {"tap_select": tg.grouped_select_slabbed_plain,
+             "tap_streamed": tg.grouped_select_streamed_plain}
+    takes = {"tap_select": ("grouped_take_slabbed", tg.grouped_take_slabbed, True),
+             "tap_streamed": ("grouped_take_streamed", tg.grouped_take_streamed, "streamed")}
+    records = {name: {"max_abs_err": 0.0} for name in kernels}
     for pose_label, T in (("sort pose", se3.identity(device)), ("planted T0", T0.to(device))):
         _, knot, inl = nid._project_all(camera, T, kfs)
-        flat = (nid._anchors(camera, knot)
-                + torch.arange(k, dtype=torch.int32, device=device)[:, None] * r).reshape(-1)
+        anchor = nid._anchors(camera, knot)
+        flat = (anchor + torch.arange(k, dtype=torch.int32, device=device)[:, None] * r).reshape(-1)
         ok = inl.reshape(-1)
         n = flat.shape[0]
-        direct = rows[flat.long()]
-        for name, (plan_fn, kernel, twin, take, args, flat_out) in variants.items():
-            p = plan_fn(kfs.tap_slabs, flat, ok, slab=slab)
-            got_k = kernel(*args(p))
-            got_t = twin(*args(p))
-            err = float((got_k.long() - got_t.long()).abs().max())
-            assert err == 0.0, f"{name}: kernel and twin differ by up to {err}"
-            n_ovf = int(p.ovf_grp.sum())
-            group = p.idx_eff.shape[1]
-            clean = (ok & ~p.ovf_grp.repeat_interleave(group)[:n])
-            assert torch.equal(flat_out(got_k)[:n][clean], direct[clean]), f"{name}: kernel != take"
+        flat64 = flat.long()
+        direct = rows[flat64]
+        for name, kernel in kernels.items():
+            take_name, take, use_grouped = takes[name]
+            got = kernel(rows, flat, ok, slab=slab)
+            twin = twins[name](rows, flat, ok, slab=slab)
+            err = float((got.taps.long() - twin.taps.long()).abs().max())
+            n_ovf = int(got.n_ovf)
+            assert err == 0.0 and torch.equal(got.taps, twin.taps), f"{name}: kernel != twin"
+            assert torch.equal(got.ovf_grp, twin.ovf_grp), f"{name}: flags != twin"
+            assert n_ovf == int(twin.n_ovf) == int(got.ovf_grp.sum()), f"{name}: count != twin"
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+            ng, group, _ = got.taps.shape
+            clean = ok & ~got.ovf_grp.repeat_interleave(group)[:n]
+            taps = got.taps.reshape(-1, 2)[:n]
+            assert torch.equal(taps[clean], direct[clean]), f"{name}: kernel != direct take"
             _reset_counts()
-            out = take(kfs.tap_slabs, flat, ok, slab=slab, lookup_rows=lambda i: rows[i.long()])
+            out = take(rows, flat, ok, slab=slab)
             counts = _read_counts()
             assert torch.equal(out[ok], direct[ok]), f"{name}: grouped take != direct take"
-            fast = n_ovf <= p.f_rep
-            if device == "cuda":  # the kernel launched exactly when the plan took the fast path
-                assert counts[name] == int(fast), (name, counts)
-            print(f"{name} at the {pose_label}: overflow groups {n_ovf} of {p.ovf_grp.numel()} "
-                  f"(repair budget {p.f_rep}); {'fast path (kernel)' if fast else 'fallback (per-row lookup)'}; "
-                  f"kernel == twin on all rows, == tap_rows[kf, anchor] on {int(ok.sum())} ok rows")
-            if pose_label == "sort pose":
-                assert fast, f"{name}: the fast path was expected at the sort pose"
-                t_k = _median_ms(lambda: kernel(*args(p)), device)
-                t_t = _median_ms(lambda: twin(*args(p)), device)
-                t_d = _median_ms(lambda: rows[flat.long()], device)
-                t_g = _median_ms(
-                    lambda: take(kfs.tap_slabs, flat, ok, slab=slab, lookup_rows=lambda i: rows[i.long()]),
-                    device)
-                t_k2 = _median_ms(lambda: kernel(*args(p)), device)
-                print(f"[{card}] {name} {k}x{n // k} points, slab {slab}: kernel {_ms(t_k)} / "
-                      f"{_ms(t_k2)} ms, twin {_ms(t_t)} ms, direct take {_ms(t_d)} ms, whole "
-                      f"grouped take (plan + kernel + repair) {_ms(t_g)} ms")
-                records[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_t}
+            fell_back = counts[f"{take_name}_fallbacks"] == 1
+            if device == "cuda":  # one launch a grouped take, fallback or not
+                assert counts[name] == counts[take_name] == 1, (name, counts)
+            print(f"{name} at the {pose_label}: overflow groups {n_ovf} of {ng}; "
+                  f"{'fallback (per-row lookup)' if fell_back else 'fast path (repair only)'}; "
+                  f"kernel == twin on all {ng * group} rows, flags and count; == tap_rows[kf, "
+                  f"anchor] on {int(clean.sum())} clean ok rows; grouped take == it on "
+                  f"{int(ok.sum())} ok rows")
+            if pose_label == "planted T0":
+                records[name]["fallback_take_ms"] = _median_ms(
+                    lambda: take(rows, flat, ok, slab=slab), device)
+                continue
+            assert not fell_back, f"{name}: the fast path was expected at the sort pose"
+            # Whole masked groups and steps, and a ragged point count: the
+            # kernel's padding and all-masked rules, against the twin.
+            ok_holes = ok.clone()
+            ok_holes[1024:2048] = False
+            ok_holes[5000:5300] = False
+            for f, o in ((flat, ok_holes), (flat[: n - 77], ok[: n - 77])):
+                a, b = kernel(rows, f, o, slab=slab), twins[name](rows, f, o, slab=slab)
+                assert torch.equal(a.taps, b.taps) and torch.equal(a.ovf_grp, b.ovf_grp) and int(
+                    a.n_ovf) == int(b.n_ovf), f"{name}: kernel != twin with masked steps / ragged n"
+            # The bound: each index and mask byte read once, each distinct
+            # table row that an ok point needs read once (8 B), the taps,
+            # flags and count written once. Counted in whole 32-byte sectors
+            # of the table, the practical floor of scattered rows.
+            need = flat[ok]
+            n_rows = int(torch.unique(need).numel())
+            n_sectors = int(torch.unique(need // 4).numel())
+            io = _nbytes(flat, ok, got.taps, got.ovf_grp, got.n_ovf)
+            bound_ms, bound_by = _bound(io + 8 * n_rows)
+            sector_ms = _bound(io + 32 * n_sectors)[0]
+
+            def run():
+                return kernel(rows, flat, ok, slab=slab)
+
+            def run_twin():
+                return twins[name](rows, flat, ok, slab=slab)
+
+            def library():
+                return torch.index_select(rows, 0, flat)
+
+            def direct64():
+                return rows[flat64]
+
+            def direct_as_gather_taps():
+                return kfs.tap_rows[kf_idx, anchor.long()]
+
+            dev_t = {key: _device_ms(fn, device) for key, fn in (
+                ("kernel", run), ("twin", run_twin), ("index_select", library),
+                ("direct take, int64 index", direct64),
+                ("direct take as _gather_taps", direct_as_gather_taps), ("kernel again", run))}
+            call_t = {key: _median_ms(fn, device) for key, fn in (
+                ("kernel", run), ("index_select", library),
+                ("direct take as _gather_taps", direct_as_gather_taps),
+                ("grouped take", lambda: take(rows, flat, ok, slab=slab)),
+                ("_gather_taps direct",
+                 lambda: nid._gather_taps(camera, kfs, knot, inl, use_grouped=False)),
+                ("_gather_taps grouped",
+                 lambda: nid._gather_taps(camera, kfs, knot, inl, use_grouped=use_grouped)))}
+            host_t = {key: _host_us(fn, device) for key, fn in (
+                ("kernel", run), ("index_select", library),
+                ("direct take as _gather_taps", direct_as_gather_taps))}
+            print(f"[{card}] {name} {k}x{n // k} points, slab {slab}: device ms: "
+                  + ", ".join(f"{key} {_ms(v)}" for key, v in dev_t.items()))
+            print(f"[{card}] {name}: ms a call (host included): "
+                  + ", ".join(f"{key} {_ms(v)}" for key, v in call_t.items()))
+            print(f"[{card}] {name}: host us a call: "
+                  + ", ".join(f"{key} {_ms(v)}" for key, v in host_t.items()))
+            share = f"{bound_ms / dev_t['kernel']:.2f}" if dev_t["kernel"] else "not measured"
+            print(f"{name} bound {bound_ms * 1e3:.1f} us ({bound_by}: {io + 8 * n_rows} B, "
+                  f"{n_rows} distinct rows of {int(ok.sum())} ok points), kernel at {share} "
+                  f"of it; whole-sector floor {sector_ms * 1e3:.1f} us ({n_sectors} sectors)")
+            records[name].update(
+                ms=dev_t["kernel"], plain_ms=dev_t["twin"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=dev_t["index_select"],
+                direct_take_ms=dev_t["direct take as _gather_taps"], call_ms=call_t["kernel"],
+                direct_take_call_ms=call_t["direct take as _gather_taps"],
+                take_ms=call_t["grouped take"])
+    for name, rec in records.items():
+        print(f"[{card}] {name}: whole grouped take {_ms(rec['take_ms'])} ms at the sort pose, "
+              f"{_ms(rec['fallback_take_ms'])} ms at T0")
     return [
         {"name": "tap_select", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
          "replaces": "pointcloudprocessor_tpu/ops/tap_gather.py:95", **records["tap_select"]},
@@ -530,32 +674,52 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
 def phase_grouped(card, camera, kfs, T0, device="cuda"):
     """The frozen-tap solve with each tap gather (direct, K3, K4) from the
     start pose, raster-sorted there; no coarse phase (it would move the pose
-    before the first grouped gather, `nid.py:469-486`). Returns the launch
-    counts of each solve."""
-    from pointcloudprocessor_tpu_torch.core import se3
-    from pointcloudprocessor_tpu_torch.opt import refine
+    before the first grouped gather, `nid.py:469-486`). Then K3 once more
+    with the plane-concat slab table built at entry, as the grouped path
+    held it before it read the row table. Prints the peak device memory of
+    each solve. Returns the launch counts of each solve."""
+    import torch
 
-    nids, counts = {}, {}
-    for G in (False, True, "streamed"):
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.opt import nid, refine
+
+    def mib(b):
+        return f"{b / 2**20:.1f} MiB" if b is not None else "not measured"
+
+    nids, counts, peaks = {}, {}, {}
+    runs = (("direct", False, False), ("K3", True, False), ("K4", "streamed", False),
+            ("K3 + slab table", True, True))
+    for label, G, slabs in runs:
         _reset_counts()
+        cuda = device == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
+        solve_kfs = nid.prepare_keyframes(kfs, build_slabs=True) if slabs else kfs
         res = refine.refine_pose(
-            camera, kfs, se3.identity(device), frozen_taps=True, frozen_guard_frac=0.75,
+            camera, solve_kfs, se3.identity(device), frozen_taps=True, frozen_guard_frac=0.75,
             max_outer_iterations=2, max_inner_iterations=20, ftol=3e-4, sort_points=True,
             use_grouped_gather=G,
         )
         nid_value = float(res.nid)
         wall = time.perf_counter() - t0
-        counts[G] = _read_counts()
+        del solve_kfs
+        peaks[label] = torch.cuda.max_memory_allocated() - held if cuda else None
+        counts[label] = _read_counts()
         err_cm, err_deg = _pose_error(res.T_camera_lidar, T0)
-        nids[G] = nid_value
-        print(f"[{card}] grouped path, use_grouped_gather={G!r}: refine {wall:.2f} s; NID "
-              f"{nid_value:.6f}; error {err_cm:.4f} cm / {err_deg:.4f} deg; evaluations "
-              f"{res.evaluations}; gathers {res.gathers}; counts {counts[G]}")
-        assert np.isfinite(nid_value) and err_cm < 1.0 and err_deg < 1.0, G
+        nids[label] = nid_value
+        print(f"[{card}] grouped path, {label} (use_grouped_gather={G!r}): refine {wall:.2f} s; "
+              f"NID {nid_value:.6f}; error {err_cm:.4f} cm / {err_deg:.4f} deg; evaluations "
+              f"{res.evaluations}; gathers {res.gathers}; peak device memory above the "
+              f"keyframes {mib(peaks[label])}; counts {counts[label]}")
+        assert np.isfinite(nid_value) and err_cm < 1.0 and err_deg < 1.0, label
     if device == "cuda":
-        assert counts[True]["tap_select"] >= 1, counts[True]
-        assert counts["streamed"]["tap_streamed"] >= 1, counts["streamed"]
+        for label, name, take in (("K3", "tap_select", "grouped_take_slabbed"),
+                                  ("K4", "tap_streamed", "grouped_take_streamed")):
+            c = counts[label]
+            assert c[name] == c[take] >= 1 and c[f"{take}_fallbacks"] >= 1, (label, c)
     spread = max(nids.values()) - min(nids.values())
     print(f"grouped path: final NIDs spread {spread:.2e} (tol 1e-3)")
     assert spread <= 1e-3, nids
@@ -624,6 +788,11 @@ def phase_zbuffer(card, root, device="cuda"):
     big = float(torch.finfo(torch.float32).max)
     r_m = torch.where(ok, r, big)
     buf0 = zb.zmin(cell0, r_m, big, n_cells + 1)
+    vis0 = zb.visible(ok, r, buf0, cell0, eps)
+    # The library call: one scatter_reduce_ (amin) into a filled buffer
+    # (every cell lies inside it: failed points go to the sink cell).
+    cell64 = cell0.long()
+    filled = torch.full((n_cells + 1,), big, dtype=torch.float32, device=device)
     t = {
         "zmin": _median_ms(lambda: zb.zmin(cell0, r_m, big, n_cells + 1), device),
         "zmin twin": _median_ms(lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1), device),
@@ -637,16 +806,32 @@ def phase_zbuffer(card, root, device="cuda"):
             lambda: zb.cull_mask_uv_plain(camera, u, v, z, r, cloud.valid, ds, eps), device),
         "zmin again": _median_ms(lambda: zb.zmin(cell0, r_m, big, n_cells + 1), device),
     }
-    print(f"[{card}] K5/Z1 at {cell0.shape[0]} points, {n_cells + 1} slots (ms): "
-          + ", ".join(f"{k} {_ms(v)}" for k, v in t.items()))
+    dev_t = {key: _device_ms(fn, device) for key, fn in (
+        ("zmin", lambda: zb.zmin(cell0, r_m, big, n_cells + 1)),
+        ("zmin twin", lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1)),
+        ("scatter_reduce_ amin", lambda: filled.scatter_reduce_(0, cell64, r_m, reduce="amin")),
+        ("visible", lambda: zb.visible(ok, r, buf0, cell0, eps)),
+        ("visible twin", lambda: zb.visible_plain(ok, r, buf0, cell0, eps)))}
+    print(f"[{card}] K5/Z1 at {cell0.shape[0]} points, {n_cells + 1} slots (ms a call, host "
+          "included): " + ", ".join(f"{k} {_ms(v)}" for k, v in t.items()))
+    print(f"[{card}] K5/Z1 device ms: " + ", ".join(f"{k} {_ms(v)}" for k, v in dev_t.items()))
+    zmin_bound = _bound(_nbytes(cell0, r_m, buf0))
+    vis_bound = _bound(_nbytes(ok, r, buf0, cell0, vis0))
+    print(f"K5 zmin bound {zmin_bound[0] * 1e3:.1f} us, zbuffer_visible bound "
+          f"{vis_bound[0] * 1e3:.1f} us (bytes)")
     return [
         {"name": "zmin", "route": "cuda", "source": f"{PKG}/csrc/zbuffer.cu",
          "replaces": "pointcloudprocessor_tpu/tools/zbuffer_probe.py:42",
-         "max_abs_err": zmin_err, "ms": t["zmin"], "plain_ms": t["zmin twin"]},
+         "max_abs_err": zmin_err, "ms": dev_t["zmin"], "plain_ms": dev_t["zmin twin"],
+         "bound_ms": zmin_bound[0], "bound_by": zmin_bound[1],
+         "library_ms": dev_t["scatter_reduce_ amin"], "call_ms": t["zmin"],
+         "plain_call_ms": t["zmin twin"]},
         {"name": "zbuffer_visible", "route": "cuda", "source": f"{PKG}/csrc/zbuffer.cu",
          "replaces": "pointcloudprocessor_tpu/ops/zbuffer.py:69",
-         "max_abs_err": vis_err, "mismatches": n_differ, "ms": t["visible"],
-         "plain_ms": t["visible twin"]},
+         "max_abs_err": vis_err, "mismatches": n_differ, "ms": dev_t["visible"],
+         "plain_ms": dev_t["visible twin"], "bound_ms": vis_bound[0],
+         "bound_by": vis_bound[1], "library_ms": None, "call_ms": t["visible"],
+         "plain_call_ms": t["visible twin"]},
     ]
 
 
@@ -695,8 +880,8 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_tools()
-    launches.update(tap_select=grouped[True]["tap_select"],
-                    tap_streamed=grouped["streamed"]["tap_streamed"])
+    launches.update(tap_select=grouped["K3"]["tap_select"],
+                    tap_streamed=grouped["K4"]["tap_streamed"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

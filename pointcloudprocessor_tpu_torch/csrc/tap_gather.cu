@@ -1,47 +1,57 @@
-// Grouped tap-row gathers: the selection steps for Hopper (sm_90a).
+// Grouped tap-row gathers for Hopper (sm_90a): each variant is ONE kernel
+// that plans its groups' windows and selects every point's tap row.
 //
-// Replaces the two Pallas TPU kernels of pointcloudprocessor_tpu/ops/tap_gather.py:
+// Replaces the two Pallas TPU kernels of pointcloudprocessor_tpu/ops/tap_gather.py
+// together with the XLA index arithmetic (the plan) around each of them:
 //   K3 tap_select    <- _select_kernel   (tap_gather.py:95, pallas_call at :165)
+//                       and the plan of grouped_take_slabbed (:267-296)
 //   K4 tap_streamed  <- _streamed_kernel (tap_gather.py:343, pallas_call at :519)
+//                       and the plan of grouped_take_streamed (:427-491)
 //
-// Both pick, for each point, its two nibble-packed tap words from the
-// plane-concat slab table (opt/nid.build_tap_slabs): row j of the table is
-// [word0 of pixels j*S .. j*S+S-1 | word1 of the same pixels], 2*S int32.
-// A point's offset o says where its row lies in its group's window; word c
-// of the point is table[window_row + o / S][c*S + o % S].
+// In: flat indices idx (n,) int32 into the interleaved row table rows
+// (n_rows, 2) int32 (the K keyframes' (H*W, 2) tap tables stacked, n_rows =
+// n_slabs * S), and the point mask ok (n,) bytes. Out: taps (ng, G, 2) int32,
+// the per-group overflow flags (ng,) bytes and their count (one int32).
 //
-// K3: out (ng, G, 2) for ng groups of G points; the window of group g is the
-//   two slab rows slab_id[g], slab_id[g] + 1, and o = offs[g, p] < 2*S. The
-//   TPU kernel receives the windows as XLA-taken (ng, 2*2*S) rows and picks
-//   each point's word with a one-hot MXU dot over u16 halves. Materialising
-//   those windows costs 16 KB a group: 2 x 131,072 x 16 KB = 4.3 GB at the
-//   reference scale (tap_gather.py:326-330), for 8 B a point of output. Here
-//   one thread per point reads its two words straight from the table.
+// Addressing. The TPU reads its windows from the plane-concat slab table,
+// row j = [word0 of pixels jS..jS+S-1 | word1 of the same pixels]. Word c of
+// slab row j, column m is word c of interleaved row j*S + m, so a window of
+// slab rows [a, a+w) is the row range [a*S, (a+w)*S) here, and a point at
+// offset o in it is row a*S + o: both of its words in one 8-byte load. The
+// window and clamp arithmetic is the plan's (ops/tap_gather.plan_slabbed /
+// plan_streamed), so the output equals the twin on every row, the
+// unspecified rows of masked points and overflowing groups included.
 //
-// K4: out (n_steps, 32, 2, G), one block per step of 32 groups; the window of
-//   group g of step i starts at slab row blk0[i]*64 + rel[i*32 + g] and
-//   o = offs[i, g, p] < 4*S. The TPU kernel DMAs a 2 x 64-slab-row mega-window
-//   (2 x 64 x 16 KB = 2 MB at S = 2048) into VMEM per step and slices each
-//   group's 4-row sub-window from it. That window does not fit the 227 KB of
-//   shared memory a block may use, and each group reads only 256 B of its
-//   64 KB sub-window, so staging any of it would copy far more than is read:
-//   the threads read global memory directly, one point each.
+// The plan, in the kernel. A warp takes a tile of 128 consecutive points,
+// lane l the points l, l+32, l+64 and l+96, so each warp-wide load or store
+// covers 32 consecutive points (coalesced idx, ok and taps; the row reads of
+// one instruction stay within ~12 KB of table), a K3 group of 16 is a
+// half-warp and a K4 group of 32 a whole warp at one of the four positions.
+// A group's base (the minimum idx over its ok points) is a shuffle reduction
+// across its lanes, and its overflow flag a ballot.
+//   K3, G = 16: the window is the 2 slabs from the base's slab.
+//   K4, G = 32: a block of 256 threads is one step of 32 groups. The step's
+//   first slab is a minimum over the block through shared memory that leaves
+//   out groups without an ok point; those adopt the step's base
+//   (tap_gather.py:457-471). The step's mega-block is blk0 = clamp(first
+//   slab / 64, 0, n_blocks - 2), and each group's 4-slab sub-window starts
+//   rel slabs past blk0 * 64.
+// Points past n are the masked points of the padded last groups: nothing is
+// copied to pad. A group overflows when an ok point lies outside its window;
+// its first lane writes the flag, and each block adds its count with one
+// atomicAdd (the count is zeroed by the launcher, on the same stream).
 //
-// What bounds both on the H100: scattered 4-byte reads. The two words of a
-// point lie S words apart, so each point touches two 32-byte sectors (less
-// where neighbouring raster-sorted points share a sector): about 64 B a
-// point, ~134 MB at 8 x 262,144 points, ~40 us at 3.35 TB/s, plus 8 B a point
-// of coalesced writes. The design keeps the reads of neighbouring threads on
-// neighbouring table words (sorted points) and nothing else.
-//
-// There is no floating-point arithmetic at all, so the TPU's one-hot MXU
-// selection and its HIGHEST-precision trap (a single bf16 pass rounded the
-// u16 operands, tap_gather.py:134-138) do not arise: the words are copied.
-//
-// Offsets and window rows are clamped into the table, so no read leaves it
-// even for the unspecified rows of masked points and padded groups; byte
-// offsets are 64-bit (row * 2*S exceeds 2^31 words only at ~175 keyframes of
-// 4096x3000, but the product is formed in 64 bits regardless).
+// What bounds both on the H100: the scattered row reads. Raster-sorted points
+// are ~47 pixels (~376 B of table) apart at 8 x 262,144 points of 4096x3000,
+// so each point pulls its own 32-byte sector. The compulsory traffic is ~21 B
+// a point (idx 4, ok 1, row 8, out 8): ~45 MB, 13 us at 3.35 TB/s for 2M
+// points; counted in whole sectors it is ~45 B a point (~28 us). The design
+// issues a lane's four row loads before any store (memory-level
+// parallelism), reads the table through the non-coherent path without
+// allocating in L1 (each sector is read once), and writes the output with
+// coalesced streaming stores. There is no floating point: the TPU's
+// one-hot MXU selection and its precision trap (tap_gather.py:134-138) do not
+// arise, the words are copied.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,79 +59,216 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSubrows = 4;  // slab rows per K4 sub-window (ops/tap_gather._SUBROWS)
+constexpr int kWarps = kThreads / 32;
+constexpr int kPts = 4;                     // points a lane, 32 apart
+constexpr int kBlockPts = kThreads * kPts;  // 1024 points a block
+constexpr int kBig = 0x7fffffff;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kSelectGroup = 16;  // K3 group: a half-warp (ops/tap_gather: group)
+constexpr int kStreamGroup = 32;  // K4 group: a warp
+constexpr int kSpg = 32;          // K4 groups a step (ops/tap_gather._SPG)
+constexpr int kWblk = 64;         // slabs a mega-block (_WBLK)
+constexpr int kSubrows = 4;       // slabs a K4 sub-window (_SUBROWS)
+static_assert(kSpg * kStreamGroup == kBlockPts, "a K4 step is one block");
 
-__global__ void __launch_bounds__(kThreads)
-tap_select_kernel(const int* __restrict__ slabs, const int* __restrict__ slab_id,
-                  const int* __restrict__ offs, int2* __restrict__ out,
-                  int n_slabs, int slab, long long n_points, int group) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_points) return;
-  const int g = static_cast<int>(t / group);
-  const int o = min(max(offs[t], 0), 2 * slab - 1);
-  const int hi = o >= slab ? 1 : 0;
-  const int row = min(slab_id[g] + hi, n_slabs - 1);
-  const int col = o - hi * slab;
-  const long long base = static_cast<long long>(row) * (2LL * slab) + col;
-  out[t] = make_int2(__ldg(slabs + base), __ldg(slabs + base + slab));
+// torch's `//` on int32 (floor division), for b > 0.
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// One tap row: both words in one 8-byte read-only load, no L1 allocation.
+__device__ __forceinline__ int2 load_row(const int2* p) {
+  int2 v;
+  asm("ld.global.nc.L1::no_allocate.v2.s32 {%0, %1}, [%2];"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p));
+  return v;
+}
+
+// The first of this lane's points: lane l of warp w of the block's
+// 1024-point tile takes points tile + 128 w + l + 32 j, j < kPts.
+__device__ __forceinline__ long long first_point() {
+  return static_cast<long long>(blockIdx.x) * kBlockPts + (threadIdx.x / 32) * (32 * kPts) +
+         threadIdx.x % 32;
+}
+
+// The lane's points: idx clamped to idx_max as the plan clamps it; points at
+// or past n are masked with idx 0, as the plan pads them.
+__device__ __forceinline__ void load_points(const int* __restrict__ idx,
+                                            const unsigned char* __restrict__ ok,
+                                            long long p0, long long n, int idx_max,
+                                            int (&i)[kPts], bool (&k)[kPts]) {
+#pragma unroll
+  for (int j = 0; j < kPts; ++j) {
+    const long long p = p0 + 32 * j;
+    i[j] = p < n ? min(__ldcs(idx + p), idx_max) : 0;
+    k[j] = p < n && __ldcs(ok + p) != 0;
+  }
+}
+
+// The minimum of ok indices over the group's kLanes lanes (16 or 32).
+template <int kLanes>
+__device__ __forceinline__ int group_base(int i, bool k) {
+  int m = k ? i : kBig;
+#pragma unroll
+  for (int s = 1; s < kLanes; s <<= 1) m = min(m, __shfl_xor_sync(kAll, m, s));
+  return m;
+}
+
+// Whether any lane of the group of kLanes lanes (16 or 32) has `over` set.
+template <int kLanes>
+__device__ __forceinline__ bool group_any(bool over) {
+  const unsigned b = __ballot_sync(kAll, over);
+  return kLanes == 32 ? b != 0 : ((threadIdx.x % 32) < 16 ? b & 0xffffu : b >> 16) != 0;
+}
+
+// Adds the block's overflowing groups (c a thread) to the count: one
+// atomicAdd a block. Every thread of the block must call it.
+__device__ __forceinline__ void count_groups(int* __restrict__ n_ovf, int c) {
+  __shared__ int total;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  c = __reduce_add_sync(kAll, c);
+  if (threadIdx.x % 32 == 0 && c) atomicAdd_block(&total, c);
+  __syncthreads();
+  if (threadIdx.x == 0 && total) atomicAdd(n_ovf, total);
 }
 
 __global__ void __launch_bounds__(kThreads)
-tap_streamed_kernel(const int* __restrict__ table, const int* __restrict__ blk0,
-                    const int* __restrict__ rel, const int* __restrict__ offs,
-                    int* __restrict__ out, int n_rows, int slab, int spg,
-                    int group, int wblk) {
-  const int i = blockIdx.x;
-  const long long step0 = static_cast<long long>(blk0[i]) * wblk;
-  const int per_step = spg * group;
-  for (int e = threadIdx.x; e < per_step; e += blockDim.x) {
-    const int g = e / group;
-    const int p = e - g * group;
-    const long long pt = static_cast<long long>(i) * per_step + e;
-    const int o = min(max(offs[pt], 0), kSubrows * slab - 1);
-    const int q = o / slab;
-    long long row = step0 + rel[static_cast<long long>(i) * spg + g] + q;
-    row = row < n_rows ? row : n_rows - 1;
-    const long long base = row * (2LL * slab) + (o - q * slab);
-    // out[i, g, c, p]: p is the fastest index, so the stores coalesce.
-    const long long dst = (static_cast<long long>(i) * spg + g) * 2 * group + p;
-    out[dst] = __ldg(table + base);
-    out[dst + group] = __ldg(table + base + slab);
+tap_select_kernel(const int* __restrict__ idx, const unsigned char* __restrict__ ok,
+                  const int2* __restrict__ rows, int2* __restrict__ out,
+                  unsigned char* __restrict__ ovf, int* __restrict__ n_ovf,
+                  long long n, long long npad, int n_slabs, int slab) {
+  const long long p0 = first_point();
+  const bool leader = threadIdx.x % kSelectGroup == 0;
+  int i[kPts];
+  bool k[kPts];
+  load_points(idx, ok, p0, n, n_slabs * slab - 1, i, k);
+  int2 v[kPts];
+  bool over[kPts];
+#pragma unroll
+  for (int j = 0; j < kPts; ++j) {
+    const int m = group_base<kSelectGroup>(i[j], k[j]);
+    const int base = m == kBig ? 0 : m;  // no ok point: the window of row 0
+    const int start = min(max(floor_div(base, slab), 0), n_slabs - 2) * slab;
+    const int o = (k[j] ? i[j] : base) - start;
+    over[j] = k[j] && o >= 2 * slab;
+    v[j] = p0 + 32 * j < npad ? load_row(rows + (start + min(max(o, 0), 2 * slab - 1)))
+                              : make_int2(0, 0);
   }
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < kPts; ++j) {
+    const long long p = p0 + 32 * j;
+    const bool g_over = group_any<kSelectGroup>(over[j]);
+    if (p < npad) {
+      __stcs(out + p, v[j]);
+      if (leader) ovf[p / kSelectGroup] = g_over;
+      c += leader && g_over;
+    }
+  }
+  count_groups(n_ovf, c);
+}
+
+__global__ void __launch_bounds__(kThreads)
+tap_streamed_kernel(const int* __restrict__ idx, const unsigned char* __restrict__ ok,
+                    const int2* __restrict__ rows, int2* __restrict__ out,
+                    unsigned char* __restrict__ ovf, int* __restrict__ n_ovf,
+                    long long n, int n_slabs, int n_blocks, int slab) {
+  __shared__ int warp_first[kWarps];
+  const long long p0 = first_point();
+  const bool leader = threadIdx.x % 32 == 0;
+  int i[kPts];
+  bool k[kPts];
+  load_points(idx, ok, p0, n, n_slabs * slab - 1, i, k);
+  // Each group's base, and the step's first slab: the minimum over the
+  // groups that have an ok point.
+  int m[kPts];
+  int first = kBig;
+#pragma unroll
+  for (int j = 0; j < kPts; ++j) {
+    m[j] = group_base<kStreamGroup>(i[j], k[j]);
+    first = min(first, m[j] == kBig ? kBig : floor_div(m[j], slab));
+  }
+  if (leader) warp_first[threadIdx.x / 32] = first;
+  __syncthreads();
+  int step0 = kBig;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) step0 = min(step0, warp_first[w]);
+  if (step0 == kBig) step0 = 0;  // no ok point in the step
+  const int blk0 = min(max(floor_div(step0, kWblk), 0), n_blocks - 2);
+  int2 v[kPts];
+  bool over[kPts];
+#pragma unroll
+  for (int j = 0; j < kPts; ++j) {
+    const bool any = m[j] != kBig;
+    const int slab_id = any ? floor_div(m[j], slab) : step0;
+    const int base = any ? m[j] : slab_id * slab;
+    const int win = blk0 * kWblk + min(max(slab_id - blk0 * kWblk, 0), 2 * kWblk - kSubrows);
+    const int o = (k[j] ? i[j] : base) - win * slab;
+    over[j] = k[j] && (o < 0 || o >= kSubrows * slab);
+    const int oc = min(max(o, 0), kSubrows * slab - 1);
+    const int q = oc / slab;
+    // The slab row is clamped to the table's last, as the twin clamps it.
+    v[j] = load_row(rows + (min(win + q, n_slabs - 1) * slab + (oc - q * slab)));
+  }
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < kPts; ++j) {
+    const long long p = p0 + 32 * j;
+    const bool g_over = group_any<kStreamGroup>(over[j]);
+    __stcs(out + p, v[j]);
+    if (leader) ovf[p / kStreamGroup] = g_over;
+    c += leader && g_over;
+  }
+  count_groups(n_ovf, c);
+}
+
+bool table_ok(int n_slabs, int slab) {
+  return n_slabs >= 2 && slab >= 1 && static_cast<long long>(n_slabs) * slab < 0x7fffffffLL;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K3: out (ng, group, 2) int32 from slabs (n_slabs, 2*slab), slab_id (ng,)
-// and offs (ng, group) in [0, 2*slab). Returns cudaGetLastError().
-int tap_select(const void* slabs, const void* slab_id, const void* offs, void* out,
-               int n_slabs, int slab, int ng, int group, void* stream) {
-  if (n_slabs < 2 || slab < 1 || ng < 1 || group < 1) return cudaErrorInvalidValue;
-  const long long n_points = static_cast<long long>(ng) * group;
-  const long long blocks = (n_points + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  tap_select_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(slabs), static_cast<const int*>(slab_id),
-      static_cast<const int*>(offs), static_cast<int2*>(out), n_slabs, slab,
-      n_points, group);
+// K3: taps (ng, 16, 2) int32, ovf (ng,) bytes and n_ovf (one int32) from idx
+// (n,) int32, ok (n,) bytes and rows (n_slabs * slab, 2) int32; ng * 16 >= n
+// is the padded point count; rows and taps 8-byte aligned.
+// Returns the first CUDA error (the memset's, or cudaGetLastError()).
+int tap_select(const void* idx, const void* ok, const void* rows, void* taps, void* ovf,
+               void* n_ovf, int n, int ng, int n_slabs, int slab, void* stream) {
+  const long long npad = static_cast<long long>(ng) * kSelectGroup;
+  if (n < 1 || npad < n || !table_ok(n_slabs, slab)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(n_ovf, 0, sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (npad + kBlockPts - 1) / kBlockPts;
+  tap_select_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const int*>(idx), static_cast<const unsigned char*>(ok),
+      static_cast<const int2*>(rows), static_cast<int2*>(taps),
+      static_cast<unsigned char*>(ovf), static_cast<int*>(n_ovf), n, npad, n_slabs, slab);
   return cudaGetLastError();
 }
 
-// K4: out (n_steps, spg, 2, group) int32 from table (n_rows, 2*slab), blk0
-// (n_steps,), rel (n_steps*spg,) and offs (n_steps, spg, group) in
-// [0, 4*slab). Returns cudaGetLastError().
-int tap_streamed(const void* table, const void* blk0, const void* rel,
-                 const void* offs, void* out, int n_rows, int slab, int n_steps,
-                 int spg, int group, int wblk, void* stream) {
-  if (n_rows < 1 || slab < 1 || n_steps < 1 || spg < 1 || group < 1 || wblk < 1)
+// K4: taps (n_steps * 32, 32, 2) int32, ovf (n_steps * 32,) bytes and n_ovf
+// from the same inputs; n_steps * 1024 >= n, n_blocks = the mega-blocks of
+// the padded table (ops/tap_gather.plan_streamed). Returns as tap_select.
+int tap_streamed(const void* idx, const void* ok, const void* rows, void* taps, void* ovf,
+                 void* n_ovf, int n, int n_steps, int n_slabs, int n_blocks, int slab,
+                 void* stream) {
+  if (n < 1 || static_cast<long long>(n_steps) * kBlockPts < n || n_blocks < 2 ||
+      !table_ok(n_slabs, slab))
     return cudaErrorInvalidValue;
-  tap_streamed_kernel<<<n_steps, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), static_cast<const int*>(blk0),
-      static_cast<const int*>(rel), static_cast<const int*>(offs),
-      static_cast<int*>(out), n_rows, slab, spg, group, wblk);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaMemsetAsync(n_ovf, 0, sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  tap_streamed_kernel<<<n_steps, kThreads, 0, s>>>(
+      static_cast<const int*>(idx), static_cast<const unsigned char*>(ok),
+      static_cast<const int2*>(rows), static_cast<int2*>(taps),
+      static_cast<unsigned char*>(ovf), static_cast<int*>(n_ovf), n, n_slabs, n_blocks,
+      slab);
   return cudaGetLastError();
 }
 

@@ -1,36 +1,46 @@
 """Grouped tap-row gathers: CUDA kernels K3/K4 and their plain torch twins.
 
 Port of `pointcloudprocessor_tpu/ops/tap_gather.py`: an exact
-``take(tap_rows, idx)`` for every ``ok`` row (rows with ``~ok`` hold
+``take(rows, idx)`` for every ``ok`` row (rows with ``~ok`` hold
 unspecified data, which the NID inlier gate zeroes downstream), for
-raster-sorted indices that hit near-monotone table rows. Points form groups
-of consecutive entries; each group reads from a small window of the
-plane-concat slab table (``opt/nid.build_tap_slabs``: row j = [word0 of
-pixels jS..jS+S-1 | word1 of the same pixels]). A point outside its
-group's window (a sparse region) is repaired by a bounded per-row re-take
-of the worst groups (``topk`` over per-group overflow flags), and when more
-groups overflow than that budget (unsorted input, or a pose far from the
-sort pose) the whole call falls back to the per-row lookup.
+raster-sorted indices that hit near-monotone table rows. The source is the
+interleaved (n_rows, 2) row table: the K keyframes' (H*W, 2) tap tables
+stacked, flat index kf*H*W + anchor, n_rows a multiple of the slab width S.
+Points form groups of consecutive entries, and each group reads a window of
+slab rows. The JAX package reads its windows from the plane-concat slab
+table (``opt/nid.build_tap_slabs``: row j = [word0 of pixels jS..jS+S-1 |
+word1 of the same pixels]); word c of slab row j, column m is word c of row
+j*S + m here, so the same window is a row range of the row table and no
+second table is built. A point outside its group's window (a sparse
+region) is repaired by a per-row re-take of the overflowing groups, and
+when more groups overflow than the repair budget (unsorted input, or a pose
+far from the sort pose) the whole call falls back to the per-row lookup.
 
-Two variants, each with its selection step as a kernel:
+Two variants, each one CUDA kernel that plans the windows and selects:
 
 * :func:`grouped_take_slabbed` (group 16): each group's window is 2 slabs
-  starting at its minimum row's slab. Selection = K3, :func:`select_slabbed`
-  (the TPU's `_select_kernel` over XLA-taken windows, `tap_gather.py:95`).
+  from its minimum row's slab. Kernel K3 ``tap_select`` (the TPU's
+  `_select_kernel`, `tap_gather.py:95`, and the plan around it).
 * :func:`grouped_take_streamed` (group 32): 32 groups form a step sharing a
   2-mega-block window of 2 x 64 slabs; each group selects from a 4-slab
-  sub-window at ``rel``. Selection = K4, :func:`select_streamed` (the TPU's
-  `_streamed_kernel`, `tap_gather.py:343`).
+  sub-window at ``rel``. Kernel K4 ``tap_streamed`` (the TPU's
+  `_streamed_kernel`, `tap_gather.py:343`, and its plan).
 
-The index arithmetic (group bases, windows, overflow flags, repair budgets)
-is the JAX package's, in torch. ``lax.cond(n_ovf > f_rep, slow, fast)``
-becomes a Python branch on ``int(n_ovf)``: one device sync per call.
+Each kernel returns what :func:`grouped_select_slabbed` /
+:func:`grouped_select_streamed` return: the (ng, G, 2) taps, the per-group
+overflow flags and their count, on the device. The grouped take reads the
+count (``lax.cond(n_ovf > f_rep, slow, fast)`` becomes a Python branch on
+that one int32: one device sync) and repairs or falls back in torch.
 
-Dispatch of the selections goes by device: CPU tensors take the plain twin
-(:func:`select_slabbed_plain` / :func:`select_streamed_plain`), CUDA tensors
-take the kernels in `csrc/tap_gather.cu` or raise. ``launch_counts`` counts
-kernel launches; ``call_counts`` counts grouped takes, so on the card
-``call_counts - launch_counts`` is the number of takes that fell back.
+Dispatch goes by device: CPU tensors take the plain twin
+(:func:`grouped_select_slabbed_plain` / :func:`grouped_select_streamed_plain`:
+the JAX package's index arithmetic in :func:`plan_slabbed` /
+:func:`plan_streamed`, then :func:`select_slabbed_plain` /
+:func:`select_streamed_plain`), CUDA tensors take the kernels in
+`csrc/tap_gather.cu` or raise. ``launch_counts`` counts kernel launches,
+``call_counts`` grouped takes (any device) and ``fallback_counts`` the takes
+that fell back to the per-row lookup; on the card every grouped take
+launches its kernel once, fallbacks included.
 """
 
 from __future__ import annotations
@@ -49,25 +59,28 @@ _SPG = 32  # groups per step of the streamed variant
 _WBLK = 64  # slab rows per mega-block
 _SUBROWS = 4  # slab rows per group sub-window
 _BIG = 2**31 - 1
+_KERNEL_GROUP = {"tap_select": 16, "tap_streamed": 32}  # the groups the kernels take
 
-# Launches of each CUDA kernel, and grouped takes (any device), in this
-# process (see reset_launch_counts).
+# Launches of each CUDA kernel, grouped takes (any device) and the takes
+# that fell back to the per-row lookup, in this process (see
+# reset_launch_counts).
 launch_counts = {"tap_select": 0, "tap_streamed": 0}
 call_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
+fallback_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, call_counts):
+    for counts in (launch_counts, call_counts, fallback_counts):
         for name in counts:
             counts[name] = 0
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # slabs, slab_id, offs, out, n_slabs, slab, ng, group, stream
-    "tap_select": ([_PTR] * 4 + [_I32] * 4 + [_PTR], _I32),
-    # table, blk0, rel, offs, out, n_rows, slab, n_steps, spg, group, wblk, stream
-    "tap_streamed": ([_PTR] * 5 + [_I32] * 6 + [_PTR], _I32),
+    # idx, ok, rows, taps, ovf, n_ovf, n, ng, n_slabs, slab, stream
+    "tap_select": ([_PTR] * 6 + [_I32] * 4 + [_PTR], _I32),
+    # idx, ok, rows, taps, ovf, n_ovf, n, n_steps, n_slabs, n_blocks, slab, stream
+    "tap_streamed": ([_PTR] * 6 + [_I32] * 5 + [_PTR], _I32),
 }
 
 
@@ -88,131 +101,53 @@ def default_slab(n_rows: int, n_idx: int, group: int) -> int:
     return min(max(_pow2ceil(2 * group * density), 512), 1 << 16)
 
 
-def _planes_lookup(slabs2: torch.Tensor, slab: int, idx: torch.Tensor) -> torch.Tensor:
-    """Exact (M, 2) rows for flat indices, read from the plane-concat slab
-    table (`tap_gather.py:188-196`)."""
-    j = (idx // slab).long()
-    m = (idx % slab).long()
-    return torch.stack([slabs2[j, m], slabs2[j, m + slab]], dim=-1)
+def _n_slabs(rows: torch.Tensor, slab: int) -> int:
+    """The slab count of an (n_rows, 2) int32 row table; n_rows must be a
+    whole number (at least 2) of slabs."""
+    if rows.dim() != 2 or rows.shape[1] != 2 or rows.dtype != torch.int32:
+        raise ValueError(
+            f"tap rows must be (n_rows, 2) int32, got {tuple(rows.shape)} {rows.dtype}")
+    n_rows = rows.shape[0]
+    if slab < 1 or n_rows % slab or n_rows // slab < 2 or n_rows >= 2**31:
+        raise ValueError(f"{n_rows} tap rows are not a whole number (>= 2) of slabs of {slab}")
+    return n_rows // slab
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device or t.device.type != "cuda":
-        raise ValueError(f"{name} must be on {device} (CUDA), got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 8:
-        raise ValueError(f"{name} must be contiguous and 8-byte aligned")
+def _n_groups(n: int, group: int, per_step: int) -> int:
+    """Groups once n points are padded to whole steps of ``per_step``
+    groups (the TPU kernels' grids)."""
+    return -(-n // (group * per_step)) * per_step
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _n_blocks(n_slabs: int) -> int:
+    """Mega-blocks of the streamed window: whole blocks, at least 2 (the TPU
+    pads the table to this, `tap_gather.py:431-434`)."""
+    return max(-(-n_slabs // _WBLK), 2)
 
 
-# ---------------------------------------------------------------------------
-# K3: the selection step of the slabbed gather
-# ---------------------------------------------------------------------------
+def _budget(ng: int, repair_groups: int | None, share: int) -> int:
+    """Repair budget of a grouped take (`tap_gather.py:294-296`, `:488-490`):
+    ``repair_groups``, by default max(256, ng // share) groups."""
+    return min(max(256, ng // share) if repair_groups is None else repair_groups, ng)
 
 
-def select_slabbed_plain(slabs2, slab_id, offs, slab: int) -> torch.Tensor:
-    """The twin of K3: (ng, G, 2) words ``slabs2[slab_id + (o >= slab)]
-    [c*slab + o % slab]`` for o = offs[g, p] in [0, 2*slab), i.e. the
-    output of `_local_select(take(slabs, slab_id), take(slabs, slab_id+1),
-    offs)` (`tap_gather.py:157-185`) without materialising the windows."""
-    row = (slab_id[:, None] + (offs >= slab).to(slab_id.dtype)).long()
-    col = (offs % slab).long()
-    return torch.stack([slabs2[row, col], slabs2[row, col + slab]], dim=-1)
+def _lookup(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Exact rows for flat indices, clamped into the table as the plans
+    clamp them (``index_select`` takes the int32 index as it is)."""
+    flat = torch.clamp(idx, 0, rows.shape[0] - 1).reshape(-1)
+    return torch.index_select(rows, 0, flat).reshape(*idx.shape, 2)
 
 
-def select_slabbed_cuda(slabs2, slab_id, offs, slab: int) -> torch.Tensor:
-    """K3 on the card; same contract as :func:`select_slabbed_plain`."""
-    n_slabs = slabs2.shape[0]
-    ng, group = offs.shape
-    dev = slabs2.device
-    _check_cuda("slabs", slabs2, (n_slabs, 2 * slab), dev)
-    _check_cuda("slab_id", slab_id, (ng,), dev)
-    _check_cuda("offs", offs, (ng, group), dev)
-    if n_slabs < 2 or ng * group >= 2**31:
-        raise ValueError(f"K3: {n_slabs} slabs / {ng}x{group} points out of range")
-    out = torch.empty((ng, group, 2), dtype=torch.int32, device=dev)
-    err = _lib().tap_select(
-        slabs2.data_ptr(), slab_id.data_ptr(), offs.data_ptr(), out.data_ptr(),
-        n_slabs, slab, ng, group, _stream(slabs2),
-    )
-    if err != 0:
-        raise RuntimeError(f"tap_select launch failed: CUDA error {err}")
-    launch_counts["tap_select"] += 1
-    return out
+class GroupedSelect(NamedTuple):
+    """What K3 / K4 (and their twins) return."""
 
-
-def select_slabbed(slabs2, slab_id, offs, slab: int) -> torch.Tensor:
-    """(ng, G, 2) selected words: the twin on CPU tensors, K3 on CUDA ones."""
-    dev = slabs2.device.type
-    if dev == "cpu":
-        return select_slabbed_plain(slabs2, slab_id, offs, slab)
-    if dev == "cuda":
-        return select_slabbed_cuda(slabs2, slab_id, offs, slab)
-    raise NotImplementedError(f"select_slabbed: no kernel for device {slabs2.device}")
+    taps: torch.Tensor  # (ng, G, 2) int32: exact for ok points of clean groups
+    ovf_grp: torch.Tensor  # (ng,) bool: an ok point lies outside the group's window
+    n_ovf: torch.Tensor  # () int32: overflowing groups, on the device
 
 
 # ---------------------------------------------------------------------------
-# K4: the selection step of the streamed gather
-# ---------------------------------------------------------------------------
-
-
-def select_streamed_plain(table, blk0, rel, offs, slab: int) -> torch.Tensor:
-    """The twin of K4: out[i, g, c, p] = table[r][c*slab + o % slab] with
-    r = blk0[i]*64 + rel[i*32 + g] + o // slab and o = offs[i, g, p] in
-    [0, 4*slab), shape (n_steps, 32, 2, G).
-
-    The TPU pads the table to whole mega-blocks; here r is clamped to the
-    table's last row instead of copying the table. Only a row with ~ok or
-    an overflowing group can reach past the end, and both are unspecified
-    (the repair rewrites the latter)."""
-    n_steps, spg, _ = offs.shape
-    start = blk0[:, None].long() * _WBLK + rel.reshape(n_steps, spg).long()
-    row = torch.clamp(start[:, :, None] + (offs // slab).long(), max=table.shape[0] - 1)
-    col = (offs % slab).long()
-    return torch.stack([table[row, col], table[row, col + slab]], dim=2)
-
-
-def select_streamed_cuda(table, blk0, rel, offs, slab: int) -> torch.Tensor:
-    """K4 on the card; same contract as :func:`select_streamed_plain`."""
-    n_rows = table.shape[0]
-    n_steps, spg, group = offs.shape
-    dev = table.device
-    _check_cuda("table", table, (n_rows, 2 * slab), dev)
-    _check_cuda("blk0", blk0, (n_steps,), dev)
-    _check_cuda("rel", rel, (n_steps * spg,), dev)
-    _check_cuda("offs", offs, (n_steps, spg, group), dev)
-    if n_steps * spg * group >= 2**31 or n_steps > 2**31 - 1:
-        raise ValueError(f"K4: {n_steps}x{spg}x{group} points out of range")
-    out = torch.empty((n_steps, spg, 2, group), dtype=torch.int32, device=dev)
-    err = _lib().tap_streamed(
-        table.data_ptr(), blk0.data_ptr(), rel.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), n_rows, slab, n_steps, spg, group, _WBLK, _stream(table),
-    )
-    if err != 0:
-        raise RuntimeError(f"tap_streamed launch failed: CUDA error {err}")
-    launch_counts["tap_streamed"] += 1
-    return out
-
-
-def select_streamed(table, blk0, rel, offs, slab: int) -> torch.Tensor:
-    """(n_steps, 32, 2, G) selected words: the twin on CPU tensors, K4 on
-    CUDA ones."""
-    dev = table.device.type
-    if dev == "cpu":
-        return select_streamed_plain(table, blk0, rel, offs, slab)
-    if dev == "cuda":
-        return select_streamed_cuda(table, blk0, rel, offs, slab)
-    raise NotImplementedError(f"select_streamed: no kernel for device {table.device}")
-
-
-# ---------------------------------------------------------------------------
-# The grouped takes
+# The plans and selections of the twins
 # ---------------------------------------------------------------------------
 
 
@@ -224,35 +159,19 @@ def _pad_points(idx, ok, block: int):
     return idx, ok
 
 
-def _repair(taps, ovf_grp, idx_eff, f_rep: int, lookup):
-    """Bounded repair (`tap_gather.py:305-311`): re-take the rows of the
-    ``f_rep`` groups ranked first by overflow flag. Surplus slots rewrite
-    healthy groups with their exact rows, which changes no ``ok`` row."""
-    _, rep = torch.topk(ovf_grp.to(torch.int32), f_rep)
-    group = taps.shape[1]
-    taps[rep] = lookup(idx_eff[rep].reshape(-1)).reshape(f_rep, group, 2)
-    return taps
-
-
 class SlabbedPlan(NamedTuple):
     """Index arithmetic of :func:`grouped_take_slabbed` (`tap_gather.py:
     267-296`), for ``ng`` groups of ``group`` points."""
 
-    slabs2: torch.Tensor  # (n_slabs, 2*slab) int32
-    idx: torch.Tensor  # (npad,) clamped, padded flat indices
-    idx_eff: torch.Tensor  # (ng, G): ~ok points moved to their group's base
     slab_id: torch.Tensor  # (ng,) window start slab
     offs: torch.Tensor  # (ng, G) offsets in the window, clamped to [0, 2*slab)
     ovf_grp: torch.Tensor  # (ng,) bool: an ok point lies past the window
-    f_rep: int  # repair budget (groups)
 
 
-def plan_slabbed(table_slabs, idx, ok, *, slab: int, group: int = 16,
-                 repair_groups: int | None = None) -> SlabbedPlan:
-    slabs2 = table_slabs.reshape(-1, 2 * slab)
-    n_slabs = slabs2.shape[0]
+def plan_slabbed(rows, idx, ok, *, slab: int, group: int = 16) -> SlabbedPlan:
+    n_slabs = _n_slabs(rows, slab)
     idx = torch.clamp(idx, max=n_slabs * slab - 1)
-    idx, ok = _pad_points(idx, ok, group * _GBLK)
+    idx, ok = _pad_points(idx, ok.bool(), group * _GBLK)
     ng = idx.shape[0] // group
     idx2 = idx.reshape(ng, group)
     ok2 = ok.reshape(ng, group)
@@ -262,84 +181,35 @@ def plan_slabbed(table_slabs, idx, ok, *, slab: int, group: int = 16,
     idx_eff = torch.where(ok2, idx2, base[:, None])
     offs = idx_eff - slab_id[:, None] * slab
     ovf_grp = torch.any(ok2 & (offs >= 2 * slab), dim=1)
-    if repair_groups is None:
-        # ~1.5% of groups: above the ~1% overflow measured at the default slab.
-        repair_groups = max(256, ng // 64)
     return SlabbedPlan(
-        slabs2, idx, idx_eff, slab_id.to(torch.int32).contiguous(),
-        torch.clamp(offs, 0, 2 * slab - 1).to(torch.int32).contiguous(),
-        ovf_grp, min(repair_groups, ng),
+        slab_id.to(torch.int32),
+        torch.clamp(offs, 0, 2 * slab - 1).to(torch.int32), ovf_grp,
     )
 
 
-def grouped_take_slabbed(table_slabs, idx, ok, *, slab: int, group: int = 16,
-                         repair_groups: int | None = None, lookup_rows=None) -> torch.Tensor:
-    """Exact (N, 2) ``take`` of every ``ok`` row over the plane-concat slab
-    table (`tap_gather.py:246-319`), the K keyframes' tables stacked on a
-    leading axis (flat index = kf * R + anchor). ``lookup_rows`` (flat idx
-    -> rows) serves the repair and the fallback; the default reads the slab
-    planes."""
-    call_counts["grouped_take_slabbed"] += 1
-    n = idx.shape[0]
-    p = plan_slabbed(table_slabs, idx, ok, slab=slab, group=group, repair_groups=repair_groups)
-    lookup = lookup_rows or (lambda i: _planes_lookup(p.slabs2, slab, i))
-    # The overflow count decides the branch: one device sync.
-    if int(torch.sum(p.ovf_grp)) > p.f_rep:
-        return lookup(p.idx)[:n]
-    taps = select_slabbed(p.slabs2, p.slab_id, p.offs, slab)  # (ng, G, 2)
-    taps = _repair(taps, p.ovf_grp, p.idx_eff, p.f_rep, lookup)
-    return taps.reshape(-1, 2)[:n]
-
-
-def grouped_take(table, idx, ok, *, group: int = 16, slab: int | None = None,
-                 repair_groups: int | None = None) -> torch.Tensor:
-    """:func:`grouped_take_slabbed` over an (R, 2) row table, building the
-    slab layout per call (`tap_gather.py:199-243`; tests and small tables)."""
-    r, c = table.shape
-    if c != 2:
-        raise ValueError(f"nibble-packed tap rows are (R, 2) int32, got {tuple(table.shape)}")
-    if slab is None:
-        slab = default_slab(r, idx.shape[0], group)
-    pad = -r % slab
-    n_slabs = (r + pad) // slab
-    if n_slabs < 2:
-        pad += slab * (2 - n_slabs)
-        n_slabs = 2
-    w0 = F.pad(table[:, 0], (0, pad))
-    w1 = F.pad(table[:, 1], (0, pad))
-    slabs = torch.cat([w0.reshape(n_slabs, slab), w1.reshape(n_slabs, slab)], dim=1)
-    return grouped_take_slabbed(
-        slabs, torch.clamp(idx, max=r - 1), ok, slab=slab, group=group,
-        repair_groups=repair_groups,
-    )
+def select_slabbed_plain(rows, slab_id, offs, slab: int) -> torch.Tensor:
+    """The selection of K3's twin: (ng, G, 2) rows ``rows[slab_id*slab + o]``
+    for o = offs[g, p] in [0, 2*slab): the output of `_local_select(take(
+    slabs, slab_id), take(slabs, slab_id+1), offs)` (`tap_gather.py:
+    157-185`), read from the row table."""
+    return rows[slab_id[:, None].long() * slab + offs.long()]
 
 
 class StreamedPlan(NamedTuple):
     """Index arithmetic of :func:`grouped_take_streamed` (`tap_gather.py:
     427-491`), for ``n_steps`` steps of 32 groups of ``group`` points."""
 
-    slabs2: torch.Tensor  # (n_slabs, 2*slab) int32, not padded
-    idx: torch.Tensor  # (npad,)
-    idx_eff: torch.Tensor  # (ng, G)
     blk0: torch.Tensor  # (n_steps,) first mega-block of each step's window
     rel: torch.Tensor  # (n_steps*32,) sub-window start, in slab rows past blk0*64
     offs: torch.Tensor  # (n_steps, 32, G) clamped to [0, 4*slab)
     ovf_grp: torch.Tensor  # (ng,) bool
-    f_rep: int
 
 
-def plan_streamed(table_slabs, idx, ok, *, slab: int, group: int = 32,
-                  repair_groups: int | None = None) -> StreamedPlan:
-    slabs2 = table_slabs.reshape(-1, 2 * slab)
-    n_slabs0 = slabs2.shape[0]
-    idx = torch.clamp(idx, max=n_slabs0 * slab - 1)
-    # Whole mega-blocks, at least 2 (the TPU pads the table to this).
-    pad_rows = (-n_slabs0) % _WBLK
-    if (n_slabs0 + pad_rows) // _WBLK < 2:
-        pad_rows += _WBLK * (2 - (n_slabs0 + pad_rows) // _WBLK)
-    n_blocks = (n_slabs0 + pad_rows) // _WBLK
-
-    idx, ok = _pad_points(idx, ok, group * _SPG)
+def plan_streamed(rows, idx, ok, *, slab: int, group: int = 32) -> StreamedPlan:
+    n_slabs = _n_slabs(rows, slab)
+    idx = torch.clamp(idx, max=n_slabs * slab - 1)
+    n_blocks = _n_blocks(n_slabs)
+    idx, ok = _pad_points(idx, ok.bool(), group * _SPG)
     ng = idx.shape[0] // group
     n_steps = ng // _SPG
     idx2 = idx.reshape(ng, group)
@@ -365,28 +235,185 @@ def plan_streamed(table_slabs, idx, ok, *, slab: int, group: int = 32,
     offs = idx_eff.reshape(n_steps, _SPG, group) - win_start[:, :, None]
     ovf_pt = ok2.reshape(n_steps, _SPG, group) & ((offs < 0) | (offs >= _SUBROWS * slab))
     ovf_grp = torch.any(ovf_pt, dim=2).reshape(ng)
-    if repair_groups is None:
-        repair_groups = max(256, ng // 32)
     return StreamedPlan(
-        slabs2, idx, idx_eff, blk0.to(torch.int32).contiguous(),
-        rel.to(torch.int32).reshape(-1).contiguous(),
-        torch.clamp(offs, 0, _SUBROWS * slab - 1).to(torch.int32).contiguous(),
-        ovf_grp, min(repair_groups, ng),
+        blk0.to(torch.int32), rel.to(torch.int32).reshape(-1),
+        torch.clamp(offs, 0, _SUBROWS * slab - 1).to(torch.int32), ovf_grp,
     )
 
 
-def grouped_take_streamed(table_slabs, idx, ok, *, slab: int, group: int = 32,
-                          repair_groups: int | None = None, lookup_rows=None) -> torch.Tensor:
+def select_streamed_plain(rows, blk0, rel, offs, slab: int) -> torch.Tensor:
+    """The selection of K4's twin: (ng, G, 2) rows ``rows[r*slab + o % slab]``
+    with slab row r = blk0[i]*64 + rel[i*32 + g] + o // slab and o =
+    offs[i, g, p] in [0, 4*slab), group g of step i.
+
+    The TPU pads the table to whole mega-blocks; here r is clamped to the
+    table's last slab row instead of copying the table. Only a row with ~ok
+    or an overflowing group can reach past the end, and both are
+    unspecified (the repair rewrites the latter)."""
+    n_steps, spg, group = offs.shape
+    offs = offs.long()
+    start = blk0[:, None].long() * _WBLK + rel.reshape(n_steps, spg).long()
+    row = torch.clamp(start[:, :, None] + offs // slab, max=rows.shape[0] // slab - 1)
+    return rows[row * slab + offs % slab].reshape(n_steps * spg, group, 2)
+
+
+def grouped_select_slabbed_plain(rows, idx, ok, *, slab: int, group: int = 16) -> GroupedSelect:
+    """The twin of K3: :func:`plan_slabbed`, then :func:`select_slabbed_plain`."""
+    p = plan_slabbed(rows, idx, ok, slab=slab, group=group)
+    return GroupedSelect(select_slabbed_plain(rows, p.slab_id, p.offs, slab), p.ovf_grp,
+                         torch.sum(p.ovf_grp, dtype=torch.int32))
+
+
+def grouped_select_streamed_plain(rows, idx, ok, *, slab: int, group: int = 32) -> GroupedSelect:
+    """The twin of K4: :func:`plan_streamed`, then :func:`select_streamed_plain`."""
+    p = plan_streamed(rows, idx, ok, slab=slab, group=group)
+    return GroupedSelect(select_streamed_plain(rows, p.blk0, p.rel, p.offs, slab), p.ovf_grp,
+                         torch.sum(p.ovf_grp, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4 on the card
+# ---------------------------------------------------------------------------
+
+
+_MASKS = (torch.bool, torch.uint8)
+_kernels: dict = {}  # name -> the library's ctypes function, signature declared
+
+
+def _kernel(name: str):
+    if name not in _kernels:
+        _kernels[name] = getattr(_lib(), name)
+    return _kernels[name]
+
+
+def _launch(kernel: str, rows, idx, ok, slab: int, group: int, ng: int, *sizes) -> GroupedSelect:
+    """Allocates the outputs and launches ``kernel``. The checks are one
+    expression, so that a call costs the host little beside the launch."""
+    dev = rows.device
+    n = idx.shape[0]
+    if not (dev.type == "cuda" and idx.device == dev and ok.device == dev
+            and rows.dtype == torch.int32 and idx.dtype == torch.int32 and ok.dtype in _MASKS
+            and idx.dim() == 1 and ok.shape == idx.shape and 1 <= n < 2**31 - 2**11
+            and rows.is_contiguous() and idx.is_contiguous() and ok.is_contiguous()
+            and rows.data_ptr() % 8 == 0 and group == _KERNEL_GROUP[kernel]):
+        raise ValueError(
+            f"{kernel}: takes contiguous CUDA tensors on one device, int32 rows (8-byte "
+            f"aligned) and 1-D int32 idx with a bool or uint8 mask of its length, groups of "
+            f"{_KERNEL_GROUP[kernel]}; got rows {rows.dtype} on {dev}, idx "
+            f"{tuple(idx.shape)} {idx.dtype} on {idx.device}, ok {tuple(ok.shape)} {ok.dtype} "
+            f"on {ok.device}, group {group}")
+    taps = torch.empty((ng, group, 2), dtype=torch.int32, device=dev)
+    ovf = torch.empty((ng,), dtype=torch.bool, device=dev)
+    n_ovf = torch.empty((), dtype=torch.int32, device=dev)
+    err = _kernel(kernel)(
+        idx.data_ptr(), ok.data_ptr(), rows.data_ptr(), taps.data_ptr(), ovf.data_ptr(),
+        n_ovf.data_ptr(), n, *sizes, slab, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    launch_counts[kernel] += 1
+    return GroupedSelect(taps, ovf, n_ovf)
+
+
+def grouped_select_slabbed_cuda(rows, idx, ok, *, slab: int, group: int = 16) -> GroupedSelect:
+    """K3 on the card: plan and selection in one launch; the same contract
+    as :func:`grouped_select_slabbed_plain`, bit for bit."""
+    n_slabs = _n_slabs(rows, slab)
+    ng = _n_groups(idx.shape[0], group, _GBLK)
+    return _launch("tap_select", rows, idx, ok, slab, group, ng, ng, n_slabs)
+
+
+def grouped_select_streamed_cuda(rows, idx, ok, *, slab: int, group: int = 32) -> GroupedSelect:
+    """K4 on the card: plan and selection in one launch; the same contract
+    as :func:`grouped_select_streamed_plain`, bit for bit."""
+    n_slabs = _n_slabs(rows, slab)
+    ng = _n_groups(idx.shape[0], group, _SPG)
+    return _launch("tap_streamed", rows, idx, ok, slab, group, ng, ng // _SPG, n_slabs,
+                   _n_blocks(n_slabs))
+
+
+def grouped_select_slabbed(rows, idx, ok, *, slab: int, group: int = 16) -> GroupedSelect:
+    """(taps, flags, count) of the slabbed grouped take: the twin on CPU
+    tensors, K3 on CUDA ones."""
+    dev = rows.device.type
+    if dev == "cpu":
+        return grouped_select_slabbed_plain(rows, idx, ok, slab=slab, group=group)
+    if dev == "cuda":
+        return grouped_select_slabbed_cuda(rows, idx, ok, slab=slab, group=group)
+    raise NotImplementedError(f"grouped_select_slabbed: no kernel for device {rows.device}")
+
+
+def grouped_select_streamed(rows, idx, ok, *, slab: int, group: int = 32) -> GroupedSelect:
+    """(taps, flags, count) of the streamed grouped take: the twin on CPU
+    tensors, K4 on CUDA ones."""
+    dev = rows.device.type
+    if dev == "cpu":
+        return grouped_select_streamed_plain(rows, idx, ok, slab=slab, group=group)
+    if dev == "cuda":
+        return grouped_select_streamed_cuda(rows, idx, ok, slab=slab, group=group)
+    raise NotImplementedError(f"grouped_select_streamed: no kernel for device {rows.device}")
+
+
+# ---------------------------------------------------------------------------
+# The grouped takes
+# ---------------------------------------------------------------------------
+
+
+def _repair(rows, idx, taps, ovf_grp, n_ovf: int) -> torch.Tensor:
+    """Re-take every row of the ``n_ovf`` overflowing groups. The JAX
+    package re-takes the ``f_rep`` groups ranked first by flag (`tap_gather.
+    py:305-311`); its surplus slots rewrite clean groups with their exact
+    rows, which changes no ``ok`` row, so only the flagged groups are taken
+    here. Rows past the end of ``idx`` belong to padding."""
+    _, rep = torch.topk(ovf_grp.to(torch.int32), n_ovf)
+    group = taps.shape[1]
+    pos = rep[:, None] * group + torch.arange(group, device=rep.device)
+    taps[rep] = _lookup(rows, idx[torch.clamp(pos, max=idx.shape[0] - 1)])
+    return taps
+
+
+def _finish(name: str, rows, idx, sel: GroupedSelect, f_rep: int) -> torch.Tensor:
+    # The overflow count decides the branch: one 4-byte device-to-host read.
+    n_ovf = int(sel.n_ovf)
+    if n_ovf > f_rep:
+        fallback_counts[name] += 1
+        return _lookup(rows, idx)
+    taps = _repair(rows, idx, sel.taps, sel.ovf_grp, n_ovf) if n_ovf else sel.taps
+    return taps.reshape(-1, 2)[: idx.shape[0]]
+
+
+def grouped_take_slabbed(rows, idx, ok, *, slab: int, group: int = 16,
+                         repair_groups: int | None = None) -> torch.Tensor:
+    """Exact (N, 2) ``take(rows, idx)`` of every ``ok`` row over the row
+    table (`tap_gather.py:246-319`), ``rows`` a whole number of slabs."""
+    call_counts["grouped_take_slabbed"] += 1
+    sel = grouped_select_slabbed(rows, idx, ok, slab=slab, group=group)
+    return _finish("grouped_take_slabbed", rows, idx, sel,
+                   _budget(sel.ovf_grp.shape[0], repair_groups, 64))
+
+
+def grouped_take_streamed(rows, idx, ok, *, slab: int, group: int = 32,
+                          repair_groups: int | None = None) -> torch.Tensor:
     """Streamed grouped take (`tap_gather.py:414-541`): the same contract as
     :func:`grouped_take_slabbed`, with step-shared mega-block windows."""
     call_counts["grouped_take_streamed"] += 1
-    n = idx.shape[0]
-    p = plan_streamed(table_slabs, idx, ok, slab=slab, group=group, repair_groups=repair_groups)
-    lookup = lookup_rows or (lambda i: _planes_lookup(p.slabs2, slab, i))
-    # The overflow count decides the branch: one device sync.
-    if int(torch.sum(p.ovf_grp)) > p.f_rep:
-        return lookup(p.idx)[:n]
-    out = select_streamed(p.slabs2, p.blk0, p.rel, p.offs, slab)  # (n_steps, 32, 2, G)
-    taps = out.reshape(-1, 2, group).transpose(1, 2).contiguous()  # (ng, G, 2)
-    taps = _repair(taps, p.ovf_grp, p.idx_eff, p.f_rep, lookup)
-    return taps.reshape(-1, 2)[:n]
+    sel = grouped_select_streamed(rows, idx, ok, slab=slab, group=group)
+    return _finish("grouped_take_streamed", rows, idx, sel,
+                   _budget(sel.ovf_grp.shape[0], repair_groups, 32))
+
+
+def grouped_take(table, idx, ok, *, group: int = 16, slab: int | None = None,
+                 repair_groups: int | None = None) -> torch.Tensor:
+    """:func:`grouped_take_slabbed` over any (R, 2) row table, padded with
+    zero rows to a whole number (at least 2) of slabs per call
+    (`tap_gather.py:199-243`; tests and small tables)."""
+    r, c = table.shape
+    if c != 2:
+        raise ValueError(f"nibble-packed tap rows are (R, 2) int32, got {tuple(table.shape)}")
+    if slab is None:
+        slab = default_slab(r, idx.shape[0], group)
+    n_slabs = max(-(-r // slab), 2)
+    return grouped_take_slabbed(
+        F.pad(table, (0, 0, 0, n_slabs * slab - r)), torch.clamp(idx, max=r - 1), ok,
+        slab=slab, group=group, repair_groups=repair_groups,
+    )

@@ -18,7 +18,7 @@ The JAX package's `vmap` over keyframes is a written-out leading K
 dimension. Beside the exact objective this module holds the frozen-tap
 cache (:class:`TapCache`, :func:`multi_nid_loss_cached`; margin 0 and no
 partial refresh), the raster sort that makes gathers near-monotone, and the
-grouped gathers over the slab table (`ops/tap_gather`: kernels K3/K4). Its
+grouped gathers over the row table (`ops/tap_gather`: kernels K3/K4). Its
 ``lax.cond`` branches are Python branches on host values: each costs one
 device sync.
 """
@@ -51,9 +51,11 @@ class NIDKeyframe:
 
     points/intensity/valid are fixed-capacity (padded); intensities are
     normalized to [0, 1] (`visual_lidar_data.cpp:87-96`). ``tap_rows`` is the
-    (K, H*W, 2) int32 table of :func:`build_tap_table` and ``tap_slabs`` its
-    plane-concat slab layout for the grouped gathers (:func:`build_tap_slabs`),
-    both built once per solve by :func:`prepare_keyframes`.
+    (K, H*W, 2) int32 table of :func:`build_tap_table`, which every gather
+    reads, and ``slab_width`` the slab S of the grouped gathers (H*W a
+    multiple of S); ``tap_slabs`` is the JAX package's plane-concat slab
+    layout (:func:`build_tap_slabs`), built only on request. All are
+    attached once per solve by :func:`prepare_keyframes`.
     """
 
     points: torch.Tensor  # (K, N, 3) in the keyframe CAMERA frame (pre-correction)
@@ -62,6 +64,7 @@ class NIDKeyframe:
     bin_image: torch.Tensor  # (K, H, W) int32
     tap_rows: Optional[torch.Tensor] = None  # (K, H*W, 2) int32 packed nibbles
     tap_slabs: Optional[torch.Tensor] = None  # (K, H*W/S, 2S) int32
+    slab_width: Optional[int] = None  # S; None: no grouped gather
 
 
 def _to_int32_bits(w: torch.Tensor) -> torch.Tensor:
@@ -126,31 +129,35 @@ def _use_grouped_default() -> bool:
     return False
 
 
-def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool | None = None) -> NIDKeyframe:
-    """Attach the pose-independent tap tables (one per keyframe) and, when
-    ``build_slabs`` (None = :func:`_use_grouped_default`) and the shapes
-    allow, their slab layout for the grouped gathers (`nid.py:187-237`).
+def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool | None = None,
+                      grouped: bool = False) -> NIDKeyframe:
+    """Attach the pose-independent tap tables (one per keyframe) and the
+    slab width of the grouped gathers where the shapes allow one
+    (`nid.py:187-237`); when ``build_slabs`` (None =
+    :func:`_use_grouped_default`), also the JAX package's plane-concat slab
+    table, which the port's gathers do not read. A grouped-gather request
+    (``grouped`` or ``build_slabs``) that no slab width can serve warns.
     Idempotent; called by the optimizer at solve entry."""
     if kfs.tap_rows is None:
         kfs = replace(kfs, tap_rows=torch.stack([build_tap_table(b) for b in kfs.bin_image]))
+    _, r, _ = kfs.tap_rows.shape
+    slab = tap_gather.default_slab(r, kfs.points.shape[1], 16)
+    if kfs.slab_width is None and r % slab == 0 and r // slab >= 2:
+        kfs = replace(kfs, slab_width=slab)
     if build_slabs is None:
         build_slabs = _use_grouped_default()
-    if build_slabs and kfs.tap_slabs is None:
-        _, r, _ = kfs.tap_rows.shape
-        slab = tap_gather.default_slab(r, kfs.points.shape[1], 16)
-        if r % slab == 0 and r // slab >= 2:
-            kfs = replace(
-                kfs, tap_slabs=torch.stack([build_tap_slabs(b, slab) for b in kfs.bin_image])
-            )
-        else:
-            # An explicit grouped-gather request that cannot be honored must
-            # not degrade silently to the direct take.
-            warnings.warn(
-                f"prepare_keyframes: cannot build tap slabs (H*W={r}, "
-                f"slab={slab}); the grouped gather will fall back to the "
-                "direct per-point take",
-                stacklevel=2,
-            )
+    if (build_slabs or grouped) and kfs.slab_width is None:
+        # An explicit grouped-gather request that cannot be honored must
+        # not degrade silently to the direct take.
+        warnings.warn(
+            f"prepare_keyframes: cannot build tap slabs (H*W={r}, "
+            f"slab={slab}); the grouped gather will fall back to the "
+            "direct per-point take",
+            stacklevel=2,
+        )
+    elif build_slabs and kfs.tap_slabs is None:
+        kfs = replace(kfs, tap_slabs=torch.stack(
+            [build_tap_slabs(b, kfs.slab_width) for b in kfs.bin_image]))
     return kfs
 
 
@@ -206,20 +213,19 @@ def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor
     """(K, N, 2) knots -> (K, N, 2) packed tap rows (`nid.py:490-560`).
 
     The direct per-point row take by default. ``use_grouped`` True takes
-    the slabbed grouped gather (K3), "streamed" the streamed one (K4): all
-    keyframes flatten into one call over the stacked slab tables (flat
-    index kf*H*W + anchor), with the original row table serving repairs
-    and the fallback. Rows whose ``inlier`` is False hold unspecified data
-    under the grouped gathers; the histogram gate zeroes them."""
+    the slabbed grouped gather (K3), "streamed" the streamed one (K4),
+    wherever the keyframes carry a slab width: all keyframes flatten into
+    one call over the stacked row tables (flat index kf*H*W + anchor). Rows
+    whose ``inlier`` is False hold unspecified data under the grouped
+    gathers; the histogram gate zeroes them."""
     anchor = _anchors(camera, knot)
     if use_grouped is None:
         use_grouped = _use_grouped_default()
     k, r, c = kfs.tap_rows.shape
-    if not use_grouped or kfs.tap_slabs is None:
+    if not use_grouped or kfs.slab_width is None:
         kf_idx = torch.arange(k, device=anchor.device)[:, None]
         return kfs.tap_rows[kf_idx, anchor.long()]
     n = anchor.shape[1]
-    slab = kfs.tap_slabs.shape[-1] // 2
     # int32 flat indices would wrap at K*H*W >= 2^31 (~175 keyframes of
     # 4096x3000) and gather wrong rows.
     if k * r >= 2**31:
@@ -233,15 +239,8 @@ def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor
         if use_grouped == "streamed"
         else tap_gather.grouped_take_slabbed
     )
-    rows = kfs.tap_rows.reshape(k * r, c)
-
-    def row_lookup(i):
-        # Repairs and the fallback read the original row table: one index
-        # per row instead of two from the slab planes.
-        return rows[i.long()]
-
-    taps = impl(kfs.tap_slabs, flat_idx.reshape(-1), inlier.reshape(-1), slab=slab,
-                lookup_rows=row_lookup)
+    taps = impl(kfs.tap_rows.reshape(k * r, c), flat_idx.reshape(-1), inlier.reshape(-1),
+                slab=kfs.slab_width)
     return taps.reshape(k, n, c)
 
 

@@ -141,7 +141,7 @@ def refine_pose(
         # The raster sort makes the grouped gathers' rows near-monotone;
         # without them it is a sort per solve and a summation-order change.
         sort_points = bool(grouped)
-    kfs = _nid.prepare_keyframes(kfs, build_slabs=bool(grouped))
+    kfs = _nid.prepare_keyframes(kfs, grouped=bool(grouped))
     if sort_points:
         kfs = _nid.sort_by_raster(camera, T_init, kfs)
     dtype, device = T_init.t.dtype, T_init.t.device

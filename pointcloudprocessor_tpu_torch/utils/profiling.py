@@ -9,7 +9,8 @@ profiling.py`:
 - :func:`trace` — a torch.profiler capture (CPU + CUDA activities) written
   as a Chrome trace;
 - :class:`MetricsLogger` — append-only JSONL metrics, one object per event;
-- :func:`median_ms` — the median CUDA-event time of a call on the card, and
+- :func:`median_ms` — the median CUDA-event time of a call on the card (as
+  its caller pays it, or its device time alone), and
   :func:`card` — the card's name and power limit, which every such time
   carries.
 
@@ -88,25 +89,43 @@ class MetricsLogger:
             f.write(json.dumps(rec) + "\n")
 
 
-def median_ms(fn, device, reps: int = 20, warmup: int = 3) -> Optional[float]:
+# A sleep kernel of this many cycles (~2.5 ms) queued ahead of a timed call
+# keeps the card busy while the host enqueues the call (see median_ms).
+_HIDE_CYCLES = 5_000_000
+
+
+def median_ms(fn, device, reps: int = 20, warmup: int = 3,
+              hide_host: bool = False) -> Optional[float]:
     """Median time of ``fn()`` in ms over ``reps`` calls, each timed with
     CUDA events after ``warmup`` calls; None off the card (a CPU run gives
-    no device time), where ``fn`` runs once so that its path still runs."""
+    no device time), where ``fn`` runs once so that its path still runs.
+
+    The events bracket the call as its caller pays it: a short kernel's
+    time then includes the host's time to reach its launch. ``hide_host``
+    queues a sleep kernel before the start event, so the events bracket only
+    the call's work on the card (its device time); for calls that do not
+    wait on the device. A rep counts only if the start event was still
+    pending when the host had queued the whole call; None if most were not."""
     if torch.device(device).type != "cuda":
         fn()
         return None
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize(device)
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(_HIDE_CYCLES)
         a.record()
         fn()
         b.record()
+        hidden = not a.query()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(statistics.median(times))
+        if hidden or not hide_host:
+            times.append(a.elapsed_time(b))
+    return float(statistics.median(times)) if 2 * len(times) >= reps else None
 
 
 def card() -> str:

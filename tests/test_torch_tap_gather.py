@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: the slab table, the raster sort and the
-grouped tap gathers (ops/tap_gather: the twins of kernels K3/K4 and the
-control flow around them).
+grouped tap gathers (ops/tap_gather: the twins of kernels K3/K4, which plan
+and select over the interleaved row table, and the control flow around
+them).
 
 Tolerance class: bit-exact throughout (integer data movement and integer
 index arithmetic). The grouped takes specify only their ``ok`` rows, so
@@ -35,13 +36,17 @@ def _table(r, seed):
     return rng.integers(-(2**31), 2**31, size=(r, 2), dtype=np.int64).astype(np.int32)
 
 
-def _plane_slabs(table, slab):
+def _padded_rows(table, slab):
+    """The row table padded with zero rows to a whole number (>= 2) of slabs."""
     r = table.shape[0]
-    pad = (-r) % slab
-    w0 = np.pad(table[:, 0], (0, pad))
-    w1 = np.pad(table[:, 1], (0, pad))
-    n = (r + pad) // slab
-    return np.concatenate([w0.reshape(n, slab), w1.reshape(n, slab)], axis=1)
+    n = max(-(-r // slab), 2)
+    return np.pad(table, ((0, n * slab - r), (0, 0)))
+
+
+def _plane_slabs(table, slab):
+    rows = _padded_rows(table, slab)
+    n = rows.shape[0] // slab
+    return np.concatenate([rows[:, 0].reshape(n, slab), rows[:, 1].reshape(n, slab)], axis=1)
 
 
 def _case(name):
@@ -73,6 +78,13 @@ def _case(name):
         ok[:64] = False
         ok[512:640] = False
         ok[2048:2080] = False
+    elif name == "all_masked_step":  # a whole streamed step and a whole K3 grid step masked
+        r, n = 1 << 19, 5000
+        idx = np.sort(rng.integers(200_000, 300_000, n))
+        ok = rng.random(n) > 0.05
+        ok[1024:2048] = False
+        ok[3072:3328] = False
+        idx[~ok] = rng.integers(0, r, (~ok).sum())
     elif name == "boundaries":  # duplicates, slab edges, the last row
         r = 16384
         idx = np.sort(np.asarray(
@@ -94,8 +106,22 @@ def _case(name):
     return r, idx.astype(np.int32), ok
 
 
-CASES = ["dense", "sparse_tail", "unsorted", "masked", "all_masked_group",
+CASES = ["dense", "sparse_tail", "unsorted", "masked", "all_masked_group", "all_masked_step",
          "boundaries", "tiny_table", "k_flattened_1", "k_flattened_4"]
+VARIANTS = {
+    "slabbed": (ttg.plan_slabbed, ttg.select_slabbed_plain, ttg.grouped_select_slabbed,
+                ttg.grouped_take_slabbed, lambda p: (p.slab_id, p.offs)),
+    "streamed": (ttg.plan_streamed, ttg.select_streamed_plain, ttg.grouped_select_streamed,
+                 ttg.grouped_take_streamed, lambda p: (p.blk0, p.rel, p.offs)),
+}
+
+
+def _jax_take(variant, table, idx, ok, slab):
+    """The JAX package's grouped take over the plane-concat slab table, in
+    interpret mode."""
+    slabs = jnp.asarray(_plane_slabs(table, slab))
+    fn = jtg.grouped_take_streamed if variant == "streamed" else jtg.grouped_take_slabbed
+    return np.asarray(fn(slabs, jnp.asarray(idx), jnp.asarray(ok), slab=slab, interpret=True))
 
 
 @pytest.mark.parametrize("variant", ["slabbed", "streamed"])
@@ -113,13 +139,10 @@ def test_grouped_takes_match_jax_on_ok_rows(case, variant):
                                 torch.from_numpy(ok)).numpy()
     else:
         slab = 512
-        slabs = _plane_slabs(table, slab)
-        jgot = np.asarray(jtg.grouped_take_streamed(
-            jnp.asarray(slabs), jnp.asarray(idx), jnp.asarray(ok), slab=slab,
-            interpret=True))
+        jgot = _jax_take("streamed", table, idx, ok, slab)
         tgot = ttg.grouped_take_streamed(
-            torch.from_numpy(slabs), torch.from_numpy(idx), torch.from_numpy(ok),
-            slab=slab).numpy()
+            torch.from_numpy(_padded_rows(table, slab)), torch.from_numpy(idx),
+            torch.from_numpy(ok), slab=slab).numpy()
     assert tgot.dtype == np.int32 and tgot.shape == (len(idx), 2)
     np.testing.assert_array_equal(tgot[ok], want[ok])
     np.testing.assert_array_equal(tgot[ok], jgot[ok])
@@ -131,10 +154,10 @@ def test_plans_branch_as_jax_does(case):
     on equal the JAX package's arithmetic, recomputed here in numpy."""
     r, idx, ok = _case(case)
     slab, group = 512, 16
-    slabs = torch.from_numpy(_plane_slabs(_table(r, 0), slab))
-    p = ttg.plan_slabbed(slabs, torch.from_numpy(idx), torch.from_numpy(ok),
+    rows = torch.from_numpy(_padded_rows(_table(r, 0), slab))
+    p = ttg.plan_slabbed(rows, torch.from_numpy(idx), torch.from_numpy(ok),
                          slab=slab, group=group)
-    n_slabs = slabs.shape[0]
+    n_slabs = rows.shape[0] // slab
     pad = -len(idx) % (group * 16)
     i2 = np.pad(np.minimum(idx, n_slabs * slab - 1), (0, pad)).reshape(-1, group)
     o2 = np.pad(ok, (0, pad)).reshape(-1, group)
@@ -144,17 +167,20 @@ def test_plans_branch_as_jax_does(case):
     np.testing.assert_array_equal(p.slab_id.numpy(), sid)
     np.testing.assert_array_equal(p.offs.numpy(), np.clip(offs, 0, 2 * slab - 1))
     np.testing.assert_array_equal(p.ovf_grp.numpy(), (o2 & (offs >= 2 * slab)).any(1))
-    assert p.f_rep == min(max(256, len(base) // 64), len(base))
+    f_rep = ttg._budget(len(base), None, 64)
+    assert f_rep == min(max(256, len(base) // 64), len(base))
     expect_fallback = case == "unsorted"
-    assert (int(p.ovf_grp.sum()) > p.f_rep) == expect_fallback
+    assert (int(p.ovf_grp.sum()) > f_rep) == expect_fallback
 
 
 def test_select_slabbed_twin_matches_jax_local_select():
-    """K3's twin against the JAX package's `_local_select` over taken
-    windows (interpret mode), every row: offsets cover both slabs."""
+    """K3's twin selection from the row table against the JAX package's
+    `_local_select` over windows taken from the slab table (interpret
+    mode), every row: offsets cover both slabs."""
     rng = np.random.default_rng(3)
     slab, group, ng, n_slabs = 512, 16, 64, 9
-    slabs = _plane_slabs(_table(n_slabs * slab, 4), slab)
+    table = _table(n_slabs * slab, 4)
+    slabs = _plane_slabs(table, slab)
     sid = rng.integers(0, n_slabs - 1, ng).astype(np.int32)
     offs = rng.integers(0, 2 * slab, (ng, group)).astype(np.int32)
     offs[0, :4] = [0, slab - 1, slab, 2 * slab - 1]
@@ -162,46 +188,52 @@ def test_select_slabbed_twin_matches_jax_local_select():
     want = np.asarray(jtg._local_select(
         jnp.take(s, jnp.asarray(sid), axis=0), jnp.take(s, jnp.asarray(sid) + 1, axis=0),
         jnp.asarray(offs), slab=slab, group=group, interpret=True))
-    got = ttg.select_slabbed(torch.from_numpy(slabs), torch.from_numpy(sid),
-                             torch.from_numpy(offs), slab)
+    got = ttg.select_slabbed_plain(torch.from_numpy(table), torch.from_numpy(sid),
+                                   torch.from_numpy(offs), slab)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_select_streamed_twin_formula():
-    """K4's twin: out[i, g, c, p] = table[blk0[i]*64 + rel[i*32+g] + o//S]
-    [c*S + o%S], rows past the table's end clamped to its last row."""
+    """K4's twin selection from the row table: out[i*32 + g, p, c] =
+    slabs[blk0[i]*64 + rel[i*32+g] + o//S][c*S + o%S] of the slab table,
+    slab rows past the table's end clamped to its last."""
     rng = np.random.default_rng(5)
     slab, group, n_steps, n_rows = 128, 32, 3, 150
-    table = _plane_slabs(_table(n_rows * slab, 6), slab)
+    table = _table(n_rows * slab, 6)
+    slabs = _plane_slabs(table, slab)
     blk0 = rng.integers(0, 2, n_steps).astype(np.int32)
     rel = rng.integers(0, 2 * 64 - 4 + 1, n_steps * 32).astype(np.int32)
     offs = rng.integers(0, 4 * slab, (n_steps, 32, group)).astype(np.int32)
-    got = ttg.select_streamed(*(torch.from_numpy(a) for a in (table, blk0, rel, offs)), slab).numpy()
-    assert got.shape == (n_steps, 32, 2, group)
+    got = ttg.select_streamed_plain(
+        *(torch.from_numpy(a) for a in (table, blk0, rel, offs)), slab).numpy()
+    assert got.shape == (n_steps * 32, group, 2)
     for i in range(n_steps):
         for g in range(32):
             row = np.minimum(blk0[i] * 64 + rel[i * 32 + g] + offs[i, g] // slab, n_rows - 1)
             for c in range(2):
-                np.testing.assert_array_equal(got[i, g, c], table[row, c * slab + offs[i, g] % slab])
+                np.testing.assert_array_equal(got[i * 32 + g, :, c],
+                                              slabs[row, c * slab + offs[i, g] % slab])
 
 
 def test_counts_and_device_dispatch():
     """CPU tensors take the twins: grouped takes count as calls, never as
-    kernel launches. The kernel wrappers refuse CPU tensors."""
+    kernel launches, and a sorted input does not fall back. The kernel
+    wrappers refuse CPU tensors."""
     ttg.reset_launch_counts()
     r, idx, ok = _case("dense")
-    slabs = torch.from_numpy(_plane_slabs(_table(r, 1), 512))
-    args = (slabs, torch.from_numpy(idx), torch.from_numpy(ok))
+    rows = torch.from_numpy(_padded_rows(_table(r, 1), 512))
+    args = (rows, torch.from_numpy(idx), torch.from_numpy(ok))
     ttg.grouped_take_slabbed(*args, slab=512)
     ttg.grouped_take_streamed(*args, slab=512)
     assert ttg.call_counts == {"grouped_take_slabbed": 1, "grouped_take_streamed": 1}
     assert ttg.launch_counts == {"tap_select": 0, "tap_streamed": 0}
-    p = ttg.plan_slabbed(*args, slab=512)
+    assert ttg.fallback_counts == {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
     with pytest.raises(ValueError, match="CUDA"):
-        ttg.select_slabbed_cuda(p.slabs2, p.slab_id, p.offs, 512)
-    q = ttg.plan_streamed(*args, slab=512)
+        ttg.grouped_select_slabbed_cuda(*args, slab=512)
     with pytest.raises(ValueError, match="CUDA"):
-        ttg.select_streamed_cuda(q.slabs2, q.blk0, q.rel, q.offs, 512)
+        ttg.grouped_select_streamed_cuda(*args, slab=512)
+    with pytest.raises(ValueError, match="whole number"):
+        ttg.grouped_select_slabbed(rows[:-1], *args[1:], slab=512)
 
 
 def test_tap_gather_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -238,7 +270,7 @@ def test_prepare_keyframes_slabs_and_warning():
     cj, _ = _cameras()
     pts, inten, valid, bins = _keyframes(cj)
     kt = tnid.prepare_keyframes(interop.nid_keyframes(pts, inten, valid, bins, CPU))
-    assert kt.tap_slabs is None
+    assert kt.tap_slabs is None and kt.slab_width == 512
     kt = tnid.prepare_keyframes(kt, build_slabs=True)
     kj = jnid.prepare_keyframes(
         jnid.NIDKeyframe(jnp.asarray(pts), jnp.asarray(inten), jnp.asarray(valid),
@@ -248,9 +280,11 @@ def test_prepare_keyframes_slabs_and_warning():
     odd = interop.nid_keyframes(pts, inten, valid, bins[:, :95, :127], CPU)
     with pytest.warns(UserWarning, match="cannot build tap slabs"):
         assert tnid.prepare_keyframes(odd, build_slabs=True).tap_slabs is None
+    with pytest.warns(UserWarning, match="cannot build tap slabs"):
+        assert tnid.prepare_keyframes(odd, grouped=True).slab_width is None
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        tnid.prepare_keyframes(odd)  # not asked: no slabs, no warning
+        assert tnid.prepare_keyframes(odd).slab_width is None  # not asked: no warning
 
 
 @pytest.mark.parametrize("xi", [(0.0,) * 6, (0.05, -0.03, 0.02, 0.01, -0.01, 0.02)])
@@ -289,3 +323,79 @@ def test_nid_gather_grouped_equals_direct(use_grouped):
         direct = tnid._gather_taps(ct, kt, knot, inl, use_grouped=False)
         grouped = tnid._gather_taps(ct, kt, knot, inl, use_grouped=use_grouped)
         np.testing.assert_array_equal(grouped[inl].numpy(), direct[inl].numpy())
+
+
+def test_slab_table_is_the_row_table_relaid():
+    """The addressing the kernels rest on: slabs[j, c*S + m] == rows[j*S + m, c]
+    on the tables that build_tap_slabs and build_tap_table make (both
+    packages' slab tables)."""
+    b = np.random.default_rng(8).integers(0, 16, (48, 64)).astype(np.int32)
+    rows = tnid.build_tap_table(torch.from_numpy(b)).numpy()
+    for slab in (512, 1024):
+        n = rows.shape[0] // slab
+        for slabs in (tnid.build_tap_slabs(torch.from_numpy(b), slab).numpy(),
+                      np.asarray(jnid.build_tap_slabs(jnp.asarray(b), slab))):
+            relaid = slabs.reshape(n, 2, slab).transpose(0, 2, 1).reshape(-1, 2)
+            np.testing.assert_array_equal(relaid, rows)
+
+
+@pytest.mark.parametrize("variant", ["slabbed", "streamed"])
+@pytest.mark.parametrize("case", CASES)
+def test_fused_twin_matches_plan_select_and_jax(case, variant):
+    """What K3 / K4 return (the fused twin): taps, flags and count equal the
+    plan and the selection run apart, the count is the flags' sum, and on
+    the ok rows of clean groups the taps equal the direct take and the JAX
+    package's grouped take (interpret mode)."""
+    plan, select, fused, _, sel_args = VARIANTS[variant]
+    r, idx, ok = _case(case)
+    slab = 512
+    table = _table(r, seed=len(case))
+    rows = torch.from_numpy(_padded_rows(table, slab))
+    args = (rows, torch.from_numpy(idx), torch.from_numpy(ok))
+    got = fused(*args, slab=slab)
+    p = plan(*args, slab=slab)
+    np.testing.assert_array_equal(got.taps.numpy(), select(rows, *sel_args(p), slab).numpy())
+    np.testing.assert_array_equal(got.ovf_grp.numpy(), p.ovf_grp.numpy())
+    assert got.n_ovf.dtype == torch.int32 and got.n_ovf.shape == ()
+    assert int(got.n_ovf) == int(p.ovf_grp.sum())
+    ng, group, _ = got.taps.shape
+    assert ng == p.ovf_grp.shape[0] and ng * group >= len(idx)
+    clean = ok & ~np.repeat(got.ovf_grp.numpy(), group)[: len(idx)]
+    flat = got.taps.numpy().reshape(-1, 2)[: len(idx)]
+    np.testing.assert_array_equal(flat[clean], table[np.minimum(idx, r - 1)][clean])
+    np.testing.assert_array_equal(flat[clean], _jax_take(variant, table, idx, ok, slab)[clean])
+
+
+@pytest.mark.parametrize("use_grouped, take", [(True, "grouped_take_slabbed"),
+                                               ("streamed", "grouped_take_streamed")])
+def test_gather_taps_grouped_on_slab_width_alone(use_grouped, take):
+    """Keyframes that carry only the slab width (no slab table) take the
+    grouped path, and it equals the direct take on every inlier."""
+    cj, ct = _cameras()
+    pts, inten, valid, bins = _keyframes(cj)
+    kt = tnid.prepare_keyframes(interop.nid_keyframes(pts, inten, valid, bins, CPU),
+                                grouped=True)
+    assert kt.tap_slabs is None and kt.slab_width is not None
+    kt = tnid.sort_by_raster(ct, tse3.identity(CPU), kt)
+    _, knot, inl = tnid._project_all(ct, tse3.identity(CPU), kt)
+    ttg.reset_launch_counts()
+    grouped = tnid._gather_taps(ct, kt, knot, inl, use_grouped=use_grouped)
+    assert ttg.call_counts[take] == 1 and sum(ttg.call_counts.values()) == 1
+    direct = tnid._gather_taps(ct, kt, knot, inl, use_grouped=False)
+    np.testing.assert_array_equal(grouped[inl].numpy(), direct[inl].numpy())
+
+
+@pytest.mark.parametrize("variant", ["slabbed", "streamed"])
+def test_fallback_counts(variant):
+    """An unsorted input overflows past the repair budget: the take falls
+    back to the per-row lookup, counts one fallback, and stays exact."""
+    take = VARIANTS[variant][3]
+    r, idx, ok = _case("unsorted")
+    table = _table(r, 2)
+    ttg.reset_launch_counts()
+    got = take(torch.from_numpy(_padded_rows(table, 512)), torch.from_numpy(idx),
+               torch.from_numpy(ok), slab=512)
+    name = f"grouped_take_{variant}"
+    assert ttg.fallback_counts[name] == ttg.call_counts[name] == 1
+    assert sum(ttg.fallback_counts.values()) == 1
+    np.testing.assert_array_equal(got.numpy(), table[idx])
