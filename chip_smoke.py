@@ -12,10 +12,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    csrc/tap_gather.cu: K3/K4, csrc/zbuffer.cu: K5 zmin and zbuffer_visible)
    with nvcc for sm_90a, one nvcc each, started together, from the sources
    in this checkout.
-3. K1/K2 against their plain torch twins at the main path's shape (K=8
-   keyframes x N=262,144 points, ~30% gated out, s uniform in [-1.5, 2.5],
-   inputs from a numpy seed): histogram, NID value and s-gradient errors,
-   and median times over 20 calls (CUDA events), beside each kernel's bound.
+3. K1/K2 against their plain torch twins on the random set at the main
+   path's fine shape (K=8 keyframes x N=262,144 points, uniform nibbles and
+   point bins, ~30% gated out, s uniform in [-1.5, 2.5], inputs from a
+   numpy seed): histogram, NID value and s-gradient errors; device, call
+   and host times (median of 20 CUDA-event times; host time over 200 queued
+   calls) beside each kernel's bound, each kernel twice. Then the same
+   checks, untimed, on ragged random sets (3 x 1,037 and 8 x 262,143, where
+   every other keyframe starts inside a pair of points; the first once more
+   from pointers 8 bytes off 16-byte alignment, K1/K2's scalar-load path;
+   12 bins, so taps 12-15 and point bins outside [0, 12) are dropped). After phase 4
+   the same checks and times run on the scene's own evaluation inputs
+   (``phase_kernels_scene``: the 8 keyframes projected at the start pose, at
+   the headline's fine shape 8 x 262,144 and coarse shape 8 x 16,384, K2's
+   upstream gradient the NID's own), with the count of points whose 16 taps
+   hold 1, 2, 3 or more distinct bins.
 4. Main path at the reference's scale: the bench scene
    (pointcloudprocessor_tpu_torch/tools/bench_scene.py: 4096x3000 images,
    a 1,000,000-point wall + occluder map, 8 yawing keyframes, a planted
@@ -25,8 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    coarse-to-fine stride 16, frozen taps with guard 0.75, ftol 3e-4).
    Asserts the recovered correction is within 1 cm / 1 degree of T0, a
    finite NID, colored points whose colors follow the rendered texture, K1/K2
-   launches, and 16 launches each of zmin and zbuffer_visible (8 culls + 8
-   colorize observations).
+   launches at both shapes (counted by points a keyframe), and 16 launches
+   each of zmin and zbuffer_visible (8 culls + 8 colorize observations).
 5. K3/K4 (each one launch that plans and selects) on the scene's own 8 x
    4096x3000 row tables, the culled points raster-sorted at the start pose:
    at that pose (clean groups; fast path) and at T0 (overflow; fallback),
@@ -66,7 +77,10 @@ ahead of the start event hides the host's enqueue; where a twin's host side
 outlasts it, as the histogram twins' does, ``plain_ms`` is its call time),
 ``call_ms`` the time a call as its caller pays it, host included, and
 ``bound_ms`` the least time the card could take (bytes over 3.35 TB/s or
-f32 operations over 67 TFLOP/s, whichever is larger). The last line is
+f32 operations over 67 TFLOP/s, whichever is larger). K1/K2 also carry
+their launches by shape and their device / call / host times and bounds on
+the scene's inputs at both shapes (``scene_fine_*``, ``scene_coarse_*``).
+The last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of jax
 or of the JAX package.
 """
@@ -187,117 +201,250 @@ def _host_us(fn, device="cuda", reps=200):
     return host
 
 
-def phase_kernels(card):
-    """K1/K2 against the twin on the card; returns per-kernel records."""
+def _hist_fns(device):
+    """(K1, K2) as the path under test calls them: the kernels on the card;
+    off it the twin in their place (a rehearsal of the same path)."""
     import torch
 
     from pointcloudprocessor_tpu_torch.ops import nid_hist
+
+    if device == "cuda":
+        return nid_hist.hist_fwd_cuda, nid_hist.hist_bwd_cuda
+
+    def bwd(g, taps, s, bp, il, bins):
+        st = s.clone().requires_grad_(True)
+        h = nid_hist.joint_histogram_plain(taps, st, bp, il, bins)
+        return torch.autograd.grad(torch.sum(g * h), st)[0]
+
+    return nid_hist.joint_histogram_plain, bwd
+
+
+def _nid_sum(h, bp, il, bins=16):
+    """The NID objective's sum over keyframes from joint histograms ``h``
+    of points with bins ``bp`` and gate ``il`` (opt/nid._sum_nid's tail)."""
+    import torch
+
     from pointcloudprocessor_tpu_torch.opt import nid
 
-    dev = torch.device("cuda", 0)
-    bins = 16
-    rng = np.random.default_rng(SEED)
-    taps = torch.from_numpy(
-        rng.integers(-(2**31), 2**31, (K, N_CULL, 2), dtype=np.int64).astype(np.int32)
-    ).to(dev)
-    s_np = rng.uniform(-1.5, 2.5, (K, N_CULL, 2)).astype(np.float32)
-    s = torch.from_numpy(s_np).to(dev)
-    bp = torch.from_numpy(rng.integers(0, bins, (K, N_CULL)).astype(np.int32)).to(dev)
-    il = torch.from_numpy((rng.uniform(size=(K, N_CULL)) > 0.3).astype(np.float32)).to(dev)
-    g = torch.from_numpy(rng.normal(size=(K, bins, bins)).astype(np.float32)).to(dev)
+    levels = torch.arange(bins, device=bp.device)
+    hp = torch.sum((bp[..., None] == levels).float() * il[..., None], dim=-2)
+    return torch.sum(nid.nid_from_histograms(h, h.sum(-2), hp, il.sum(-1)))
+
+
+def _check_hist(card, label, taps, s, bp, il, g, device="cuda", twin_times=False, bins=16,
+                timed=True):
+    """K1/K2 against the twin on one input set (tolerances as stated
+    below), then, if ``timed``, their device / call / host times and
+    bounds. ``g`` is K2's upstream gradient. Returns {"fwd": record, "bwd":
+    record}."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import nid_hist
+
+    k, n = taps.shape[:2]
+    fwd_fn, bwd_fn = _hist_fns(device)
 
     # K1: histograms. f32 summation-order class, scaled to the histogram:
-    # |kernel - twin| <= 1e-5 * max|twin| (shared-memory atomics and the
-    # twin's GEMM add the same ~180k weights per keyframe in other orders).
-    h_k = nid_hist.hist_fwd_cuda(taps, s, bp, il, bins)
+    # |kernel - twin| <= 1e-5 * max|twin| (the kernel and the twin's GEMM
+    # add the same weights per keyframe in other orders).
+    h_k = fwd_fn(taps, s, bp, il, bins)
     h_t = nid_hist.joint_histogram_plain(taps, s, bp, il, bins)
-    torch.cuda.synchronize()
     fwd_err = float((h_k - h_t).abs().max())
     fwd_tol = 1e-5 * float(h_t.abs().max())
-    print(f"K1 nid_hist_fwd  max|kernel-twin| = {fwd_err:.3e}  (tol {fwd_tol:.3e}, "
+    print(f"{label}: K1 nid_hist_fwd max|kernel-twin| = {fwd_err:.3e}  (tol {fwd_tol:.3e}, "
           f"max|hist| {float(h_t.abs().max()):.1f})")
-    assert fwd_err <= fwd_tol, "K1 disagrees with its twin"
+    assert fwd_err <= fwd_tol, f"{label}: K1 disagrees with its twin"
 
-    # K2 with one fixed upstream g: against autograd through the twin.
+    # K2 with the given upstream g: against autograd through the twin.
     st = s.clone().requires_grad_(True)
     ht = nid_hist.joint_histogram_plain(taps, st, bp, il, bins)
     (ds_t,) = torch.autograd.grad(torch.sum(g * ht), st, retain_graph=True)
-    ds_k = nid_hist.hist_bwd_cuda(g, taps, s, bp, il, bins)
-    torch.cuda.synchronize()
+    ds_k = bwd_fn(g, taps, s, bp, il, bins)
     bwd_err = float((ds_k - ds_t).abs().max())
     bwd_tol = 1e-5 * float(ds_t.abs().max())
-    print(f"K2 nid_hist_bwd  max|kernel-twin| = {bwd_err:.3e}  (tol {bwd_tol:.3e})")
-    assert bwd_err <= bwd_tol, "K2 disagrees with its twin"
+    print(f"{label}: K2 nid_hist_bwd max|kernel-twin| = {bwd_err:.3e}  (tol {bwd_tol:.3e})")
+    assert bwd_err <= bwd_tol, f"{label}: K2 disagrees with its twin"
+    assert torch.all(ds_k[il == 0] == 0), f"{label}: K2 gave a gated-out point a gradient"
 
     # The NID objective's value and s-gradient through both paths.
-    levels = torch.arange(bins, device=dev)
-    hp = torch.sum((bp[..., None] == levels).float() * il[..., None], dim=-2)
-    num = il.sum(-1)
-
-    def nid_sum(h):
-        return torch.sum(nid.nid_from_histograms(h, h.sum(-2), hp, num))
-
     sk = s.clone().requires_grad_(True)
-    vk = nid_sum(nid_hist.JointHistogram.apply(taps, sk, bp, il, bins))
+    vk = _nid_sum(nid_hist.joint_histogram(taps, sk, bp, il, bins), bp, il, bins)
     (gk,) = torch.autograd.grad(vk, sk)
     st2 = s.clone().requires_grad_(True)
-    vt = nid_sum(nid_hist.joint_histogram_plain(taps, st2, bp, il, bins))
+    vt = _nid_sum(nid_hist.joint_histogram_plain(taps, st2, bp, il, bins), bp, il, bins)
     (gt,) = torch.autograd.grad(vt, st2)
     nid_err = abs(vk.detach().item() - vt.detach().item())
     grad_err = float((gk - gt).abs().max())
     grad_tol = 1e-4 * float(gt.abs().max())
-    print(f"NID sum over {K} keyframes: kernel {vk.detach().item():.7f} twin {vt.detach().item():.7f} "
-          f"|diff| {nid_err:.2e} (tol 1e-5); max|ds diff| {grad_err:.3e} (tol {grad_tol:.3e})")
-    assert nid_err <= 1e-5 and grad_err <= grad_tol, "NID value/gradient disagree"
+    print(f"{label}: NID sum over {k} keyframes: kernel {vk.detach().item():.7f} twin "
+          f"{vt.detach().item():.7f} |diff| {nid_err:.2e} (tol 1e-5); max|ds diff| "
+          f"{grad_err:.3e} (tol {grad_tol:.3e})")
+    assert nid_err <= 1e-5 and grad_err <= grad_tol, f"{label}: NID value/gradient disagree"
+    if not timed:
+        return {"fwd": {"max_abs_err": fwd_err}, "bwd": {"max_abs_err": bwd_err}}
 
-    # Timings: median of 20 after warm-up, kernel / twin / kernel in one
-    # call on one card; per call (as the caller pays it) and device time.
+    # Times: median of 20 after warm-up, each kernel twice in turns; per
+    # call (as the caller pays it), device time alone and host time a call.
     def fwd():
-        return nid_hist.hist_fwd_cuda(taps, s, bp, il, bins)
-
-    def fwd_twin():
-        return nid_hist.joint_histogram_plain(taps, s, bp, il, bins)
+        return fwd_fn(taps, s, bp, il, bins)
 
     def bwd():
-        return nid_hist.hist_bwd_cuda(g, taps, s, bp, il, bins)
+        return bwd_fn(g, taps, s, bp, il, bins)
 
-    def bwd_twin():
-        return torch.autograd.grad(torch.sum(g * ht), st, retain_graph=True)
+    call = [_median_ms(fn, device) for fn in (fwd, bwd, fwd, bwd)]
+    dev = [_device_ms(fn, device) for fn in (fwd, bwd, fwd, bwd)]
+    host = [_host_us(fn, device) for fn in (fwd, bwd)]
+    n_pts = k * n
+    bounds = (_bound(_nbytes(taps, s, bp, il, h_k), K1_OPS * n_pts),
+              _bound(_nbytes(g, taps, s, bp, il, ds_k), K2_OPS * n_pts))
+    out = {}
+    for i, (key, name, err) in enumerate((("fwd", "K1", fwd_err), ("bwd", "K2", bwd_err))):
+        (b_ms, by), t = bounds[i], dev[i]
+        share = f"{b_ms / t:.2f}" if t else "not measured"
+        print(f"[{card}] {label} {k}x{n}: {name} device {_ms(dev[i])} / {_ms(dev[i + 2])} ms, "
+              f"a call {_ms(call[i])} / {_ms(call[i + 2])} ms, host {_ms(host[i])} us a call; "
+              f"bound {b_ms * 1e3:.1f} us ({by}), kernel at {share} of it")
+        out[key] = {"max_abs_err": err, "ms": dev[i], "ms_again": dev[i + 2], "call_ms": call[i],
+                    "call_ms_again": call[i + 2], "host_us": host[i], "bound_ms": b_ms,
+                    "bound_by": by}
+    if twin_times:
+        def fwd_twin():
+            return nid_hist.joint_histogram_plain(taps, s, bp, il, bins)
 
-    fwd_ms, fwd_plain, bwd_ms, bwd_plain = map(_median_ms, (fwd, fwd_twin, bwd, bwd_twin))
-    fwd_ms2, bwd_ms2 = _median_ms(fwd), _median_ms(bwd)
-    fwd_dev, fwd_plain_dev, bwd_dev, bwd_plain_dev = map(
-        _device_ms, (fwd, fwd_twin, bwd, bwd_twin))
-    print(f"[{card}] K1 fwd {K}x{N_CULL}: kernel {fwd_ms:.3f} / {fwd_ms2:.3f} ms a call, "
-          f"device {_ms(fwd_dev)} ms; twin {fwd_plain:.3f} ms a call, device "
-          f"{_ms(fwd_plain_dev)} ms")
-    print(f"[{card}] K2 bwd {K}x{N_CULL}: kernel {bwd_ms:.3f} / {bwd_ms2:.3f} ms a call, "
-          f"device {_ms(bwd_dev)} ms; twin (autograd backward) {bwd_plain:.3f} ms a call, "
-          f"device {_ms(bwd_plain_dev)} ms")
-    n_pts = K * N_CULL
-    fwd_bound = _bound(_nbytes(taps, s, bp, il, h_k), K1_OPS * n_pts)
-    bwd_bound = _bound(_nbytes(g, taps, s, bp, il, ds_k), K2_OPS * n_pts)
-    for name, (b_ms, by), t in (("K1", fwd_bound, fwd_dev), ("K2", bwd_bound, bwd_dev)):
-        print(f"{name} bound {b_ms * 1e3:.1f} us ({by}); kernel at {b_ms / t:.2f} of it"
-              if t else f"{name} bound {b_ms * 1e3:.1f} us ({by})")
+        def bwd_twin():
+            return torch.autograd.grad(torch.sum(g * ht), st, retain_graph=True)
+
+        for key, fn in (("fwd", fwd_twin), ("bwd", bwd_twin)):
+            # The twins' host side outlasts the hidden window: their device
+            # time is refused, and plain_ms is then their time a call.
+            call_t = _median_ms(fn, device)
+            out[key].update(plain_call_ms=call_t, plain_ms=_device_ms(fn, device) or call_t)
+        print(f"[{card}] {label}: twins (K1 twin, K2 twin = autograd backward) device "
+              f"{_ms(out['fwd']['plain_ms'])} / {_ms(out['bwd']['plain_ms'])} ms, a call "
+              f"{_ms(out['fwd']['plain_call_ms'])} / {_ms(out['bwd']['plain_call_ms'])} ms")
+    return out
+
+
+def phase_kernels(card, device="cuda"):
+    """K1/K2 against the twin on the random set (uniform nibbles, uniform
+    point bins, ~30% gated out, s uniform in [-1.5, 2.5], from a numpy
+    seed) at the main path's fine shape; returns the per-kernel records."""
+    import torch
+
+    bins = 16
+    rng = np.random.default_rng(SEED)
+    taps = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, (K, N_CULL, 2), dtype=np.int64).astype(np.int32)
+    ).to(device)
+    s = torch.from_numpy(rng.uniform(-1.5, 2.5, (K, N_CULL, 2)).astype(np.float32)).to(device)
+    bp = torch.from_numpy(rng.integers(0, bins, (K, N_CULL)).astype(np.int32)).to(device)
+    il = torch.from_numpy((rng.uniform(size=(K, N_CULL)) > 0.3).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(K, bins, bins)).astype(np.float32)).to(device)
+    res = _check_hist(card, "random set", taps, s, bp, il, g, device, twin_times=True)
+    for key in ("fwd", "bwd"):
+        res[key]["ragged_max_abs_err"] = 0.0
+    for k, n, off in RAGGED:
+        label = f"ragged {k}x{n}" + (f", pointers {8 * off} B off" if off else "")
+        rag = _check_hist(card, label, *_ragged_inputs(rng, k, n, off, device), device,
+                          bins=RAGGED_BINS, timed=False)
+        for key in ("fwd", "bwd"):
+            res[key]["ragged_max_abs_err"] = max(res[key]["ragged_max_abs_err"],
+                                                 rag[key]["max_abs_err"])
     return [
-        {
-            "name": "nid_hist_fwd", "route": "cuda",
-            "source": f"{PKG}/csrc/nid_hist.cu",
-            "replaces": "pointcloudprocessor_tpu/ops/nid_hist.py:71",
-            "max_abs_err": fwd_err, "ms": fwd_dev, "plain_ms": fwd_plain_dev or fwd_plain,
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": None,
-            "call_ms": fwd_ms, "plain_call_ms": fwd_plain,
-        },
-        {
-            "name": "nid_hist_bwd", "route": "cuda",
-            "source": f"{PKG}/csrc/nid_hist.cu",
-            "replaces": "pointcloudprocessor_tpu/ops/nid_hist.py:112",
-            "max_abs_err": bwd_err, "ms": bwd_dev, "plain_ms": bwd_plain_dev or bwd_plain,
-            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
-            "call_ms": bwd_ms, "plain_call_ms": bwd_plain,
-        },
+        {"name": "nid_hist_fwd", "route": "cuda", "source": f"{PKG}/csrc/nid_hist.cu",
+         "replaces": "pointcloudprocessor_tpu/ops/nid_hist.py:71", "library_ms": None,
+         **res["fwd"]},
+        {"name": "nid_hist_bwd", "route": "cuda", "source": f"{PKG}/csrc/nid_hist.cu",
+         "replaces": "pointcloudprocessor_tpu/ops/nid_hist.py:112", "library_ms": None,
+         **res["bwd"]},
     ]
+
+
+# Ragged random sets of phase 3: (K, N, offset). An odd N starts every other
+# keyframe on the second point of a pair (the kernels' scalar loads and
+# split stores); an offset of 1 moves every pointer 8 bytes off 16-byte
+# alignment, so that the kernels take their scalar-load build. Fewer bins
+# than 16, so that taps and point bins outside [0, bins) are dropped.
+RAGGED = ((3, 1_037, 0), (K, N_CULL - 1, 0), (3, 1_037, 1))
+RAGGED_BINS = 12
+
+
+def _ragged_inputs(rng, k, n, off, device):
+    """(taps, s, bin_pts, inlier, g) of a ragged random set: uniform
+    nibbles, point bins in [-2, RAGGED_BINS + 2), ~30% gated out; each
+    tensor a view ``off`` 8-byte words into a buffer of its own."""
+    import torch
+
+    def view(a, words):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        flat = torch.empty(t.numel() + words * 8 // t.element_size(), dtype=t.dtype)
+        flat[flat.numel() - t.numel():] = t.reshape(-1)
+        flat = flat.to(device)
+        return flat[flat.numel() - t.numel():].view(t.shape)
+
+    taps = rng.integers(-(2**31), 2**31, (k, n, 2), dtype=np.int64).astype(np.int32)
+    s = rng.uniform(-1.5, 2.5, (k, n, 2)).astype(np.float32)
+    bp = rng.integers(-2, RAGGED_BINS + 2, (k, n)).astype(np.int32)
+    il = (rng.uniform(size=(k, n)) > 0.3).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=(k, RAGGED_BINS, RAGGED_BINS)).astype(np.float32))
+    return view(taps, off), view(s, off), view(bp, off), view(il, off), g.to(device)
+
+
+def scene_hist_inputs(camera, kfs, T, bins=16):
+    """(taps, s, bin_pts, inlier) of the NID objective on ``kfs`` at pose
+    ``T``, formed as opt/nid.multi_nid_loss forms them: projection, the
+    direct tap take, the point bins and the gate of ``_sum_nid``."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.opt import nid
+    from pointcloudprocessor_tpu_torch.utils.numeric import to_int32
+
+    kfs = nid.prepare_keyframes(kfs)
+    with torch.no_grad():
+        proj, knot, inl = nid._project_all(camera, T, kfs)
+        s = proj - knot.to(proj.dtype)
+        taps = nid._gather_taps(camera, kfs, knot, inl, use_grouped=False)
+        bp = torch.clamp(to_int32(kfs.intensity * bins), 0, bins - 1)
+    return taps, s, bp, inl.to(proj.dtype)
+
+
+def distinct_bins(taps, il):
+    """{distinct image bins in a point's 16 taps: gated-in points}."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import nid_hist
+
+    v = torch.sort(nid_hist.unpack_tap_nibbles(taps), dim=-1).values
+    d = 1 + (v[..., 1:] != v[..., :-1]).sum(-1)
+    d = d[il > 0]
+    return {str(i): int((d == i).sum()) for i in (1, 2, 3)} | {"4+": int((d >= 4).sum())}
+
+
+def phase_kernels_scene(card, camera, kfs, device="cuda"):
+    """K1/K2 against the twin on the scene's own evaluation inputs: the 8
+    keyframes projected at the start pose (the identity correction), at the
+    headline's fine shape (8 x 262,144) and coarse shape (every 16th
+    point, 8 x 16,384). K2's upstream g is the NID's own gradient there.
+    Prints how many points hold 1, 2, 3 or more distinct bins in their
+    taps. Returns {shape: {"fwd": record, "bwd": record, ...}}."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.ops import nid_hist
+    from pointcloudprocessor_tpu_torch.opt import refine
+
+    out = {}
+    stride = HEADLINE["coarse_stride"]
+    for shape, sub in (("fine", kfs), ("coarse", refine._subsample_keyframes(kfs, stride))):
+        taps, s, bp, il = scene_hist_inputs(camera, sub, se3.identity(device))
+        hist = distinct_bins(taps, il)
+        print(f"scene {shape} {tuple(taps.shape[:2])}: {int(il.sum())} gated-in points; "
+              f"distinct bins in a point's 16 taps: {hist}")
+        h = nid_hist.joint_histogram_plain(taps, s, bp, il).requires_grad_(True)
+        (g,) = torch.autograd.grad(_nid_sum(h, bp, il), h)
+        out[shape] = _check_hist(card, f"scene {shape}", taps, s, bp, il, g, device)
+        out[shape]["distinct_bins"] = hist
+    return out
 
 
 def write_scene(root, device="cuda"):
@@ -395,9 +542,12 @@ def _reset_counts():
 def _read_counts():
     from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather, zbuffer
 
+    by_n = {name: {} for name in nid_hist.launch_counts}
+    for (name, n), c in sorted(nid_hist.launch_shapes.items()):
+        by_n[name][str(n)] = c
     return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
             **{f"{k}_fallbacks": v for k, v in tap_gather.fallback_counts.items()},
-            **zbuffer.launch_counts}
+            **zbuffer.launch_counts, "nid_hist_by_n": by_n}
 
 
 def _pose_error(T, T0):
@@ -442,6 +592,10 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False):
     assert res.num_colored_points > 0
     if device == "cuda":
         assert launches["nid_hist_fwd"] > 0 and launches["nid_hist_bwd"] > 0, launches
+        for name, by_n in launches["nid_hist_by_n"].items():
+            assert sum(by_n.values()) == launches[name], launches
+        if nid.coarse_outer_iterations:  # both shapes of the coarse-to-fine solve
+            assert len(launches["nid_hist_by_n"]["nid_hist_fwd"]) == 2, launches
         culls = (3 if masks else 2) * K
         assert launches["zmin"] == launches["zbuffer_visible"] == culls, (culls, launches)
     if masks:
@@ -869,6 +1023,7 @@ def main() -> int:
         # Main path: the headline schedule (bench.py:797-805).
         launches = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE), "headline schedule")
         camera, kfs = scene_keyframes(root)
+        scene = phase_kernels_scene(card, camera, kfs)
         kernels += phase_tap_gather(card, camera, kfs, T0)
         grouped = phase_grouped(card, camera, kfs, T0)
         del kfs
@@ -884,6 +1039,12 @@ def main() -> int:
                     tap_streamed=grouped["K4"]["tap_streamed"])
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    for k, key in zip(kernels[:2], ("fwd", "bwd")):
+        k["launches_by_n"] = launches["nid_hist_by_n"][k["name"]]
+        for shape, res in scene.items():
+            r = res[key]
+            k.update({f"scene_{shape}_{f}": r[f] for f in (
+                "ms", "ms_again", "call_ms", "host_us", "bound_ms", "max_abs_err")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
