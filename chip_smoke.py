@@ -37,7 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    Asserts the recovered correction is within 1 cm / 1 degree of T0, a
    finite NID, colored points whose colors follow the rendered texture, K1/K2
    launches at both shapes (counted by points a keyframe), and 16 launches
-   each of zmin and zbuffer_visible (8 culls + 8 colorize observations).
+   each of zmin and zbuffer_visible (8 culls + 8 colorize observations, one
+   launch of each a cull).
 5. K3/K4 (each one launch that plans and selects) on the scene's own 8 x
    4096x3000 row tables, the culled points raster-sorted at the start pose:
    at that pose (clean groups; fast path) and at T0 (overflow; fallback),
@@ -54,11 +55,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    it before; peak device memory of each. K3 and K4 launch once per grouped
    take and fall back at least once; the final NIDs agree within 1e-3 and
    each recovers T0.
-7. K5/Z1: ``zmin_tiles`` (the K5 form) bit-equal to its twin at the probe's
-   full size (999,424 points, 62,995 cells, ranges with negatives and
-   zeros, 1% of cells out of range); ``cull_world_points`` kernel masks
-   bit-equal to the twin's on the scene's 8 keyframes; median times of
-   zmin, its twin, the twin with its gather, zbuffer_visible and its twin.
+7. K5/Z1: ``zmin_tiles`` (the K5 form, cells given) bit-equal to its twin
+   at the probe's full size (999,424 points, 62,995 cells, ranges with
+   negatives and zeros, 1% of cells out of range). The fused cull (a
+   memset of its key buffer, then two launches: ``zmin`` with the gate and
+   cell fused in, ``zbuffer_visible``) bit-equal to ``cull_mask_uv_plain``
+   through ``cull_world_points`` on the scene's 8 keyframes, all twice in a
+   row, with a cull at another downsample factor between; on n = 0, a
+   ragged n, inputs 4 bytes off 16-byte alignment and the edge set of
+   ``tools/bench_scene.cull_edge_points`` (NaN and +-inf in u, v, z, edges
+   of the image and the cells, a crowded cell), at both factors; and on a
+   copy of keyframe 0 raster-sorted by cell; the mask bits that differ,
+   summed over every cull checked. At keyframe 0: device and call times of
+   the whole cull (map order, z strided, raster-sorted), each pass's device
+   time (``torch.profiler``) beside its bound and beside its twin on the
+   same inputs, an assertion of exactly two kernel launches and one memset
+   a cull, and the same for step 0 (the eager gate, then ``zmin`` and
+   ``zbuffer_visible`` with cells given), the cells-given twins and
+   ``scatter_reduce_``.
 8. The mask path: ``runner.process`` under the headline schedule with the
    mask folder set. Asserts what tests/test_pipeline_e2e.py's
    test_e2e_with_masks asserts (labels follow the mask, highlighted points
@@ -80,6 +94,13 @@ outlasts it, as the histogram twins' does, ``plain_ms`` is its call time),
 f32 operations over 67 TFLOP/s, whichever is larger). K1/K2 also carry
 their launches by shape and their device / call / host times and bounds on
 the scene's inputs at both shapes (``scene_fine_*``, ``scene_coarse_*``).
+K5/Z1 carry their pass's device time as ``ms`` and its twin's (the gate,
+the cell and the scatter-min or the test, in plain torch on the same
+inputs) as ``plain_ms``, a whole cull's call as ``call_ms``, the mask's
+error and mismatches over every cull checked, the probe's (``probe_*``),
+the twins with cells given (``cells_given_plain_ms``), step 0's
+(``step0_*``) and the whole cull's (``whole_cull_*``, with its launches
+and bound; ``plain_whole_cull_*`` for the twin).
 The last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of jax
 or of the JAX package.
@@ -89,6 +110,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import sys
 import time
@@ -182,6 +204,45 @@ def _median_ms(fn, device="cuda", hide_host=False):
 
 def _device_ms(fn, device="cuda"):
     return _median_ms(fn, device, hide_host=True)
+
+
+def _kernel_profile(fn, device="cuda", reps=20):
+    """The device work of one ``fn()`` call, from ``torch.profiler`` over
+    ``reps`` calls after a warm-up: {name: [launches a call, mean device
+    us]} for each kernel and each memset or copy; None off the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then loses a window's device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                # The name without "void", namespaces, template arguments and parameters.
+                name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+                name = re.split(r"[<(]", name)[0].split("::")[-1].strip()
+                rec = out.setdefault(name, [0, 0.0])
+                rec[0] += 1
+                rec[1] += e.time_range.elapsed_us()
+        if out and all(n % reps == 0 for n, _ in out.values()):
+            break
+    else:
+        raise RuntimeError(f"torch.profiler saw no whole window of device work: {out}")
+    return {name: [n // reps, us / n] for name, (n, us) in out.items()}
+
+
+def _kernel_launches(profile):
+    """Kernel launches a call in a :func:`_kernel_profile` (memsets and
+    copies are not kernels)."""
+    return sum(n for name, (n, _) in profile.items()
+               if not name.startswith(("Memset", "Memcpy")))
 
 
 def _host_us(fn, device="cuda", reps=200):
@@ -880,16 +941,60 @@ def phase_grouped(card, camera, kfs, T0, device="cuda"):
     return counts
 
 
+# A second downsample factor for the cull between two of the main path's:
+# another grid, so a key buffer of another size.
+ALT_DS = 7
+
+
+def _offset_view(t):
+    """A copy of 1-D ``t`` one element past the start of its own buffer:
+    4 bytes off 16-byte alignment for f32, 1 byte for bool."""
+    import torch
+
+    flat = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t
+    return flat[1:]
+
+
+def _compare_masks(tally, label, got, want):
+    """Adds the mask bits of ``got`` that differ from ``want`` and their
+    largest absolute difference to ``tally``; asserts they are equal."""
+    assert got.shape == want.shape, f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}"
+    n_diff = int((got != want).sum())
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    tally["culls"] += 1
+    tally["mismatches"] += n_diff
+    tally["max_abs_err"] = max(tally["max_abs_err"], err)
+    assert n_diff == 0, f"{label}: {n_diff} mask bits differ from the twin"
+
+
+def _check_cull(tally, camera, label, u, v, z, r, valid, ds, eps):
+    """The cull against its twin, bit for bit (see _compare_masks); returns
+    the mask."""
+    from pointcloudprocessor_tpu_torch.ops import zbuffer as zb
+
+    got = zb.cull_mask_uv(camera, u, v, z, r, valid, ds, eps)
+    _compare_masks(tally, label, got, zb.cull_mask_uv_plain(camera, u, v, z, r, valid, ds, eps))
+    return got
+
+
 def phase_zbuffer(card, root, device="cuda"):
-    """K5/Z1: the K5 form against its twin at the probe's full size, the
-    culls of the scene's keyframes against the twin, and times at the main
-    path's shapes (keyframe 0 of the crop). Returns per-kernel records."""
+    """K5/Z1: the probe's form (cells given) against its twin at the
+    probe's full size; the fused cull against its twin on the scene's 8
+    keyframes twice over, with a cull at another downsample factor between,
+    on n = 0, a ragged n, unaligned inputs and the edge set; its launches
+    and times at the main path's shape (keyframe 0 of the crop), in map
+    order and raster-sorted, beside each pass's twin, the composition
+    before the gate was fused in (step 0: the eager gate, ``zmin`` and
+    ``zbuffer_visible`` with cells given), the cells-given twins and
+    ``scatter_reduce_``. Returns per-kernel records."""
     import torch
 
     from pointcloudprocessor_tpu_torch.core import se3
     from pointcloudprocessor_tpu_torch.models import camera as cam
     from pointcloudprocessor_tpu_torch.ops import zbuffer as zb
     from pointcloudprocessor_tpu_torch.pipeline import runner
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
     from pointcloudprocessor_tpu_torch.tools import zbuffer_probe as zp
 
     # The K5 form: ranges in [-5, 12) with 5% exact zeros, half of them
@@ -914,78 +1019,173 @@ def phase_zbuffer(card, root, device="cuda"):
           "out of range")
     assert n_diff == 0, "K5 disagrees with its twin"
 
-    # Z1 on the scene: the runner's culls, kernel against twin.
+    # Z1 on the scene: the runner's culls (z a strided view of the camera-
+    # frame points), all keyframes twice in a row, so that the key buffer's
+    # memory is reused, and a cull at ALT_DS (another grid, another buffer
+    # size) between two of them. ``tally`` sums every fused cull's mismatches.
     cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
     ds, eps = cfg.culling.downsample_factor, cfg.culling.depth_epsilon
     poses = runner._camera_to_world(frames, kf_idx, None, device)
-    vis_err, n_differ, n_vis = 0.0, 0, []
-    for j in range(len(kf_idx)):
-        T_w2c = se3.inverse(se3.SE3(poses.q[j], poses.t[j]))
-        pts_cam, mask_k = zb.cull_world_points(camera, T_w2c, cloud.points, cloud.valid, ds, eps)
-        u, v = cam.project_uv(camera, pts_cam)
-        x, y, z = pts_cam.unbind(-1)
-        r = torch.sqrt(x * x + y * y + z * z)
-        mask_t = zb.cull_mask_uv_plain(camera, u, v, z, r, cloud.valid, ds, eps)
-        # Masks as 0/1: the largest |kernel - twin| is 0 or 1; the count says how many.
-        vis_err = max(vis_err, float((mask_k.float() - mask_t.float()).abs().max()))
-        n_differ += int((mask_k != mask_t).sum())
-        n_vis.append(int(mask_k.sum()))
-        if j == 0:
-            first = (u, v, z, r)
-    print(f"Z1 cull_world_points on {len(kf_idx)} keyframes of {cloud.points.shape[0]} points: "
-          f"visible {n_vis}; {n_differ} mask bits differ from the twin (bit-equal required)")
-    assert n_differ == 0, "Z1 disagrees with its twin"
+    tally = {"culls": 0, "mismatches": 0, "max_abs_err": 0.0}
+    n_vis = []
+    for rnd in range(2):
+        for j in range(len(kf_idx)):
+            T_w2c = se3.inverse(se3.SE3(poses.q[j], poses.t[j]))
+            pts_cam, mask_k = zb.cull_world_points(camera, T_w2c, cloud.points, cloud.valid, ds, eps)
+            u, v = cam.project_uv(camera, pts_cam)
+            x, y, z = pts_cam.unbind(-1)
+            r = torch.sqrt(x * x + y * y + z * z)
+            mask_t = zb.cull_mask_uv_plain(camera, u, v, z, r, cloud.valid, ds, eps)
+            _compare_masks(tally, f"Z1: keyframe {j} (round {rnd})", mask_k, mask_t)
+            if rnd == 0:
+                n_vis.append(int(mask_k.sum()))
+            if j == 0:
+                first = (u, v, z, r)
+            if j == 2:
+                _check_cull(tally, camera, f"keyframe {j} at ds {ALT_DS}", u, v, z, r, cloud.valid,
+                            ALT_DS, eps)
+    print(f"Z1 cull_world_points on {len(kf_idx)} keyframes of {cloud.points.shape[0]} points, "
+          f"twice, a cull at ds {ALT_DS} between: visible {n_vis}; every mask bit-equal to "
+          "the twin's")
 
-    # Times at keyframe 0's shapes, in turns.
+    # Keyframe 0 with z contiguous, as colorize passes it; n = 0, a ragged
+    # n, inputs 4 bytes off 16-byte alignment, and the edge set
+    # (tools/bench_scene).
     u, v, z, r = first
-    ok, cell0, n_cells = zb.cells(camera, u, v, z, cloud.valid, ds)
+    z = z.contiguous()
+    val = cloud.valid
+    edge = {k: torch.from_numpy(a).to(device) for k, a in
+            bs.cull_edge_points(WIDTH, HEIGHT, ds, 20_000, SEED).items()}
+    cases = {
+        "n = 0": (u[:0], v[:0], z[:0], r[:0], val[:0]),
+        f"n = {u.shape[0] + 3:,}": tuple(torch.cat([a, b[:3]]) for a, b in zip(
+            (u, v, z, r, val), (edge[k] for k in ("u", "v", "z", "rng", "valid")))),
+        "unaligned": tuple(_offset_view(t) for t in (u, v, z, r, val)),
+        "edge set": tuple(edge[k] for k in ("u", "v", "z", "rng", "valid")),
+        "edge set, unaligned": tuple(_offset_view(edge[k]) for k in ("u", "v", "z", "rng", "valid")),
+    }
+    for label, args in cases.items():
+        for d in (ds, ALT_DS):
+            _check_cull(tally, camera, label, *args, d, eps)
+    print(f"Z1: masks bit-equal to the twin's at ds {ds} and {ALT_DS} on: " + ", ".join(cases))
+
+    # The raster-sorted copy of keyframe 0 (a scanner map in scan order):
+    # the mask, un-permuted, must be the twin's.
+    ok, cell0, n_cells = zb.cells(camera, u, v, z, val, ds)
+    order = torch.sort(cell0, stable=True).indices
+    sorted_args = tuple(t[order] for t in (u, v, z, r, val))
+    mask_s = torch.empty_like(val)
+    mask_s[order] = _check_cull(tally, camera, "raster-sorted", *sorted_args, ds, eps)
+    _compare_masks(tally, "raster-sorted, un-permuted", mask_s,
+                   zb.cull_mask_uv_plain(camera, u, v, z, r, val, ds, eps))
+    print(f"Z1: {tally['mismatches']} mask bits differ from the twin's over {tally['culls']} "
+          f"culls checked (max abs error {tally['max_abs_err']})")
+
+    def cull(args=(u, v, z, r, val)):
+        return zb.cull_mask_uv(camera, *args, ds, eps)
+
+    # Each pass's twin on the same inputs: the gate, the cell and the
+    # scatter-min; the gate, the cell and the test against a given buffer.
     big = float(torch.finfo(torch.float32).max)
     r_m = torch.where(ok, r, big)
+
+    def scatter_twin():
+        ok_t, cell_t, nc = zb.cells(camera, u, v, z, val, ds)
+        return zb.zmin_plain(cell_t, torch.where(ok_t, r, big), big, nc + 1)
+
+    def test_twin(buf):
+        ok_t, cell_t, _ = zb.cells(camera, u, v, z, val, ds)
+        return zb.visible_plain(ok_t, r, buf, cell_t, eps)
+
+    # Step 0, the composition before the gate was fused in: the eager gate,
+    # zmin with cells given (fill, scatter, decode) and zbuffer_visible with
+    # cells given.
+
+    def step0(args=(u, v, z, r, val)):
+        ok0, c0, nc = zb.cells(camera, *args[:3], args[4], ds)
+        buf = zb.zmin(c0, torch.where(ok0, args[3], big), big, nc + 1)
+        return zb.visible(ok0, args[3], buf, c0, eps)
+
+    assert torch.equal(step0(), zb.cull_mask_uv_plain(camera, u, v, z, r, val, ds, eps))
+    assert torch.equal(step0(sorted_args)[torch.argsort(order)], step0())
     buf0 = zb.zmin(cell0, r_m, big, n_cells + 1)
-    vis0 = zb.visible(ok, r, buf0, cell0, eps)
-    # The library call: one scatter_reduce_ (amin) into a filled buffer
-    # (every cell lies inside it: failed points go to the sink cell).
     cell64 = cell0.long()
     filled = torch.full((n_cells + 1,), big, dtype=torch.float32, device=device)
-    t = {
-        "zmin": _median_ms(lambda: zb.zmin(cell0, r_m, big, n_cells + 1), device),
-        "zmin twin": _median_ms(lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1), device),
-        "zmin twin + gather": _median_ms(
-            lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1)[cell0.long()], device),
-        "visible": _median_ms(lambda: zb.visible(ok, r, buf0, cell0, eps), device),
-        "visible twin": _median_ms(lambda: zb.visible_plain(ok, r, buf0, cell0, eps), device),
-        "cull (zmin + visible + gate)": _median_ms(
-            lambda: zb.cull_mask_uv(camera, u, v, z, r, cloud.valid, ds, eps), device),
-        "cull twin": _median_ms(
-            lambda: zb.cull_mask_uv_plain(camera, u, v, z, r, cloud.valid, ds, eps), device),
-        "zmin again": _median_ms(lambda: zb.zmin(cell0, r_m, big, n_cells + 1), device),
+
+    fns = {
+        "cull": cull,
+        "cull, z strided": lambda: cull(first + (val,)),
+        "cull, raster-sorted": lambda: cull(sorted_args),
+        "twin": lambda: zb.cull_mask_uv_plain(camera, u, v, z, r, val, ds, eps),
+        "scatter twin": scatter_twin,
+        "test twin": lambda: test_twin(buf0),
+        "step 0": step0,
+        "step 0, raster-sorted": lambda: step0(sorted_args),
+        "step 0 zmin": lambda: zb.zmin(cell0, r_m, big, n_cells + 1),
+        "step 0 zbuffer_visible": lambda: zb.visible(ok, r, buf0, cell0, eps),
+        "zmin twin": lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1),
+        "visible twin": lambda: zb.visible_plain(ok, r, buf0, cell0, eps),
+        "scatter_reduce_ amin": lambda: filled.scatter_reduce_(0, cell64, r_m, reduce="amin"),
     }
-    dev_t = {key: _device_ms(fn, device) for key, fn in (
-        ("zmin", lambda: zb.zmin(cell0, r_m, big, n_cells + 1)),
-        ("zmin twin", lambda: zb.zmin_plain(cell0, r_m, big, n_cells + 1)),
-        ("scatter_reduce_ amin", lambda: filled.scatter_reduce_(0, cell64, r_m, reduce="amin")),
-        ("visible", lambda: zb.visible(ok, r, buf0, cell0, eps)),
-        ("visible twin", lambda: zb.visible_plain(ok, r, buf0, cell0, eps)))}
-    print(f"[{card}] K5/Z1 at {cell0.shape[0]} points, {n_cells + 1} slots (ms a call, host "
-          "included): " + ", ".join(f"{k} {_ms(v)}" for k, v in t.items()))
-    print(f"[{card}] K5/Z1 device ms: " + ", ".join(f"{k} {_ms(v)}" for k, v in dev_t.items()))
-    zmin_bound = _bound(_nbytes(cell0, r_m, buf0))
-    vis_bound = _bound(_nbytes(ok, r, buf0, cell0, vis0))
-    print(f"K5 zmin bound {zmin_bound[0] * 1e3:.1f} us, zbuffer_visible bound "
-          f"{vis_bound[0] * 1e3:.1f} us (bytes)")
+    dev_t = {k: _device_ms(fn, device) for k, fn in fns.items()}
+    call_t = {k: _median_ms(fns[k], device) for k in (
+        "cull", "cull, z strided", "twin", "step 0", "step 0 zmin", "step 0 zbuffer_visible")}
+    prof = {k: _kernel_profile(fns[k], device) for k in (
+        "cull", "cull, z strided", "cull, raster-sorted", "step 0", "step 0, raster-sorted")}
+    print(f"[{card}] Z1 at {u.shape[0]} points ({int(ok.sum())} gated in), {n_cells} cells: "
+          "device ms: "
+          + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items()))
+    print(f"[{card}] Z1: ms a call (host included): "
+          + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items()))
+    passes = {"cull_scatter": None, "cull_test": None}
+    if device == "cuda":
+        for k, p in prof.items():
+            print(f"[{card}] Z1 {k}: {_kernel_launches(p)} kernel launches a call; device work "
+                  "a call (launches, mean us): "
+                  + json.dumps({n: [c, round(us, 2)] for n, (c, us) in p.items()}))
+        # Two launches a cull, both from csrc/zbuffer.cu, and one memset of
+        # the key buffer; nothing else.
+        for k in ("cull", "cull, z strided", "cull, raster-sorted"):
+            assert sorted(prof[k]) == sorted([*passes, "Memset"]), prof[k]
+            assert _kernel_launches(prof[k]) == 2 and prof[k]["Memset"][0] == 1, prof[k]
+        passes = {n: prof["cull"][n][1] * 1e-3 for n in passes}
+
+    pt_bytes = _nbytes(u, v, z, r, val)
+    scatter_bound = _bound(pt_bytes)
+    test_bound = _bound(pt_bytes + u.shape[0])  # + the mask
+    for name, (b_ms, _) in (("cull_scatter", scatter_bound), ("cull_test", test_bound)):
+        t = passes[name]
+        share = "not measured" if t is None else f"{b_ms / t:.2f}"
+        print(f"{name}: device {_ms(t)} ms, bound {b_ms * 1e3:.2f} us (bytes), at {share} of it")
+    whole = {
+        "whole_cull_ms": dev_t["cull"], "whole_cull_call_ms": call_t["cull"],
+        "whole_cull_launches": None if device != "cuda" else _kernel_launches(prof["cull"]),
+        "whole_cull_memset_ms": None if device != "cuda" else prof["cull"]["Memset"][1] * 1e-3,
+        "whole_cull_bound_ms": test_bound[0], "whole_cull_strided_ms": dev_t["cull, z strided"],
+        "whole_cull_sorted_ms": dev_t["cull, raster-sorted"],
+        "step0_whole_cull_ms": dev_t["step 0"], "step0_whole_cull_call_ms": call_t["step 0"],
+        "step0_whole_cull_launches": None if device != "cuda" else _kernel_launches(prof["step 0"]),
+        "step0_whole_cull_sorted_ms": dev_t["step 0, raster-sorted"],
+        "plain_whole_cull_ms": dev_t["twin"], "plain_whole_cull_call_ms": call_t["twin"],
+    }
     return [
         {"name": "zmin", "route": "cuda", "source": f"{PKG}/csrc/zbuffer.cu",
          "replaces": "pointcloudprocessor_tpu/tools/zbuffer_probe.py:42",
-         "max_abs_err": zmin_err, "ms": dev_t["zmin"], "plain_ms": dev_t["zmin twin"],
-         "bound_ms": zmin_bound[0], "bound_by": zmin_bound[1],
-         "library_ms": dev_t["scatter_reduce_ amin"], "call_ms": t["zmin"],
-         "plain_call_ms": t["zmin twin"]},
+         "max_abs_err": tally["max_abs_err"], "mismatches": tally["mismatches"],
+         "probe_max_abs_err": zmin_err, "probe_mismatches": n_diff,
+         "ms": passes["cull_scatter"], "call_ms": call_t["cull"],
+         "plain_ms": dev_t["scatter twin"], "cells_given_plain_ms": dev_t["zmin twin"],
+         "bound_ms": scatter_bound[0], "bound_by": scatter_bound[1],
+         "library_ms": dev_t["scatter_reduce_ amin"], "step0_ms": dev_t["step 0 zmin"],
+         "step0_call_ms": call_t["step 0 zmin"], **whole},
         {"name": "zbuffer_visible", "route": "cuda", "source": f"{PKG}/csrc/zbuffer.cu",
          "replaces": "pointcloudprocessor_tpu/ops/zbuffer.py:69",
-         "max_abs_err": vis_err, "mismatches": n_differ, "ms": dev_t["visible"],
-         "plain_ms": dev_t["visible twin"], "bound_ms": vis_bound[0],
-         "bound_by": vis_bound[1], "library_ms": None, "call_ms": t["visible"],
-         "plain_call_ms": t["visible twin"]},
+         "max_abs_err": tally["max_abs_err"], "mismatches": tally["mismatches"],
+         "ms": passes["cull_test"], "call_ms": call_t["cull"],
+         "plain_ms": dev_t["test twin"], "cells_given_plain_ms": dev_t["visible twin"],
+         "bound_ms": test_bound[0], "bound_by": test_bound[1], "library_ms": None,
+         "step0_ms": dev_t["step 0 zbuffer_visible"],
+         "step0_call_ms": call_t["step 0 zbuffer_visible"], **whole},
     ]
 
 

@@ -1,58 +1,71 @@
-// Z-buffer scatter-min and visibility test for Hopper (sm_90a).
+// Z-buffer cull for Hopper (sm_90a): the scatter-min and the visibility test.
 //
 // Replaces the Pallas TPU kernel of pointcloudprocessor_tpu/tools/zbuffer_probe.py:
 //   K5 zmin  <- _zmin_kernel (zbuffer_probe.py:42, pallas_call at :81)
-// and serves, with zbuffer_visible, the z-buffer cull that the JAX package
-// leaves to XLA (Z1, pointcloudprocessor_tpu/ops/zbuffer.py:57-70):
-//   zmin             buf[c] = min(fill, min over points i with cell[i] == c of rng[i])
-//   zbuffer_visible  vis[i] = ok[i] && rng[i] <= buf[cell[i]] + eps
+// and the z-buffer cull that the JAX package leaves to XLA (Z1,
+// pointcloudprocessor_tpu/ops/zbuffer.py:57-70: the gate, the cell, the
+// `.at[].min` scatter, the cell-min gather and the depth test).
 //
-// Data (contiguous): cell (N,) int32, rng (N,) f32, ok (N,) bool (one byte,
-// 0 or 1), buf (n_slots,) f32, vis (N,) bool.
+// The main path's cull, cull_mask: one memset and two launches on the card.
+//   memset         the (gw * gh,) key buffer to all ones, the fill key
+//   pass (a) cull_scatter  per point: ok = valid && z > 0 && floor(u) in
+//            [0, W) && floor(v) in [0, H); cell = clamp(trunc(v / ds)) * gw +
+//            clamp(trunc(u / ds)); if ok, buf[cell] = min(buf[cell], key(rng))
+//   pass (b) cull_test     per point: the same ok and cell, then
+//            vis = ok && rng <= min(decode(buf[cell]), FLT_MAX) + eps
+// Inputs: u, v, z, rng (N,) f32 and valid (N,) bool, each with its element
+// stride; vis (N,) bool. One point a thread. Each pass reads 17 B a point;
+// (b) writes 1 B.
 //
-// zmin: the TPU has no vector scatter, so its kernel scalar-loops 2048 points
-//   a grid step into an SMEM accumulator that lives across the whole
-//   sequential grid. On Hopper the blocks run in parallel in no order, so
-//   one thread per point does atomicMin on an order-preserving int32 key of
-//   its range: key(b) = b ^ ((b >> 31) & 0x7fffffff) on the f32 bits b
-//   orders every non-NaN f32 as the floats are ordered, negatives included.
-//   It would put -0 just below +0, so each range and the fill first get
-//   +0.0 added, which turns -0 into +0: a buffer never holds -0, and it
-//   agrees in bits with the plain version's (which adds +0.0 as well,
-//   because its scatter keeps whichever of two equal zeros comes first).
-//   atomicMin on the raw bits would be right only for non-negative floats.
-//   The map is its own inverse, so a finishing pass turns the keys back into
-//   floats in place. A cell outside [0, n_slots) is dropped (XLA's
-//   mode="drop"; the TPU kernel's behaviour there is undefined).
+// Keys. The buffer holds an order-preserving u32 key of each range:
+//   key(b) = (b ^ ((b >> 31) & 0x7fffffff)) ^ 0x80000000   on the f32 bits b
+// orders every non-NaN f32 as the floats are ordered, negatives included; the
+// map without the final xor is its own inverse, which decode uses. It would
+// put -0 just below +0, so every range (and the probe's fill) first gets
+// +0.0 added, which turns -0 into +0: a buffer never holds -0, as the plain
+// version's never does. The fill key is 0xffffffff (a byte memset of 0xff),
+// above every range's key; pass (b) reads min(decode, FLT_MAX), so a cell
+// whose points all have +inf ranges reads FLT_MAX, the plain version's fill
+// (the all-ones key decodes to a NaN, which fminf drops). A NaN range on a
+// gated-in point is outside the contract: a range sqrt(x^2 + y^2 + z^2) is
+// NaN only where u, v or z is, and the gate drops those.
 //
-//   What bounds it on the H100: the atomics. At the reference scale the
-//   buffer is 293 x 215 cells + 1 sink, 254 KB in K5's padded (496, 128)
-//   layout: more than the 227 KB of shared memory a block may use, so
-//   block-private shared-memory buffers do not fit and the buffer stays in
-//   global memory, where it lives in the 50 MB L2 (a per-block copy of a
-//   tile of the cell range is later work). Each thread first reads the
-//   current key and issues the atomic only if its own key is smaller: the
-//   buffer only ever decreases, so the test is safe, and it spares the
-//   atomic for points that cannot win (every point of the sink, whose range
-//   equals the fill, and most points of a crowded cell). The reads of cell
-//   and rng are coalesced, 8 B a point.
+// Gate and cell in f32 as ops/zbuffer.cells computes them: floorf, IEEE
+// division __fdiv_rn (the build has no --use_fast_math), truncation
+// __float2int_rz. On a gated-in point u / ds is finite and in [0, W / ds],
+// where truncation is what to_int32 gives; a gated-out point's cell is never
+// used. The sum decode + eps rounds to f32 and nothing multiplies, so no FMA
+// changes it.
 //
-// zbuffer_visible: elementwise, one thread per point, f32 arithmetic (the
-//   sum buf[cell] + eps rounds to f32, as the plain torch version and XLA
-//   round it, and nothing multiplies, so no FMA can change it). A cell out
-//   of range reads nothing and gives false. 13 B a point and one gather
-//   from the L2-resident buffer: DRAM-bandwidth bound.
+// What bounds it on the H100: the bytes (17 + 18 B a point) and, in pass
+// (a), the rate at which L2 takes random atomics. The buffer (62,488 cells,
+// 250 KB, at the reference scale) is more than the 227 KB of shared memory a
+// block may use and lives in the 50 MB L2. A gated-out point issues nothing;
+// a gated-in one issues its atomicMin (a RED: nothing waits on it). Slower
+// on the smoke scene (PERF.md): a read of the cell's key before the atomic,
+// warp combining of same-cell lanes, private copies of the buffer in the
+// distributed shared memory of thread-block clusters. Four points a thread
+// with 16-byte loads was as fast in map order and faster only on a
+// raster-sorted copy, which no path of the program produces.
+//
+// The probe's form, zmin (cells given, any fill, an f32 buffer out), fills
+// the keys, scatters and decodes them in place: three launches. Its callers
+// send every gated-out point to one sink cell, so its scatter reads the
+// cell's key first and skips the atomic where it cannot lower it.
+// zbuffer_visible tests given ok, rng and cells against such a buffer.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+#include <float.h>
 #include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// Order-preserving f32 bits <-> int32 key map; an involution.
-__host__ __device__ __forceinline__ int order_key(int b) { return b ^ ((b >> 31) & 0x7fffffff); }
+// Order-preserving f32 bits <-> i32 map; an involution.
+__host__ __device__ __forceinline__ int order_bits(int b) { return b ^ ((b >> 31) & 0x7fffffff); }
+__host__ __device__ __forceinline__ unsigned encode(int b) { return unsigned(order_bits(b)) ^ 0x80000000u; }
+__host__ __device__ __forceinline__ int decode(unsigned k) { return order_bits(int(k ^ 0x80000000u)); }
 
 inline int float_bits(float f) {
   int b;
@@ -60,28 +73,92 @@ inline int float_bits(float f) {
   return b;
 }
 
+__device__ __forceinline__ unsigned range_key(float r) {
+  return encode(__float_as_int(__fadd_rn(r, 0.0f)));  // -0 -> +0
+}
+
+// The cull's inputs: five arrays, each with its element stride.
+struct Points {
+  const float* u;
+  const float* v;
+  const float* z;
+  const float* rng;
+  const unsigned char* valid;
+  long long su, sv, sz, sr, sval;
+};
+
+// The image and its z-buffer grid.
+struct Grid {
+  float width, height, ds;  // image size and cell size in pixels, as f32
+  int gw, gh;               // cells a row, rows: width / ds, height / ds
+};
+
+// The gate and the cell of one point (`ops/zbuffer.cells`).
+__device__ __forceinline__ bool gate_cell(float u, float v, float z, unsigned char valid,
+                                          const Grid& g, int& cell) {
+  const float uf = floorf(u), vf = floorf(v);
+  const bool ok = valid && z > 0.0f && uf >= 0.0f && uf < g.width && vf >= 0.0f && vf < g.height;
+  const int ui = min(max(__float2int_rz(__fdiv_rn(u, g.ds)), 0), g.gw - 1);
+  const int vi = min(max(__float2int_rz(__fdiv_rn(v, g.ds)), 0), g.gh - 1);
+  cell = vi * g.gw + ui;
+  return ok;
+}
+
+// Point i's inputs through the strides; its gate and its cell.
+__device__ __forceinline__ bool load_gate_cell(const Points& p, const Grid& g, long long i,
+                                               float& r, int& cell) {
+  r = __ldg(p.rng + i * p.sr);
+  return gate_cell(__ldg(p.u + i * p.su), __ldg(p.v + i * p.sv), __ldg(p.z + i * p.sz),
+                   __ldg(p.valid + i * p.sval), g, cell);
+}
+
 __global__ void __launch_bounds__(kThreads)
-zmin_fill(int* __restrict__ buf, int n_slots, int fill_key) {
+cull_scatter(Points p, Grid g, unsigned* __restrict__ buf, int n) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float r;
+  int cell;
+  if (load_gate_cell(p, g, i, r, cell)) atomicMin(buf + cell, range_key(r));
+}
+
+__global__ void __launch_bounds__(kThreads)
+cull_test(Points p, Grid g, const unsigned* __restrict__ buf, unsigned char* __restrict__ vis,
+          int n, float eps) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float r;
+  int cell;
+  bool v = false;
+  if (load_gate_cell(p, g, i, r, cell)) {
+    const float m = fminf(__int_as_float(decode(__ldg(buf + cell))), FLT_MAX);
+    v = r <= __fadd_rn(m, eps);
+  }
+  vis[i] = v ? 1 : 0;
+}
+
+// The probe's form: cells given.
+__global__ void __launch_bounds__(kThreads)
+zmin_fill(unsigned* __restrict__ buf, int n_slots, unsigned fill_key) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_slots) buf[i] = fill_key;
 }
 
 __global__ void __launch_bounds__(kThreads)
-zmin_scatter(const int* __restrict__ cell, const float* __restrict__ rng,
-             int* buf, int n, int n_slots) {
+zmin_scatter(const int* __restrict__ cell, const float* __restrict__ rng, unsigned* buf, int n,
+             int n_slots) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int c = cell[i];
   if (c < 0 || c >= n_slots) return;
-  const int key = order_key(__float_as_int(__fadd_rn(rng[i], 0.0f)));  // -0 -> +0
+  const unsigned key = range_key(rng[i]);
   // buf[c] only decreases, so a stale read can only cost a needless atomic.
   if (key < buf[c]) atomicMin(buf + c, key);
 }
 
 __global__ void __launch_bounds__(kThreads)
-zmin_finish(int* __restrict__ buf, int n_slots) {
+zmin_finish(unsigned* __restrict__ buf, int n_slots) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_slots) buf[i] = order_key(buf[i]);
+  if (i < n_slots) reinterpret_cast<int*>(buf)[i] = decode(buf[i]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -96,21 +173,45 @@ zbuffer_visible_kernel(const unsigned char* __restrict__ ok, const float* __rest
   vis[i] = v ? 1 : 0;
 }
 
-inline int blocks(int n) { return (n + kThreads - 1) / kThreads; }
+inline unsigned blocks(long long threads) { return unsigned((threads + kThreads - 1) / kThreads); }
 
 }  // namespace
 
 extern "C" {
 
-// K5 / Z1 scatter: buf (n_slots,) f32 = fill, then the scatter-min of rng
+// The cull: vis (N,) bool from u, v, z, rng (f32) and valid (bool), each
+// with its element stride, on a width x height image cut into ds x ds cells.
+// buf is a (gw * gh,) u32 scratch buffer (its cells' minimum keys on
+// return). One memset and two launches on `stream`; n >= 1. Returns the
+// first CUDA error.
+int cull_mask(const void* u, const void* v, const void* z, const void* rng, const void* valid,
+              long long su, long long sv, long long sz, long long sr, long long sval, void* buf,
+              void* vis, int n, int width, int height, int ds, float eps, void* stream) {
+  if (n < 1 || ds < 1 || width / ds < 1 || height / ds < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Points p{static_cast<const float*>(u), static_cast<const float*>(v),
+                 static_cast<const float*>(z), static_cast<const float*>(rng),
+                 static_cast<const unsigned char*>(valid), su, sv, sz, sr, sval};
+  const Grid g{float(width), float(height), float(ds), width / ds, height / ds};
+  unsigned* b = static_cast<unsigned*>(buf);
+  cudaError_t err = cudaMemsetAsync(b, 0xff, size_t(g.gw) * g.gh * sizeof(unsigned), st);
+  if (err != cudaSuccess) return err;
+  cull_scatter<<<blocks(n), kThreads, 0, st>>>(p, g, b, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cull_test<<<blocks(n), kThreads, 0, st>>>(p, g, b, static_cast<unsigned char*>(vis), n, eps);
+  return cudaGetLastError();
+}
+
+// K5, cells given: buf (n_slots,) f32 = fill, then the scatter-min of rng
 // into buf at cell, dropping cells outside [0, n_slots). Three launches on
-// `stream`. Returns cudaGetLastError().
+// `stream`: fill keys, scatter, decode in place. Returns cudaGetLastError().
 int zmin(const void* cell, const void* rng, void* buf, int n, int n_slots, float fill,
          void* stream) {
   if (n < 0 || n_slots < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* b = static_cast<int*>(buf);
-  zmin_fill<<<blocks(n_slots), kThreads, 0, st>>>(b, n_slots, order_key(float_bits(fill + 0.0f)));
+  unsigned* b = static_cast<unsigned*>(buf);
+  zmin_fill<<<blocks(n_slots), kThreads, 0, st>>>(b, n_slots, encode(float_bits(fill + 0.0f)));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (n > 0) {
@@ -123,8 +224,8 @@ int zmin(const void* cell, const void* rng, void* buf, int n, int n_slots, float
   return cudaGetLastError();
 }
 
-// Z1 test: vis (N,) bool = ok && rng <= buf[cell] + eps. Returns
-// cudaGetLastError().
+// Z1's test, cells given: vis (N,) bool = ok && rng <= buf[cell] + eps.
+// Returns cudaGetLastError().
 int zbuffer_visible(const void* ok, const void* rng, const void* buf, const void* cell,
                     void* vis, int n, int n_slots, float eps, void* stream) {
   if (n < 0 || n_slots < 1) return cudaErrorInvalidValue;

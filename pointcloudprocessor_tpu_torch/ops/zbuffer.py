@@ -5,17 +5,22 @@ depth-culling design (`view_culling.cpp:52-174`: 14x downsampled cells at
 :63, 0.05 m depth epsilon at :157). It returns a mask over the ORIGINAL
 point indices, which removes the reference's kd-tree re-association.
 
-The JAX package leaves the cull to XLA (a ``.at[].min`` scatter and a
-gather). Here it runs as two hand-written CUDA kernels from
-`csrc/zbuffer.cu`: ``zmin``, the scatter-min into a (W/ds)*(H/ds)+1 buffer
-whose last cell is a sink for invalid points (the counterpart of the TPU
-kernel `tools/zbuffer_probe._zmin_kernel` as well), and
-``zbuffer_visible``, the cell-min gather fused with the depth test.
+The JAX package leaves the cull to XLA (the gate, a ``.at[].min`` scatter
+and a gather). On CUDA tensors :func:`cull_mask_uv` is two hand-written
+kernels from `csrc/zbuffer.cu` after a memset of their scratch buffer,
+and nothing else on the card: ``zmin`` (the gate, the cell and the
+scatter-min of each point's range key into a (W/ds)*(H/ds) key buffer; a
+point that fails the gate issues nothing) and ``zbuffer_visible`` (the
+same gate and cell and the depth test against its cell's minimum). The
+probe's form, :func:`zmin` (cells given, any fill, an f32 buffer out; the
+counterpart of the TPU kernel `tools/zbuffer_probe._zmin_kernel`), fills
+the keys, scatters and decodes them in three launches, and :func:`visible`
+tests given cells against such a buffer.
 
 Dispatch goes by the tensors' device: CPU tensors take the plain twins
-(:func:`zmin_plain`, :func:`cull_mask_uv_plain`), CUDA tensors the kernels
-(a build or launch failure raises), any other device raises.
-``launch_counts`` counts each kernel's launches.
+(:func:`zmin_plain`, :func:`visible_plain`, :func:`cull_mask_uv_plain`),
+CUDA tensors the kernels (a build or launch failure raises), any other
+device raises. ``launch_counts`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -38,8 +43,11 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
+    # u, v, z, rng, valid, their 5 element strides, buf, vis, n, width,
+    # height, ds, eps, stream
+    "cull_mask": ([_PTR] * 5 + [_I64] * 5 + [_PTR] * 2 + [_I32] * 4 + [_F32, _PTR], _I32),
     # cell, rng, buf, n, n_slots, fill, stream
     "zmin": ([_PTR] * 3 + [_I32] * 2 + [_F32, _PTR], _I32),
     # ok, rng, buf, cell, vis, n, n_slots, eps, stream
@@ -51,17 +59,29 @@ def _lib() -> ctypes.CDLL:
     return kbuild.library("zbuffer", _SIGNATURES)
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype, n: int, device) -> None:
+def _check_cuda(name: str, t: torch.Tensor, dtype, n: int, device, strided: bool = False) -> None:
+    """``t`` (n,) of ``dtype`` on CUDA ``device``, contiguous unless ``strided``."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name} must be on {device} (CUDA), got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != (n,) or not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous of shape ({n},), got {tuple(t.shape)}")
+    if tuple(t.shape) != (n,) or not (strided or t.is_contiguous()):
+        raise ValueError(f"{name} must be {'' if strided else 'contiguous '}of shape ({n},), "
+                         f"got {tuple(t.shape)}")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def grid(camera, downsample_factor: int) -> tuple[int, int]:
+    """(cells a row, rows) of the z-buffer: the image cut into ds x ds
+    cells, the partial last row and column dropped."""
+    ds = int(downsample_factor)
+    if ds < 1 or camera.width // ds < 1 or camera.height // ds < 1:
+        raise ValueError(f"downsample_factor {ds} leaves no cell of a "
+                         f"{camera.width}x{camera.height} image")
+    return camera.width // ds, camera.height // ds
 
 
 # ---------------------------------------------------------------------------
@@ -153,11 +173,14 @@ def cells(camera, u, v, z, valid, ds: int):
     """(ok, cell, n_cells): the gate z > 0 (:76-80), in image (:90-94), and
     each point's cell of the ds-downsampled grid. A point that fails the
     gate goes to the sink cell ``n_cells``, so it never shadows a real one."""
-    grid_w = camera.width // ds
-    grid_h = camera.height // ds
+    grid_w, grid_h = grid(camera, ds)
     ok = valid & (z > 0.0) & cam.in_image_uv(camera, u, v)
-    ui = torch.clamp(to_int32(u / ds), 0, grid_w - 1)
-    vi = torch.clamp(to_int32(v / ds), 0, grid_h - 1)
+    # An IEEE division on every device: torch divides a CUDA tensor by a
+    # Python number as a product with its reciprocal, which near a cell's
+    # edge rounds to the cell before.
+    div = torch.full((), ds, dtype=u.dtype, device=u.device)
+    ui = torch.clamp(to_int32(u / div), 0, grid_w - 1)
+    vi = torch.clamp(to_int32(v / div), 0, grid_h - 1)
     return ok, torch.where(ok, vi * grid_w + ui, grid_w * grid_h), grid_w * grid_h
 
 
@@ -180,6 +203,36 @@ def cull_mask_uv_plain(
     return visible_plain(ok, rng, buf, cell, depth_epsilon)
 
 
+def cull_mask_uv_cuda(camera, u, v, z, rng, valid, downsample_factor: int = 14,
+                      depth_epsilon: float = 0.05) -> torch.Tensor:
+    """The cull on the card: a memset of a (W/ds)*(H/ds) key buffer, then
+    ``zmin`` and ``zbuffer_visible``, one launch each, reading u, v, z, rng
+    (f32) and valid (bool) through their strides."""
+    n = rng.shape[0] if rng.dim() == 1 else -1
+    dev = rng.device
+    for name, t, dtype in (("u", u, torch.float32), ("v", v, torch.float32),
+                           ("z", z, torch.float32), ("rng", rng, torch.float32),
+                           ("valid", valid, torch.bool)):
+        _check_cuda(name, t, dtype, n, dev, strided=True)
+    gw, gh = grid(camera, downsample_factor)
+    if n >= 2**31 or gw * gh >= 2**31:
+        raise ValueError(f"cull_mask_uv: {n} points / {gw * gh} cells out of range")
+    vis = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return vis
+    buf = torch.empty((gw * gh,), dtype=torch.int32, device=dev)
+    err = _lib().cull_mask(
+        u.data_ptr(), v.data_ptr(), z.data_ptr(), rng.data_ptr(), valid.data_ptr(),
+        u.stride(0), v.stride(0), z.stride(0), rng.stride(0), valid.stride(0),
+        buf.data_ptr(), vis.data_ptr(), n, camera.width, camera.height,
+        int(downsample_factor), float(depth_epsilon), _stream(rng))
+    if err != 0:
+        raise RuntimeError(f"cull_mask launch failed: CUDA error {err}")
+    launch_counts["zmin"] += 1
+    launch_counts["zbuffer_visible"] += 1
+    return vis
+
+
 def cull_mask_uv(
     camera: cam.PinholeCamera,
     u: torch.Tensor,  # (N,) pixel u of each point
@@ -194,21 +247,17 @@ def cull_mask_uv(
     z > 0, in image, then keep points whose range is within
     ``depth_epsilon`` of their cell's minimum.
 
-    CPU tensors take :func:`cull_mask_uv_plain`; CUDA tensors the kernels
-    ``zmin`` and ``zbuffer_visible``; any other device raises. Both give
-    the same mask bit for bit: a minimum does not depend on order, and both
-    store a -0.0 range as +0.0 (a culled range, a square root of a sum of
-    squares, is never -0.0 anyway)."""
+    CPU tensors take :func:`cull_mask_uv_plain`; CUDA tensors
+    :func:`cull_mask_uv_cuda` (a memset and two launches); any other
+    device raises. Both give the same mask bit for bit: a minimum does not
+    depend on order, and both store a -0.0 range as +0.0 (a culled range, a
+    square root of a sum of squares, is never -0.0 anyway)."""
     dev = rng.device.type
     if dev == "cpu":
         return cull_mask_uv_plain(camera, u, v, z, rng, valid, downsample_factor, depth_epsilon)
-    if dev != "cuda":
-        raise NotImplementedError(f"cull_mask_uv: no kernel for device {rng.device}")
-    ok, cell, n_cells = cells(camera, u, v, z, valid, int(downsample_factor))
-    rng = rng.to(torch.float32).contiguous()
-    big = torch.finfo(torch.float32).max
-    buf = zmin_cuda(cell, torch.where(ok, rng, big), big, n_cells + 1)
-    return visible_cuda(ok, rng, buf, cell, depth_epsilon)
+    if dev == "cuda":
+        return cull_mask_uv_cuda(camera, u, v, z, rng, valid, downsample_factor, depth_epsilon)
+    raise NotImplementedError(f"cull_mask_uv: no kernel for device {rng.device}")
 
 
 def cull_mask(

@@ -140,3 +140,47 @@ def build(width: int = WIDTH, height: int = HEIGHT, n_map: int = N_MAP, k: int =
         images=images,
         T0=se3.SE3(T0.q.to(device), T0.t.to(device)),
     )
+
+
+def cull_edge_points(width: int = WIDTH, height: int = HEIGHT, ds: int = 14, n_bulk: int = 20_000,
+                     seed: int = SEED) -> dict:
+    """Cull inputs at the edges of the gate and the grid, as numpy arrays
+    (u, v, z, rng f32; valid bool), shuffled into a random bulk: u in
+    {0, -0, -1e-7, a cell edge and the float below it, W - 1e-3, W, NaN,
+    +-inf} crossed with the like values of v and with z in {1, +-0, 1e-30,
+    -1, NaN, +-inf}; ranges with ties, zeros and +inf; 600 points on one
+    cell with equal ranges, a few exactly at and just past the depth test's
+    edge (3.0 + 0.05); and ``n_bulk`` points spread a little past the image
+    with ranges on a 1/64 grid (ties), 5% invalid."""
+    rs = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def edges(size):
+        return np.asarray([0.0, -0.0, -1e-7, ds, np.nextafter(f32(ds), f32(0)), size - 1e-3,
+                           size - 0.5, size, np.nan, np.inf, -np.inf], f32)
+
+    zs = np.asarray([1.0, 0.0, -0.0, 1e-30, -1.0, np.nan, np.inf, -np.inf], f32)
+    u, v, z = (a.reshape(-1) for a in np.meshgrid(edges(width), edges(height), zs, indexing="ij"))
+    r = rs.choice(np.asarray([1.0, 1.0, 2.5, 0.0, -0.0, np.inf, 7.25], f32), u.size)
+    # One crowded cell (cell (2, 2) at ds 14): equal ranges and the test's edge.
+    m = 600
+    cu = rs.uniform(2 * ds, 3 * ds, m).astype(f32)
+    cv = rs.uniform(2 * ds, 3 * ds, m).astype(f32)
+    cr = np.full(m, 3.0, f32)
+    cr[:20] = f32(3.0) + f32(0.05)
+    cr[20:40] = np.nextafter(f32(3.0) + f32(0.05), f32(4))
+    bu = rs.uniform(-0.05 * width, 1.05 * width, n_bulk).astype(f32)
+    bv = rs.uniform(-0.05 * height, 1.05 * height, n_bulk).astype(f32)
+    bz = rs.uniform(-0.5, 10.0, n_bulk).astype(f32)
+    br = (np.round(rs.uniform(0.5, 20.0, n_bulk) * 64) / 64).astype(f32)
+    out = {
+        "u": np.concatenate([u, cu, bu]),
+        "v": np.concatenate([v, cv, bv]),
+        "z": np.concatenate([z, np.ones(m, f32), bz]),
+        "rng": np.concatenate([r, cr, br]),
+    }
+    n = out["u"].size
+    out["valid"] = rs.uniform(size=n) > 0.05
+    out["valid"][: u.size] = True
+    order = rs.permutation(n)
+    return {k: a[order] for k, a in out.items()}
