@@ -8,10 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for matmuls and cuDNN.
-2. Build: compiles the three kernel libraries (csrc/nid_hist.cu: K1/K2,
-   csrc/tap_gather.cu: K3/K4, csrc/zbuffer.cu: K5 zmin and zbuffer_visible)
-   with nvcc for sm_90a, one nvcc each, started together, from the sources
-   in this checkout.
+2. Build: compiles the five kernel libraries (csrc/nid_hist.cu: K1/K2,
+   csrc/tap_gather.cu: K3/K4, csrc/zbuffer.cu: K5 zmin and zbuffer_visible,
+   csrc/hpr.cu: H1 hpr_support and H2 hpr_grid, csrc/smooth.cu: N1
+   smooth_local) with nvcc for sm_90a, one nvcc each, started together,
+   from the sources in this checkout.
 3. K1/K2 against their plain torch twins on the random set at the main
    path's fine shape (K=8 keyframes x N=262,144 points, uniform nibbles and
    point bins, ~30% gated out, s uniform in [-1.5, 2.5], inputs from a
@@ -73,18 +74,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    a cull, and the same for step 0 (the eager gate, then ``zmin`` and
    ``zbuffer_visible`` with cells given), the cells-given twins and
    ``scatter_reduce_``.
-8. The mask path: ``runner.process`` under the headline schedule with the
+8. The HPR + smoothing path: ``runner.process`` under the headline
+   schedule with ``culling.method="hpr"`` (``hpr_impl`` "auto": the grid at
+   1M points) and ``fusion.local_smoothing_radius`` = ``SMOOTH_RADIUS``.
+   Asserts as phase 4, with 16 launches of H2 (8 NID culls + 8 colorize
+   observations), one of N1 and none of the z-buffer kernels or H1.
+9. H1 (``phase_hpr_dense``): the dense cull on the two-wall scene at
+   100,000 and 262,144 points bit-equal to its twin run on the CPU on the
+   same inputs (all directions, then every 16th); against the twin run on
+   the card the differing bits and their margins in ulp of 2R; device and
+   call times beside the N^2 x 3 FMA bound, the card twin and the chunked
+   product; one 1M-point keyframe cull of the scene with ``impl="dense"``.
+10. H2 (``phase_hpr_grid``): the grid cull bit-equal to its twin on the
+   two-wall scene at 262,144 points, on ``bench_scene.hpr_edge_sets``
+   (also strided and unaligned, and one point) and on the 8 colorize culls
+   of the scene; device and call times at keyframe 0 beside the bound and
+   the twin; ``torch.profiler`` asserts four launches and one memset a cull.
+11. N1 (``phase_smooth``): the smoothing kernel on the scene's fused colors
+   (HPR culling) within 1e-3 of its twin; in-radius neighbors a point
+   (median 8-24 on the wall asserted) and bucket overflow; device and call
+   times of ``knn.build``, the kernel and the twin beside two bounds.
+12. The mask path: ``runner.process`` under the headline schedule with the
    mask folder set. Asserts what tests/test_pipeline_e2e.py's
    test_e2e_with_masks asserts (labels follow the mask, highlighted points
    are red, one dump per keyframe, the accumulated cloud is the sum of the
    dumps) and 24 launches each of zmin and zbuffer_visible (+8 dumps).
-9. The earlier path: ``runner.process`` under the plain objective (2 outer
+13. The earlier path: ``runner.process`` under the plain objective (2 outer
    x 20 inner), as in phase 4 otherwise.
-10. Tools at full scale: ``tools/colorize_anatomy`` and
+14. Tools at full scale: ``tools/colorize_anatomy`` and
    ``tools/zbuffer_probe``, each printing its JSON line; both must report
    non-null kernel times and exact masks / buffers.
 
-The launch counts are set to 0 just before each path and read just after.
+The launch counts are set to 0 just before each path and read just after;
+a kernel's ``launches`` are those of the headline run, H1/H2/N1's those of
+the HPR + smoothing run (each also carries the other path's count).
 The line before the last is a JSON object describing each kernel: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (a sleep kernel queued
 ahead of the start event hides the host's enqueue; where a twin's host side
@@ -164,13 +187,13 @@ def phase_env():
 
 
 def phase_build():
-    """The three kernel libraries, one nvcc each, started together."""
+    """The five kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pointcloudprocessor_tpu_torch.kernels import build as kbuild
 
     t0 = time.perf_counter()
-    names = ("nid_hist", "tap_gather", "zbuffer")
+    names = ("nid_hist", "tap_gather", "zbuffer", "hpr", "smooth")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(kbuild.build, names))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} libraries in parallel")
@@ -217,14 +240,22 @@ def _kernel_profile(fn, device="cuda", reps=20):
         return None
     fn()
     torch.cuda.synchronize()
+    # A warm-up step first: device work queued just as tracing starts can be
+    # lost, so only the second step's events are kept.
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     for _ in range(3):  # the profiler now and then loses a window's device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         out = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # The step's own marker is no device work of fn.
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep")):
                 # The name without "void", namespaces, template arguments and parameters.
                 name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
                 name = re.split(r"[<(]", name)[0].split("::")[-1].strip()
@@ -562,15 +593,17 @@ def write_scene(root, device="cuda"):
     return T0
 
 
-def _config(root, nid, masks=False):
+def _config(root, nid, masks=False, hpr=False):
     """The pipeline config of the smoke scene (bench.py's e2e config,
-    `bench.py:768-806`, MLS off) with the given NIDConfig, and with the
-    scene's mask folder if ``masks``."""
+    `bench.py:768-806`, MLS off) with the given NIDConfig, with the
+    scene's mask folder if ``masks``, and with HPR culling (``hpr_impl``
+    "auto": the grid at 1M points) and local color smoothing at
+    ``SMOOTH_RADIUS`` if ``hpr``."""
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
     from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
 
     f_px = bs.focal(WIDTH)
-    return cfg_mod.PipelineConfig(
+    cfg = cfg_mod.PipelineConfig(
         point_cloud_path=os.path.join(root, "map.pcd"),
         odometry_path=os.path.join(root, "vo_interpolated_odom.txt"),
         images_folder=os.path.join(root, "images"),
@@ -590,25 +623,29 @@ def _config(root, nid, masks=False):
         ),
         nid=nid,
     )
+    if hpr:
+        cfg.culling.method = "hpr"
+        cfg.fusion.local_smoothing_radius = SMOOTH_RADIUS
+    return cfg
 
 
 def _reset_counts():
-    from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.ops import hpr, knn, nid_hist, tap_gather, zbuffer
 
-    nid_hist.reset_launch_counts()
-    tap_gather.reset_launch_counts()
-    zbuffer.reset_launch_counts()
+    for mod in (nid_hist, tap_gather, zbuffer, hpr, knn):
+        mod.reset_launch_counts()
 
 
 def _read_counts():
-    from pointcloudprocessor_tpu_torch.ops import nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.ops import hpr, knn, nid_hist, tap_gather, zbuffer
 
     by_n = {name: {} for name in nid_hist.launch_counts}
     for (name, n), c in sorted(nid_hist.launch_shapes.items()):
         by_n[name][str(n)] = c
     return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
             **{f"{k}_fallbacks": v for k, v in tap_gather.fallback_counts.items()},
-            **zbuffer.launch_counts, "nid_hist_by_n": by_n}
+            **zbuffer.launch_counts, **hpr.launch_counts, **knn.launch_counts,
+            "nid_hist_by_n": by_n}
 
 
 def _pose_error(T, T0):
@@ -618,19 +655,21 @@ def _pose_error(T, T0):
     return float(dt) * 100.0, float(np.degrees(float(dr)))
 
 
-def phase_runner(card, root, T0, nid, label, device="cuda", masks=False):
+def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False):
     """``runner.process`` on the smoke scene under ``nid`` (with the mask
-    folder if ``masks``), the launch counts set to 0 just before it and read
-    just after. Asserts the planted error is recovered to 1 cm / 1 deg, a
-    finite NID, colored points whose colors follow the rendered texture, the
-    mask outputs (:func:`check_mask_outputs`), and on the card K1/K2
-    launches and one zmin and one zbuffer_visible launch a cull: K for the
-    NID keyframes, K for colorize, K more for the mask dumps."""
+    folder if ``masks``; with HPR culling and local smoothing if ``hpr``),
+    the launch counts set to 0 just before it and read just after. Asserts
+    the planted error is recovered to 1 cm / 1 deg, a finite NID, colored
+    points whose colors follow the rendered texture, the mask outputs
+    (:func:`check_mask_outputs`), and on the card K1/K2 launches and one
+    launch of each cull kernel a cull (zmin and zbuffer_visible, or with
+    ``hpr`` H2 hpr_grid): K for the NID keyframes, K for colorize, K more
+    for the mask dumps; with ``hpr`` one N1 smooth_local launch."""
     from pointcloudprocessor_tpu_torch.io import pcd
     from pointcloudprocessor_tpu_torch.pipeline import runner
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
-    cfg = _config(root, nid, masks)
+    cfg = _config(root, nid, masks, hpr)
     shutil.rmtree(cfg.output_path, ignore_errors=True)
     _reset_counts()
     t0 = time.perf_counter()
@@ -658,7 +697,13 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False):
         if nid.coarse_outer_iterations:  # both shapes of the coarse-to-fine solve
             assert len(launches["nid_hist_by_n"]["nid_hist_fwd"]) == 2, launches
         culls = (3 if masks else 2) * K
-        assert launches["zmin"] == launches["zbuffer_visible"] == culls, (culls, launches)
+        if hpr:
+            assert launches["hpr_grid"] == culls and launches["hpr_support"] == 0, launches
+            assert launches["zmin"] == launches["zbuffer_visible"] == 0, launches
+            assert launches["smooth_local"] == 1, launches
+        else:
+            assert launches["zmin"] == launches["zbuffer_visible"] == culls, (culls, launches)
+            assert launches["hpr_grid"] == launches["smooth_local"] == 0, launches
     if masks:
         check_mask_outputs(res, cfg.output_path, label)
 
@@ -1189,6 +1234,340 @@ def phase_zbuffer(card, root, device="cuda"):
     ]
 
 
+# H1 / H2 / N1 (csrc/hpr.cu, csrc/smooth.cu): the dense cull at the dense
+# cutoff and at bench.py's culled size, the grid cull at bench.py's
+# bench_hpr size (`bench.py:665-697`), and the smoothing radius: ~15 colored
+# neighbors a wall point at the scene's density (7/8 of 1M points on ~30 m^2).
+HPR_DENSE_N = (100_000, 262_144)
+HPR_GRID_N = 262_144
+SMOOTH_RADIUS = 0.015
+HPR_TOL = 0.05
+
+
+def _scene_colorize_cull(camera, cloud, q, t):
+    """(points_camera (N, 3), gate) of the colorize HPR cull of the map at
+    camera pose (q, t), formed as pipeline/colorize.observe_keyframe forms
+    them (the unfloored pixel gate)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.models import camera as cam
+
+    p = cloud.points
+    x, y, z = se3.transform_xyz(se3.inverse(se3.SE3(q, t)), p[:, 0], p[:, 1], p[:, 2])
+    u, v = cam.project_xyz(camera, x, y, z)
+    gate = (cloud.valid & (z > 0.0) & (u >= 0) & (u < camera.width) & (v >= 0)
+            & (v < camera.height))
+    return torch.stack([x, y, z], dim=-1), gate
+
+
+def phase_hpr_dense(card, root, device="cuda"):
+    """H1 on the two-wall scene (z jitter 0.3 m, 2% invalid) at the dense
+    cutoff and at bench.py's culled size, bit-equal to its twin run on the
+    CPU on the same inputs (every direction at the cutoff; every 16th at
+    262,144 points, the CPU's product taking a minute for all): the twin on
+    the CPU is the JAX package's arithmetic. Against the twin run on the
+    card, whose norm and cuBLAS product round otherwise, the mask bits that
+    differ and their margins (support - self support - tol) in ulp of 2R
+    are printed. Device and call times beside the N^2 x 3 FMA bound, the
+    card twin's and the chunked product's; then one 1M-point colorize cull
+    of the scene's keyframe 0 with the dense test (what the TPU-chosen
+    ``dense_cutoff`` saves on this card). Returns the kernel's record."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import hpr
+    from pointcloudprocessor_tpu_torch.pipeline import runner
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+    from pointcloudprocessor_tpu_torch.utils import profiling
+
+    ulp = float(np.spacing(np.float32(2.0 * hpr.DEFAULT_RADIUS)))
+    where = "card" if device == "cuda" else device
+    rec = {"mismatches": 0, "card_twin_flips": 0, "card_twin_flips_outside_2ulp": 0,
+           "card_twin_max_margin_ulp": 0.0, "max_abs_err": 0.0}
+    for n in HPR_DENSE_N:
+        p_np, v_np = bs.two_walls(n, SEED, z_jitter=0.3, invalid=0.02)
+        pts, valid = torch.from_numpy(p_np).to(device), torch.from_numpy(v_np).to(device)
+        got = hpr.hpr_mask(pts, valid)
+        rows = torch.arange(0, n, 1 if n <= HPR_DENSE_N[0] else 16)
+        ok_c, sup_c, self_c = hpr.hpr_support_plain(torch.from_numpy(p_np), torch.from_numpy(v_np),
+                                                    rows=rows)
+        want_c = ok_c & (sup_c - self_c <= HPR_TOL)
+        diff_c = got.cpu()[rows] != want_c
+        rec["mismatches"] += int(diff_c.sum())
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(diff_c.float().max()))
+        ok, sup, self_ = hpr.hpr_support_plain(pts, valid)
+        want = ok & (sup - self_ <= HPR_TOL)
+        diff = got != want
+        margin_ulp = ((sup - self_ - HPR_TOL).abs() / ulp)[diff]
+        n_out = int((margin_ulp > 2.0).sum())
+        drift = float(((sup.cpu()[rows] - sup_c).abs()[ok_c]).max() / ulp)
+        rec["card_twin_flips"] += int(diff.sum())
+        rec["card_twin_flips_outside_2ulp"] += n_out
+        if margin_ulp.numel():
+            rec["card_twin_max_margin_ulp"] = max(rec["card_twin_max_margin_ulp"],
+                                                  float(margin_ulp.max()))
+        print(f"H1 hpr_support on two walls, {n} points: {int(got.sum())} visible; against the "
+              f"twin on the CPU ({rows.numel()} directions): {int(diff_c.sum())} mask bits "
+              f"differ (bit-equal required); against the twin on the {where}: {int(diff.sum())} "
+              f"differ, {n_out} with a margin over 2 ulp of 2R ({ulp} m), the card twin's "
+              f"supports {drift:.1f} ulp from the CPU twin's at most")
+        assert int(diff_c.sum()) == 0, f"H1 disagrees with its twin at {n} points"
+    # Times at bench.py's culled size (the last set).
+    r = torch.linalg.vector_norm(pts, dim=-1)
+    okm = valid & (r > 1e-9)
+    u = pts / torch.clamp(r, min=1e-12)[:, None]
+    ft = torch.where(okm[:, None], u * (2.0 * hpr.DEFAULT_RADIUS - r)[:, None], 0.0).T.contiguous()
+    dirs = torch.where(okm[:, None], u, 0.0)
+
+    def product():
+        return [torch.amax(dirs[s: s + 4096] @ ft, dim=1) for s in range(0, n, 4096)]
+
+    def kernel():
+        return hpr.hpr_mask(pts, valid)
+
+    def twin():
+        return hpr.hpr_mask_plain(pts, valid)
+
+    dev_t = {k: _device_ms(fn, device) for k, fn in (("kernel", kernel), ("twin", twin),
+                                                      ("chunked product", product),
+                                                      ("kernel again", kernel))}
+    # The twin's and the product's host side outlast the hidden window: their
+    # device time is refused, and their time a call stands in for it.
+    call_t = {k: profiling.median_ms(fn, device, reps=20 if k == "kernel" else 5)
+              for k, fn in (("kernel", kernel), ("twin", twin), ("chunked product", product))}
+    b_ms, by = _bound(_nbytes(pts, valid, got), 6.0 * n * n)
+    share = f"{b_ms / dev_t['kernel']:.2f}" if dev_t["kernel"] else "not measured"
+    print(f"[{card}] H1 at {n} points: device ms: "
+          + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items())
+          + "; a call: " + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items())
+          + f"; bound {b_ms:.3f} ms ({by}: {n}^2 x 3 FMA at 67 TFLOP/s), kernel at {share}")
+    prof = _kernel_profile(kernel, device, reps=3)
+    if prof is not None:
+        print(f"[{card}] H1 device work a call: "
+              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+        assert _kernel_launches(prof) == 2, prof
+    # The dense test on one 1M-point colorize cull of the scene.
+    cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
+    poses = runner._camera_to_world(frames, kf_idx, None, device)
+    pts1, gate1 = _scene_colorize_cull(camera, cloud, poses.q[0], poses.t[0])
+    vis_dense = hpr.hpr_mask(pts1, gate1)
+    vis_grid = hpr.hpr_mask_grid(pts1, gate1)
+    dense_1m = profiling.median_ms(lambda: hpr.hpr_mask(pts1, gate1), device, reps=3, warmup=1,
+                                   hide_host=True)
+    print(f"[{card}] H1 on the scene's keyframe-0 colorize cull ({pts1.shape[0]} points, "
+          f"{int(gate1.sum())} gated in): device {_ms(dense_1m)} ms; {int(vis_dense.sum())} "
+          f"visible (the grid cull: {int(vis_grid.sum())}, {int((vis_dense != vis_grid).sum())} "
+          "bits differ)")
+    rec.update(ms=dev_t["kernel"], ms_again=dev_t["kernel again"], call_ms=call_t["kernel"],
+               plain_ms=dev_t["twin"] or call_t["twin"], plain_call_ms=call_t["twin"],
+               library_ms=dev_t["chunked product"] or call_t["chunked product"],
+               library_call_ms=call_t["chunked product"], bound_ms=b_ms, bound_by=by, n=n,
+               scene_1m_dense_ms=dense_1m, scene_1m_visible_dense=int(vis_dense.sum()),
+               scene_1m_visible_grid=int(vis_grid.sum()))
+    return [{"name": "hpr_support", "route": "cuda", "source": f"{PKG}/csrc/hpr.cu",
+             "replaces": "pointcloudprocessor_tpu/ops/hpr.py:79", **rec}]
+
+
+def phase_hpr_grid(card, root, device="cuda"):
+    """H2 bit-equal to its twin on the two-wall scene at bench.py's
+    bench_hpr size, on the edge sets of ``bench_scene.hpr_edge_sets`` (also
+    through strided and unaligned views, and one point), and on the 1M-point
+    colorize cull of each of the 8 keyframes; its device and call times at
+    keyframe 0 beside the bound and the twin, each pass's device time, and
+    an assertion that a cull is its four launches and one memset. Returns
+    the kernel's record."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import hpr
+    from pointcloudprocessor_tpu_torch.pipeline import runner
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+
+    tally = {"culls": 0, "mismatches": 0, "max_abs_err": 0.0}
+
+    def check(label, pts, valid):
+        got = hpr.hpr_mask_grid(pts, valid)
+        _compare_masks(tally, f"H2 {label}", got, hpr.hpr_mask_grid_plain(pts, valid))
+        return got
+
+    p_np, v_np = bs.two_walls(HPR_GRID_N, SEED, z_jitter=0.3, invalid=0.02)
+    pts, valid = torch.from_numpy(p_np).to(device), torch.from_numpy(v_np).to(device)
+    vis = check(f"two walls, {HPR_GRID_N} points", pts, valid)
+    print(f"H2 hpr_grid on two walls, {HPR_GRID_N} points: {int(vis.sum())} visible, bit-equal "
+          "to the twin")
+    for name, (ep, ev) in bs.hpr_edge_sets().items():
+        ep, ev = torch.from_numpy(ep).to(device), torch.from_numpy(ev).to(device)
+        check(name, ep, ev)
+        wide = torch.zeros((ep.shape[0], 5), device=device)
+        wide[:, 1:4] = ep  # x, y, z with stride 5, 4 bytes off alignment
+        check(f"{name}, strided", wide[:, 1:4], _offset_view(ev))
+    check("one point", pts[:1], valid[:1] | True)
+    print("H2: bit-equal to the twin on: " + ", ".join(bs.hpr_edge_sets()) + " (each also "
+          "strided and unaligned), one point")
+
+    cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
+    poses = runner._camera_to_world(frames, kf_idx, None, device)
+    n_vis = []
+    for j in range(len(kf_idx)):
+        pts1, gate1 = _scene_colorize_cull(camera, cloud, poses.q[j], poses.t[j])
+        n_vis.append(int(check(f"colorize cull, keyframe {j}", pts1, gate1).sum()))
+        if j == 0:
+            first = (pts1, gate1)
+    print(f"H2 on the 8 colorize culls of {cloud.points.shape[0]} points: visible {n_vis}; "
+          f"{tally['mismatches']} mask bits differ from the twin over {tally['culls']} culls")
+
+    pts1, gate1 = first
+
+    def cull():
+        return hpr.hpr_mask_grid(pts1, gate1)
+
+    def twin():
+        return hpr.hpr_mask_grid_plain(pts1, gate1)
+
+    dev_t = {k: _device_ms(fn, device) for k, fn in (("kernel", cull), ("twin", twin),
+                                                      ("kernel again", cull))}
+    call_t = {k: _median_ms(fn, device) for k, fn in (("kernel", cull), ("twin", twin))}
+    n = pts1.shape[0]
+    g = 512
+    b_ms, by = _bound(_nbytes(pts1, gate1) + n, 2.0 * 2 * g * g * 33)
+    floor_3pass = _bound(3 * _nbytes(pts1, gate1) + n)[0]
+    prof = _kernel_profile(cull, device)
+    passes = None
+    if prof is not None:
+        print(f"[{card}] H2 device work a cull (launches, mean us): "
+              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+        assert sorted(prof) == sorted(["hpr_bounds", "hpr_scatter", "hpr_erode", "hpr_test",
+                                       "Memset"]), prof
+        assert _kernel_launches(prof) == 4 and prof["Memset"][0] == 1, prof
+        passes = {k: prof[k][1] for k in prof}
+    share = f"{b_ms / dev_t['kernel']:.2f}" if dev_t["kernel"] else "not measured"
+    print(f"[{card}] H2 at keyframe 0 ({n} points, {int(gate1.sum())} gated in): device ms: "
+          + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items())
+          + "; a call: " + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items())
+          + f"; bound {b_ms * 1e3:.2f} us ({by}: 14 B a point), kernel at {share}; the three "
+          f"passes' floor {floor_3pass * 1e3:.2f} us")
+    return [{"name": "hpr_grid", "route": "cuda", "source": f"{PKG}/csrc/hpr.cu",
+             "replaces": "pointcloudprocessor_tpu/ops/hpr.py:150", **tally,
+             "ms": dev_t["kernel"], "ms_again": dev_t["kernel again"], "call_ms": call_t["kernel"],
+             "plain_ms": dev_t["twin"] or call_t["twin"], "plain_call_ms": call_t["twin"],
+             "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+             "three_pass_floor_ms": floor_3pass, "passes_us": passes,
+             "kernel_launches_a_cull": None if prof is None else _kernel_launches(prof)}]
+
+
+def phase_smooth(card, root, device="cuda"):
+    """N1 on the scene's fused colors (colorize with HPR culling at the
+    identity correction, 8 keyframes) at ``SMOOTH_RADIUS``: agreement with
+    the twin (``fusion.smooth_colors_local_plain``) within 1e-3, the
+    distribution of in-radius neighbors a wall point (asserted median 8-24)
+    and the share of overflowing buckets; times of ``knn.build``, the kernel
+    and the twin beside two bounds (unique bytes; per query). Returns the
+    kernel's record."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.io import images as img_io
+    from pointcloudprocessor_tpu_torch.ops import fusion, knn
+    from pointcloudprocessor_tpu_torch.pipeline import colorize, runner
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+    from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
+
+    cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
+    hcfg = _config(root, cfg_mod.NIDConfig(), hpr=True)
+    images = torch.from_numpy(np.stack([img_io.load_rgb(frames[i].image_path) for i in kf_idx]))
+    poses = runner._camera_to_world(frames, kf_idx, None, device)
+    fused = colorize.fuse(camera, cloud.points, cloud.valid, images, poses, se3.identity(device),
+                          **runner._culling_kwargs(hcfg))
+    pts, rgb, colored = cloud.points, fused.rgb, fused.colored
+    n, cap, k_max = pts.shape[0], 32, 32
+    table = max(2 * n, 1024)
+    grid = knn.build(pts, colored, SMOOTH_RADIUS, table, cap)
+    got = knn.smooth_local_cuda(grid, pts, rgb, colored, SMOOTH_RADIUS, k_max) \
+        if device == "cuda" else fusion.smooth_colors_local(pts, rgb, colored, SMOOTH_RADIUS)
+    want = fusion.smooth_colors_local_plain(pts, rgb, colored, SMOOTH_RADIUS)
+    err = float((got - want).abs().max())
+    whole = fusion.smooth_colors_local(pts, rgb, colored, SMOOTH_RADIUS)
+    moved = float((got - rgb).abs().max())
+    print(f"N1 smooth_local on {n} points ({int(colored.sum())} colored), radius "
+          f"{SMOOTH_RADIUS} m: max|kernel - twin| = {err:.3e} (tol 1e-3); colors moved up to "
+          f"{moved:.1f}; smooth_colors_local == the kernel on the same grid: "
+          f"{bool(torch.equal(whole, got))}")
+    assert err <= 1e-3, "N1 disagrees with its twin"
+    assert torch.equal(whole, got)
+
+    # In-radius neighbors a colored point (duplicates counted, before the
+    # cap of 32), and the buckets' occupancy.
+    q_idx = torch.nonzero(colored, as_tuple=True)[0]
+    r2 = torch.tensor(SMOOTH_RADIUS * SMOOTH_RADIUS, dtype=torch.float32, device=device)
+    counts, occupied = [], []
+    for s in range(0, q_idx.numel(), 65536):
+        q = pts[q_idx[s: s + 65536]]
+        cand, cx, cy, cz = knn._candidates_with_points(grid, pts, q)
+        d2 = (cx - q[:, 0:1]) ** 2 + (cy - q[:, 1:2]) ** 2 + (cz - q[:, 2:3]) ** 2
+        counts.append(((cand >= 0) & (d2 <= r2)).sum(1))
+        hashes = knn._neighbor_hashes(grid, q).long()
+        occupied.append(torch.clamp(grid.counts[hashes], max=cap).sum(1))
+    counts, occupied = torch.cat(counts), torch.cat(occupied)
+    on_wall = (pts[q_idx, 2] - bs.WALL_Z).abs() < 1e-3
+    qs = torch.tensor([0.1, 0.5, 0.9], device=device)
+    wall_q = torch.quantile(counts[on_wall].float(), qs).tolist()
+    occ_q = torch.quantile(counts[~on_wall].float(), qs).tolist() if (~on_wall).any() else None
+    nonempty = int((grid.counts > 0).sum())
+    over = int((grid.counts > cap).sum())
+    dropped = int(torch.clamp(grid.counts - cap, min=0).sum())
+    print(f"N1 neighbors within {SMOOTH_RADIUS} m a colored point (p10 / median / p90): wall "
+          f"{wall_q}, occluder {occ_q}; more than {k_max}: "
+          f"{float((counts > k_max).float().mean()):.4f} of queries; buckets: {nonempty} occupied, {over} over capacity {cap} "
+          f"({over / max(nonempty, 1):.2e}), {dropped} points dropped; candidates a query "
+          f"{float(occupied.float().mean()):.1f}")
+    assert 8 <= wall_q[1] <= 24, wall_q
+
+    def build():
+        return knn.build(pts, colored, SMOOTH_RADIUS, table, cap)
+
+    def kernel():
+        return knn.smooth_local_cuda(grid, pts, rgb, colored, SMOOTH_RADIUS, k_max)
+
+    def twin():
+        return fusion.smooth_colors_local_plain(pts, rgb, colored, SMOOTH_RADIUS)
+
+    def whole_call():
+        return fusion.smooth_colors_local(pts, rgb, colored, SMOOTH_RADIUS)
+
+    fns = {"build": build, "twin": twin, "smooth_colors_local": whole_call}
+    if device == "cuda":
+        fns = {"kernel": kernel, **fns, "kernel again": kernel}
+    dev_t = {k: _device_ms(fn, device) for k, fn in fns.items()}
+    call_t = {k: _median_ms(fn, device) for k, fn in fns.items() if k != "kernel again"}
+    n_col = int(colored.sum())
+    unique = (4 * table + 4 * int(torch.clamp(grid.counts, max=cap).sum()) + 12 * n + 12 * n + n
+              + 12 * n)
+    per_query = 27 * 4 * n_col + 16 * int(occupied.sum()) + (n - n_col) * 13 + 12 * n
+    b_ms, by = _bound(unique)
+    pq_ms = _bound(per_query)[0]
+    t_k = dev_t.get("kernel")
+    share = f"{b_ms / t_k:.3f}" if t_k else "not measured"
+    print(f"[{card}] N1 device ms: " + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items())
+          + "; a call: " + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items())
+          + f"; bounds: unique bytes {b_ms * 1e3:.1f} us ({unique} B), per query "
+          f"{pq_ms * 1e3:.1f} us ({per_query} B); kernel at {share} of the first")
+    prof = _kernel_profile(whole_call, device, reps=5)
+    if prof is not None:
+        print(f"[{card}] smooth_colors_local device work a call ({_kernel_launches(prof)} "
+              "kernel launches; launches, mean us): "
+              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+        assert prof["smooth_local_kernel"][0] == 1, prof
+    return [{"name": "smooth_local", "route": "cuda", "source": f"{PKG}/csrc/smooth.cu",
+             "replaces": "pointcloudprocessor_tpu/ops/fusion.py:196", "max_abs_err": err,
+             "ms": t_k, "ms_again": dev_t.get("kernel again"), "call_ms": call_t.get("kernel"),
+             "plain_ms": dev_t["twin"] or call_t["twin"], "plain_call_ms": call_t["twin"],
+             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "per_query_bound_ms": pq_ms,
+             "build_ms": dev_t["build"], "build_call_ms": call_t["build"],
+             "smooth_colors_local_call_ms": call_t["smooth_colors_local"],
+             "radius_m": SMOOTH_RADIUS, "neighbors_wall_p10_p50_p90": wall_q,
+             "neighbors_occluder_p10_p50_p90": occ_q, "buckets_over_capacity": over,
+             "buckets_occupied": nonempty}]
+
+
 def phase_tools(device="cuda"):
     """The z-buffer tools at full scale on the card (``--quick`` off it):
     each prints its JSON line; both must be exact, with kernel times."""
@@ -1228,6 +1607,12 @@ def main() -> int:
         grouped = phase_grouped(card, camera, kfs, T0)
         del kfs
         kernels += phase_zbuffer(card, root)
+        # The HPR + smoothing path under the headline schedule.
+        hpr_launches = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                    "HPR + smoothing", hpr=True)
+        kernels += phase_hpr_dense(card, root)
+        kernels += phase_hpr_grid(card, root)
+        kernels += phase_smooth(card, root)
         # The mask path under the headline schedule.
         phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE), "mask path", masks=True)
         # The earlier path: the plain objective (2 outer x 20 inner).
@@ -1237,8 +1622,13 @@ def main() -> int:
     phase_tools()
     launches.update(tap_select=grouped["K3"]["tap_select"],
                     tap_streamed=grouped["K4"]["tap_streamed"])
+    hpr_path = ("hpr_support", "hpr_grid", "smooth_local")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # The HPR + smoothing path's kernels count on that path's run; each
+        # kernel also carries its launches on the other main path.
+        k["launches"] = (hpr_launches if k["name"] in hpr_path else launches)[k["name"]]
+        k["launches_zbuffer_path" if k["name"] in hpr_path else "launches_hpr_path"] = (
+            launches if k["name"] in hpr_path else hpr_launches)[k["name"]]
     for k, key in zip(kernels[:2], ("fwd", "bwd")):
         k["launches_by_n"] = launches["nid_hist_by_n"][k["name"]]
         for shape, res in scene.items():

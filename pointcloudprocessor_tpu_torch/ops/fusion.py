@@ -4,7 +4,10 @@ Port of `pointcloudprocessor_tpu/ops/fusion.py`: the reference's
 observation scoring + top-5 blend (`PointCloudProcessor.cpp:557-629`,
 `include/PointCloudProcessor.hpp:205-236`). Each point carries a fixed
 top-K register (scores + 0xRRGGBB-packed int32 colors, slot axis first)
-updated with a replace-min as keyframes stream through.
+updated with a replace-min as keyframes stream through. Also the
+observation scores, nearest-pixel sampling and the post-fusion local color
+smoothing (`smoothColorsWithLocalRegion`), whose search and blend run as
+the N1 kernel on the card (`ops/knn.smooth_local_cuda`).
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils.numeric import to_int32
 
 
 class TopKColors(NamedTuple):
@@ -91,6 +96,43 @@ def blend_topk(state: TopKColors) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack([r, g, b], dim=-1), colored
 
 
+def orientation_score(
+    points_camera: torch.Tensor,
+    camera_position_world: torch.Tensor | None = None,
+    score_floor: float = 0.2,
+    reference_compat: bool = False,
+) -> torch.Tensor:
+    """Viewing-angle score in [floor, 1] (`PointCloudProcessor.hpp:205-220`):
+    the cosine of the angle between the viewing ray and the optical axis,
+    mapped affinely to [floor, 1]. ``reference_compat`` subtracts the
+    world-frame camera position from the camera-frame point, as the
+    reference's arithmetic does."""
+    if reference_compat and camera_position_world is not None:
+        view = points_camera - camera_position_world
+    else:
+        view = points_camera
+    cos = view[..., 2] / torch.clamp(torch.linalg.vector_norm(view, dim=-1), min=1e-12)
+    s = (cos + 1.0) * 0.5
+    return score_floor + (1.0 - score_floor) * s
+
+
+def distance_score(points_camera: torch.Tensor, optimal_distance: float = 2.0,
+                   score_floor: float = 0.2) -> torch.Tensor:
+    """Distance-to-optimum score in [floor, 1] (`PointCloudProcessor.hpp:222-236`:
+    |d - 2| / 2, clamped)."""
+    d = torch.linalg.vector_norm(points_camera, dim=-1)
+    diff = torch.clamp(torch.abs(d - optimal_distance) / optimal_distance, max=1.0)
+    return score_floor + (1.0 - score_floor) * (1.0 - diff)
+
+
+def final_score(points_camera, camera_position_world=None, *, optimal_distance=2.0,
+                score_floor=0.2, reference_compat=False) -> torch.Tensor:
+    """(orientation + distance) / 2 (`PointCloudProcessor.cpp:588`)."""
+    o = orientation_score(points_camera, camera_position_world, score_floor, reference_compat)
+    d = distance_score(points_camera, optimal_distance, score_floor)
+    return 0.5 * (o + d)
+
+
 def final_score_xyz(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -118,6 +160,83 @@ def final_score_xyz(
     diff = torch.clamp(torch.abs(rng - optimal_distance) / optimal_distance, max=1.0)
     d = score_floor + (1.0 - score_floor) * (1.0 - diff)
     return 0.5 * (o + d)
+
+
+def gaussian_distance_score(points_camera: torch.Tensor, ideal_distance: float = 2.0,
+                            sigma: float = 1.0) -> torch.Tensor:
+    """``exp(-(d - ideal)^2 / (2 sigma^2))``, the scoring of the reference's
+    secondary colorizer (`src/vlcal/pointColorization.cpp:17-20`)."""
+    d = torch.linalg.vector_norm(points_camera, dim=-1)
+    return torch.exp(-((d - ideal_distance) ** 2) / (2.0 * sigma * sigma))
+
+
+def smooth_colors_local_plain(
+    points: torch.Tensor,
+    rgb: torch.Tensor,
+    colored: torch.Tensor,
+    radius: float,
+    max_neighbors: int = 32,
+    bucket_capacity: int = 32,
+    chunk_size: int = 65536,
+) -> torch.Tensor:
+    """The plain version of :func:`smooth_colors_local`, the JAX package's
+    form (fusion.py:196-226): the hash grid, the (N, K) radius search in
+    chunks, and the weighted blend."""
+    from . import knn
+
+    n = points.shape[0]
+    grid = knn.build(points, colored, radius, max(2 * n, 1024), bucket_capacity)
+    idx, dist, ok = knn.chunked_radius_neighbors(
+        grid, points, points, radius, max_neighbors, chunk_size=chunk_size)
+    w = torch.where(ok, 1.0 / (1.0 + dist * dist), 0.0)
+    neigh_rgb = rgb[torch.clamp(idx, min=0).long()]  # (N, K, 3)
+    total = torch.sum(w, dim=1)
+    blended = torch.sum(neigh_rgb * w[..., None], dim=1) / torch.clamp(total, min=1e-12)[:, None]
+    return torch.where((colored & (total > 0))[:, None], blended, rgb)
+
+
+def smooth_colors_local(
+    points: torch.Tensor,
+    rgb: torch.Tensor,
+    colored: torch.Tensor,
+    radius: float,
+    max_neighbors: int = 32,
+    bucket_capacity: int = 32,
+    chunk_size: int = 65536,
+) -> torch.Tensor:
+    """Inverse-distance-weighted color smoothing over spatial neighborhoods
+    (`smoothColorsWithLocalRegion`, `PointCloudProcessor.cpp:634-703`):
+    every colored point becomes the ``1 / (1 + d^2)``-weighted mean of the
+    colors of its ``max_neighbors`` nearest colored points within
+    ``radius``, itself included at full weight; other points keep their
+    color. Returns the new (N, 3) colors.
+
+    CPU tensors take :func:`smooth_colors_local_plain`; CUDA tensors build
+    the hash grid with torch ops and run the search and blend as the N1
+    kernel (``knn.smooth_local_cuda``, one launch, no (N, K) tensor; the
+    colors agree up to f32 summation order). Any other device raises."""
+    from . import knn
+
+    dev = points.device.type
+    if dev == "cpu":
+        return smooth_colors_local_plain(points, rgb, colored, radius, max_neighbors,
+                                         bucket_capacity, chunk_size)
+    if dev == "cuda":
+        n = points.shape[0]
+        grid = knn.build(points, colored, radius, max(2 * n, 1024), bucket_capacity)
+        return knn.smooth_local_cuda(grid, points.contiguous(), rgb.contiguous(), colored,
+                                     radius, max_neighbors)
+    raise NotImplementedError(f"smooth_colors_local: no kernel for device {points.device}")
+
+
+def sample_nearest(image: torch.Tensor, pixels: torch.Tensor) -> torch.Tensor:
+    """Sample an (H, W, C) or (H, W) image at pixel coords with the
+    reference's integer truncation (`PointCloudProcessor.cpp:752-753`);
+    out-of-range pixels clamp, callers mask."""
+    h, w = image.shape[0], image.shape[1]
+    u = torch.clamp(to_int32(pixels[..., 0]), 0, w - 1).long()
+    v = torch.clamp(to_int32(pixels[..., 1]), 0, h - 1).long()
+    return image[v, u]
 
 
 def hsv_adjust(rgb: torch.Tensor, saturation_scale: float = 1.0,

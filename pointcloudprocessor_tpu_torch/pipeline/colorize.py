@@ -8,8 +8,10 @@ registers. The JAX package's `lax.scan` over keyframes is a Python loop
 here; the registers (and, with masks, the best score and its label) are the
 only state carried from one keyframe to the next.
 
-Only the z-buffer culling branch is ported; HPR culling raises
-NotImplementedError in the runner (see ROADMAP.md).
+``culling_method`` selects the visibility test as the refine path's
+`CullingConfig.method` does: the reference colorizes through the same
+`ViewCulling::cull` (`PointCloudProcessor.cpp:527`), qhull HPR on its active
+path, so with "hpr" each keyframe's mask is the HPR mask (`ops/hpr.py`).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from ..core import se3
 from ..models import camera as cam
-from ..ops import fusion, zbuffer
+from ..ops import fusion, hpr, zbuffer
 from ..utils.numeric import to_int32
 
 
@@ -51,18 +53,34 @@ def observe_keyframe(
     saturation_scale: float = 1.0,
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
+    culling_method: str = "zbuffer",
+    hpr_radius: float = 90000.0,
+    hpr_tolerance: float = 0.05,
+    hpr_impl: str = "auto",
+    hpr_dense_cutoff: int = 100_000,
 ) -> KeyframeObservation:
-    """Project the map into one keyframe: cull, sample colors (and the mask
-    label), score (`PointCloudProcessor.cpp:495-591`)."""
+    """Project the map into one keyframe: cull (the z-buffer, or HPR with
+    ``culling_method="hpr"``), sample colors (and the mask label), score
+    (`PointCloudProcessor.cpp:495-591`). The HPR branch gates on the
+    unfloored pixel coordinates, as the JAX package's does
+    (colorize.py:95-109)."""
     x, y, z = se3.transform_xyz(
         T_camera_world, points_world[:, 0], points_world[:, 1], points_world[:, 2]
     )
     rng = torch.sqrt(x * x + y * y + z * z)
     u, v = cam.project_xyz(camera, x, y, z)
-    vis = zbuffer.cull_mask_uv(
-        camera, u, v, z, rng, valid,
-        downsample_factor=downsample_factor, depth_epsilon=depth_epsilon,
-    )
+    if culling_method == "hpr":
+        gate = (valid & (z > 0.0) & (u >= 0) & (u < camera.width)
+                & (v >= 0) & (v < camera.height))
+        vis = hpr.mask(torch.stack([x, y, z], dim=-1), gate, hpr_radius, hpr_tolerance,
+                       hpr_impl, hpr_dense_cutoff)
+    elif culling_method == "zbuffer":
+        vis = zbuffer.cull_mask_uv(
+            camera, u, v, z, rng, valid,
+            downsample_factor=downsample_factor, depth_epsilon=depth_epsilon,
+        )
+    else:
+        raise ValueError(f"culling.method must be 'zbuffer' or 'hpr', got {culling_method!r}")
 
     h, w = image_rgb.shape[0], image_rgb.shape[1]
     ui = torch.clamp(to_int32(u), 0, w - 1)
@@ -107,6 +125,11 @@ def keyframe_rgb_mask(
     saturation_scale: float = 1.0,
     brightness_scale: float = 1.0,
     mask_highlight_value: int = 255,
+    culling_method: str = "zbuffer",
+    hpr_radius: float = 90000.0,
+    hpr_tolerance: float = 0.05,
+    hpr_impl: str = "auto",
+    hpr_dense_cutoff: int = 100_000,
 ):
     """One keyframe's colored + mask-labelled view for the artifact dumps.
 
@@ -130,6 +153,11 @@ def keyframe_rgb_mask(
         depth_epsilon=depth_epsilon,
         saturation_scale=saturation_scale,
         brightness_scale=brightness_scale,
+        culling_method=culling_method,
+        hpr_radius=hpr_radius,
+        hpr_tolerance=hpr_tolerance,
+        hpr_impl=hpr_impl,
+        hpr_dense_cutoff=hpr_dense_cutoff,
     )
     rgb = fusion.unpack_rgb(obs.rgb_packed)
     highlight = obs.label == mask_highlight_value
@@ -163,6 +191,11 @@ def fuse(
     saturation_scale: float = 1.0,
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
+    culling_method: str = "zbuffer",
+    hpr_radius: float = 90000.0,
+    hpr_tolerance: float = 0.05,
+    hpr_impl: str = "auto",
+    hpr_dense_cutoff: int = 100_000,
 ) -> FusionResult:
     """Colorize the map from all keyframes and blend the top-K observations.
 
@@ -195,6 +228,11 @@ def fuse(
             saturation_scale=saturation_scale,
             brightness_scale=brightness_scale,
             reference_compat_orientation=reference_compat_orientation,
+            culling_method=culling_method,
+            hpr_radius=hpr_radius,
+            hpr_tolerance=hpr_tolerance,
+            hpr_impl=hpr_impl,
+            hpr_dense_cutoff=hpr_dense_cutoff,
         )
         topk = fusion.update_topk(topk, obs.score, obs.rgb_packed, obs.visible)
         if labelled:

@@ -4,16 +4,16 @@ Port of `pointcloudprocessor_tpu/pipeline/runner.py` (stage sequence of
 `PointCloudProcessor.cpp:1007-1032`), with MLS off:
 
     loadImagesAndOdometry -> loadPointCloud (crop) -> selectKeyframes
-    -> per-keyframe z-buffer cull -> [NID refine of the shared correction]
-    -> colorize + top-K fuse -> save outputs
+    -> per-keyframe cull (z-buffer or HPR) -> [NID refine of the shared
+    correction] -> colorize + top-K fuse -> [local color smoothing]
+    -> save outputs
 
 Stages hand off device tensors on the ``device`` the caller names; nothing
 falls back to another device. Branches outside this slice raise
 NotImplementedError (see ROADMAP.md): MLS, per-keyframe refinement,
-re-culling between outer iterations, the manual initial guess, HPR
-culling, local color smoothing, and the frozen-tap cache's partial refresh
-and wide window. With a mask folder, the mask path runs as the JAX
-runner's does (`runner.py:517-526, 585-649`).
+re-culling between outer iterations, the manual initial guess, and the
+frozen-tap cache's partial refresh and wide window. With a mask folder, the
+mask path runs as the JAX runner's does (`runner.py:517-526, 585-649`).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from ..core import se3
 from ..io import images as img_io
 from ..io import pcd
 from ..models import camera as cam
-from ..ops import zbuffer
+from ..ops import fusion, hpr, zbuffer
 from ..opt import nid as nid_mod
 from ..opt import refine
 from ..utils import profiling
@@ -60,8 +60,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     unported = {
         "enable_mls": cfg.enable_mls,
         "enable_manual_guess": cfg.enable_manual_guess,
-        "culling.method='hpr'": cfg.culling.method == "hpr",
-        "fusion.local_smoothing_radius>0": cfg.fusion.local_smoothing_radius > 0,
         "nid.per_keyframe": cfg.nid.per_keyframe,
         "nid.recull_every_outer_iter": cfg.nid.recull_every_outer_iter,
         "nid.frozen_partial_frac>0": cfg.nid.frozen_partial_frac > 0,
@@ -106,6 +104,31 @@ def _camera_to_world(frames, idx, T_l2c: Optional[se3.SE3], device) -> se3.SE3:
     return base if T_l2c is None else se3.compose(base, se3.inverse(T_l2c))
 
 
+def _culling_kwargs(cfg: PipelineConfig) -> dict:
+    """The culling options colorize takes (JAX `runner.py:546-553`)."""
+    c = cfg.culling
+    return dict(
+        downsample_factor=c.downsample_factor, depth_epsilon=c.depth_epsilon,
+        culling_method=c.method, hpr_radius=c.hidden_points_removal_max_z,
+        hpr_tolerance=c.hpr_tolerance, hpr_impl=c.hpr_impl, hpr_dense_cutoff=c.hpr_dense_cutoff,
+    )
+
+
+def _cull(camera, T_w2c: se3.SE3, points, valid, cfg: PipelineConfig):
+    """(points_camera, mask) of one keyframe's cull by ``cfg.culling.method``
+    (JAX `_cull_device`, `runner.py:122-132`)."""
+    c = cfg.culling
+    if c.method == "hpr":
+        return hpr.cull_world_points(
+            camera, T_w2c, points, valid, radius=c.hidden_points_removal_max_z,
+            tolerance=c.hpr_tolerance, impl=c.hpr_impl, dense_cutoff=c.hpr_dense_cutoff)
+    if c.method == "zbuffer":
+        return zbuffer.cull_world_points(
+            camera, T_w2c, points, valid, downsample_factor=c.downsample_factor,
+            depth_epsilon=c.depth_epsilon)
+    raise ValueError(f"culling.method must be 'zbuffer' or 'hpr', got {c.method!r}")
+
+
 def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = ""):
     """Cull per keyframe and assemble the padded NIDKeyframe batch
     (`viewCullingAndSaveFilteredPcds` :178-224 + the loading in
@@ -122,11 +145,7 @@ def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = 
     pts_list, int_list, val_list, bin_list = [], [], [], []
     for j, i in enumerate(kf_idx):
         T_c2w = se3.SE3(poses.q[j], poses.t[j])
-        pts_cam, mask = zbuffer.cull_world_points(
-            camera, se3.inverse(T_c2w), norm_cloud.points, norm_cloud.valid,
-            downsample_factor=cfg.culling.downsample_factor,
-            depth_epsilon=cfg.culling.depth_epsilon,
-        )
+        pts_cam, mask = _cull(camera, se3.inverse(T_c2w), norm_cloud.points, norm_cloud.valid, cfg)
         vis_idx = torch.nonzero(mask, as_tuple=True)[0]
         n_vis = vis_idx.numel()
         if n_vis > cap:
@@ -323,19 +342,26 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
             T_correction,
             mask_images=masks,
             top_k=cfg.fusion.top_k,
-            downsample_factor=cfg.culling.downsample_factor,
-            depth_epsilon=cfg.culling.depth_epsilon,
             optimal_distance=cfg.fusion.optimal_distance,
             score_floor=cfg.fusion.score_floor,
             saturation_scale=cfg.fusion.saturation_scale,
             brightness_scale=cfg.fusion.brightness_scale,
             reference_compat_orientation=cfg.fusion.reference_compat_orientation,
+            **_culling_kwargs(cfg),
         )
+
+    # 6b. Optional spatial color smoothing (smoothColorsWithLocalRegion,
+    # :634-703; JAX `runner.py:564-575`).
+    fused_rgb = fused.rgb
+    if cfg.fusion.local_smoothing_radius > 0:
+        with timer.stage("local_smoothing"):
+            fused_rgb = fusion.smooth_colors_local(
+                map_cloud.points, fused.rgb, fused.colored, cfg.fusion.local_smoothing_radius)
 
     # 7. Save outputs (saveColorizedPointCloud, :866-963).
     with timer.stage("save_output"):
         keep = fused.colored if cfg.fusion.drop_uncolored else map_cloud.valid
-        out_cloud = map_cloud.replace(rgb=fused.rgb, valid=keep)
+        out_cloud = map_cloud.replace(rgb=fused_rgb, valid=keep)
         out_path = os.path.join(cfg.output_path, "cloudInWorldWithRGB.pcd")
         pcd.write_cloud(out_path, out_cloud, include=("rgb",))
     result.colored_cloud_path = out_path
@@ -384,11 +410,10 @@ def _save_mask_outputs(cfg, camera, map_cloud, frames, kf_idx, images, masks, po
             masks[j].to(device),
             se3.SE3(poses.q[j], poses.t[j]),
             T_correction,
-            downsample_factor=cfg.culling.downsample_factor,
-            depth_epsilon=cfg.culling.depth_epsilon,
             saturation_scale=cfg.fusion.saturation_scale,
             brightness_scale=cfg.fusion.brightness_scale,
             mask_highlight_value=cfg.fusion.mask_highlight_value,
+            **_culling_kwargs(cfg),
         )
         sel = torch.nonzero(vis_k, as_tuple=True)[0]
         rgb_sel, lab_sel = rgb_k[sel].cpu().numpy(), lab_k[sel].cpu().numpy()

@@ -184,3 +184,59 @@ def cull_edge_points(width: int = WIDTH, height: int = HEIGHT, ds: int = 14, n_b
     out["valid"][: u.size] = True
     order = rs.permutation(n)
     return {k: a[order] for k, a in out.items()}
+
+
+def two_walls(n: int, seed: int = SEED, z_jitter: float = 0.0, invalid: float = 0.0):
+    """The HPR bench's two-wall scene (`bench.py:665-697`) as numpy arrays:
+    (points (n, 3) f32 in the camera frame, valid (n,) bool). Half the
+    points on a wall at z = 5 m, half on one at z = 10 m, both x in [-2, 2],
+    y in [-1.5, 1.5]: the near wall hides the far one's middle. Optional
+    uniform z jitter of +-``z_jitter`` m and a share ``invalid`` of invalid
+    points."""
+    rs = np.random.default_rng(seed)
+    n1 = n // 2
+    x = rs.uniform(-2.0, 2.0, n)
+    y = rs.uniform(-1.5, 1.5, n)
+    z = np.where(np.arange(n) < n1, 5.0, 10.0) + rs.uniform(-z_jitter, z_jitter, n)
+    valid = rs.uniform(size=n) >= invalid
+    return np.stack([x, y, z], -1).astype(np.float32), valid
+
+
+def hpr_edge_sets(seed: int = SEED, n_bulk: int = 4096) -> dict:
+    """Inputs of the HPR grid cull at its edges, {name: (points (n, 3) f32,
+    valid (n,) bool)}, each with a two-wall bulk of ``n_bulk`` points:
+    "cell edges" (the gnomonic bounds pinned to [-1, 1] so cells are 1/256
+    wide: points exactly on cell edges and the float below each, z at 0 and
+    -0 and below, the origin); "tiny z" (z at 1e-9 and the float above it,
+    a range under 1e-9); "non-finite" (NaN in x, y or z, +-inf in x or y,
+    z = +inf); "NaN bearing" (x = z = +inf: x / z is NaN, so the bounds
+    are); "all invalid"; "single valid"."""
+    f32 = np.float32
+    pts, valid = two_walls(n_bulk, seed, z_jitter=0.3, invalid=0.02)
+    rs = np.random.default_rng(seed + 1)
+
+    def with_bulk(extra):
+        extra = np.asarray(extra, f32).reshape(-1, 3)
+        p = np.concatenate([pts, extra])
+        v = np.concatenate([valid, np.ones(len(extra), bool)])
+        order = rs.permutation(len(p))
+        return p[order], v[order]
+
+    # The bounds: points at x / z = -1 and 1 (and y / z likewise) pin them.
+    pins = [[-1, -1, 1], [1, 1, 1], [-5, -5, 5], [10, 10, 10]]
+    k = np.arange(-249, 257, 7, dtype=f32) / f32(256)  # inside [-1, 1], below included
+    below = np.nextafter(k, f32(-2))
+    on_edges = [[a, b, 1.0] for a in np.concatenate([k, below]) for b in (k[3], below[5], 0.0)]
+    behind = [[0.5, 0.5, 0.0], [0.5, 0.5, -0.0], [0.3, -0.2, -2.0], [0.0, 0.0, 0.0]]
+    sets = {"cell edges": with_bulk(pins + on_edges + behind)}
+    sets["tiny z"] = with_bulk([[0.5, 0.5, 1e-9], [0.5, 0.5, np.nextafter(f32(1e-9), f32(1))],
+                                [1e-10, 0.0, 1e-10]])
+    sets["non-finite"] = with_bulk([[np.nan, 0, 5], [0, np.nan, 5], [0, 0, np.nan],
+                                    [np.inf, 0, 5], [0, -np.inf, 5], [0.1, 0.2, np.inf],
+                                    [-np.inf, 0, 7]])
+    sets["NaN bearing"] = with_bulk([[np.inf, 0.0, np.inf]])
+    sets["all invalid"] = (pts, np.zeros(len(pts), bool))
+    one = np.zeros(len(pts), bool)
+    one[len(pts) // 3] = True
+    sets["single valid"] = (pts, one)
+    return sets

@@ -1,5 +1,5 @@
-"""PyTorch port: config tree, import isolation, CLI, unported branches and
-the kernel build's failure mode."""
+"""PyTorch port: config tree, import isolation, CLI, unported and newly
+ported branches and the kernel build's failure mode."""
 
 import dataclasses
 import json
@@ -53,6 +53,10 @@ def test_port_imports_no_jax():
         "import pointcloudprocessor_tpu_torch.pipeline.runner\n"
         "import pointcloudprocessor_tpu_torch.cli\n"
         "import pointcloudprocessor_tpu_torch.utils.interop\n"
+        "import pointcloudprocessor_tpu_torch.ops.hpr\n"
+        "import pointcloudprocessor_tpu_torch.ops.knn\n"
+        "import pointcloudprocessor_tpu_torch.ops.voxel\n"
+        "import pointcloudprocessor_tpu_torch.tools.bench_scene\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pointcloudprocessor_tpu'\n"
         "       or m.startswith('pointcloudprocessor_tpu.')]\n"
@@ -86,8 +90,6 @@ def test_cli_device_defaults_to_cuda():
     [
         ("enable_mls", True),
         ("enable_manual_guess", True),
-        ("culling.method", "hpr"),
-        ("fusion.local_smoothing_radius", 0.05),
         ("nid.per_keyframe", True),
         ("nid.recull_every_outer_iter", True),
         ("nid.frozen_partial_frac", 0.25),
@@ -108,6 +110,17 @@ def test_unported_branches_raise(path, value):
 
 def test_default_config_is_supported():
     runner.check_supported(tcfg.PipelineConfig())
+
+
+@pytest.mark.parametrize("impl", ["auto", "grid", "dense"])
+def test_hpr_and_local_smoothing_are_supported(impl):
+    """HPR culling and local color smoothing run in the port
+    (tests/test_torch_hpr.py, tests/test_torch_hpr_pipeline.py)."""
+    cfg = tcfg.PipelineConfig()
+    cfg.culling.method = "hpr"
+    cfg.culling.hpr_impl = impl
+    cfg.fusion.local_smoothing_radius = 0.05
+    runner.check_supported(cfg)
 
 
 def test_mask_path_is_supported():
