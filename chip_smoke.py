@@ -8,11 +8,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for matmuls and cuDNN.
-2. Build: compiles the five kernel libraries (csrc/nid_hist.cu: K1/K2,
+2. Build: compiles the seven kernel libraries (csrc/nid_hist.cu: K1/K2,
    csrc/tap_gather.cu: K3/K4, csrc/zbuffer.cu: K5 zmin and zbuffer_visible,
    csrc/hpr.cu: H1 hpr_support and H2 hpr_grid, csrc/smooth.cu: N1
-   smooth_local) with nvcc for sm_90a, one nvcc each, started together,
-   from the sources in this checkout.
+   smooth_local, csrc/mls.cu: M1 mls_moments, csrc/sor.cu: S1 knn_select)
+   with nvcc for sm_90a, one nvcc each, started together, from the sources
+   in this checkout.
 3. K1/K2 against their plain torch twins on the random set at the main
    path's fine shape (K=8 keyframes x N=262,144 points, uniform nibbles and
    point bins, ~30% gated out, s uniform in [-1.5, 2.5], inputs from a
@@ -101,20 +102,48 @@ Phases, in order; any failure raises and the script exits non-zero:
    dumps) and 24 launches each of zmin and zbuffer_visible (+8 dumps).
 13. The earlier path: ``runner.process`` under the plain objective (2 outer
    x 20 inner), as in phase 4 otherwise.
-14. Tools at full scale: ``tools/colorize_anatomy`` and
+14. The MLS path: ``runner.process`` with bench.py's e2e MLS config
+   (``bench_scene.e2e_config``: MLS on, ``upsampling="none"``) under the
+   headline schedule. Asserts as phase 4 (the texture bar outside the
+   occluder's shadow, 0.7 inside it: the SOR thins the occluder), with one
+   M1 and two S1 launches, and prints the MLS stage's split (SOR 1, the
+   fit, SOR 2, the PCD write).
+15. M1 (``phase_mls``) with the default MLSConfig on bench scene 1's map
+   under the first SOR's mask (its exactly planar wall and occluder: the
+   singular covariance) and on the MLS bench's 1M-point hardened corner
+   (``bench_scene.mls_scene``, bench.py:553-578): in-radius counts and fit
+   flags bit-equal to its twin run on the card, positions within 2e-6 m
+   and normals within 1e-5 in 1 - |cos| but for rows whose degenerate (2-3
+   point) fit overflows to a zero normal in one of the two (at most 1 in
+   100,000 rows); on the corner, device and call times of the grid build,
+   the kernel, the whole pass (points/s) and the twin beside the bound;
+   ``torch.profiler`` asserts one launch a pass.
+16. S1 (``phase_sor``) on bench scene 1's map and on the corner, as the
+   SOR calls it (k 60, 0.25 m, 60 a bucket): indices and flags bit-equal
+   to its twin, distances within 2 ulp (the largest error is the record's
+   ``max_abs_err``), inlier-mask differences (each within 4 ulp of the
+   threshold); device and call times, bound, twin.
+17. Off the bench's shapes (``phase_mls_edges``): M1 and S1 against their
+   twins on a 20,000-point corner with NaN and infinite points, 1% invalid
+   and 64 points a bucket (S1 at K = 60 and K = 1); ``smooth_cloud`` with
+   each upsampling method on a flat patch, with one more S1 launch for the
+   VGD's nearest-source search.
+18. Tools at full scale: ``tools/colorize_anatomy`` and
    ``tools/zbuffer_probe``, each printing its JSON line; both must report
    non-null kernel times and exact masks / buffers.
 
 The launch counts are set to 0 just before each path and read just after;
 a kernel's ``launches`` are those of the headline run, H1/H2/N1's those of
-the HPR + smoothing run (each also carries the other path's count).
+the HPR + smoothing run, M1/S1's those of the MLS run (each also carries
+the other paths' counts as ``launches_<path>``).
 The line before the last is a JSON object describing each kernel: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (a sleep kernel queued
 ahead of the start event hides the host's enqueue; where a twin's host side
 outlasts it, as the histogram twins' does, ``plain_ms`` is its call time),
 ``call_ms`` the time a call as its caller pays it, host included, and
-``bound_ms`` the least time the card could take (bytes over 3.35 TB/s or
-f32 operations over 67 TFLOP/s, whichever is larger). K1/K2 also carry
+``bound_ms`` the least time the card could take (bytes over 3.35 TB/s,
+f32 operations over 67 TFLOP/s or 32-bit integer ones over 16.7 TOP/s,
+whichever is largest). K1/K2 also carry
 their launches by shape and their device / call / host times and bounds on
 the scene's inputs at both shapes (``scene_fine_*``, ``scene_coarse_*``).
 K5/Z1 carry their pass's device time as ``ms`` and its twin's (the gate,
@@ -161,6 +190,10 @@ PROBE_N, PROBE_CELLS = 999_424, 293 * 215
 # The H100's published peaks (NVIDIA's data sheet, SXM part, at 700 W):
 # device-memory bytes/s and f32 operations/s outside the tensor cores.
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+# Its 32-bit integer rate, which the data sheet does not give: 64 INT32
+# lanes an SM (NVIDIA's H100 architecture paper) x 132 SMs x the 1.98 GHz
+# clock behind F32_OPS_S (128 f32 lanes x 132 x 1.98e9 x 2 for an FMA).
+INT32_OPS_S = 64 * 132 * 1.98e9
 # f32 operations a point of K1 / K2, counted from csrc/nid_hist.cu: two
 # cubic B-spline weight sets (~20 each), then per tap a weight product and
 # an add (K1: 16 x 3), or both derivative products and adds (K2: 16 x 6,
@@ -187,13 +220,13 @@ def phase_env():
 
 
 def phase_build():
-    """The five kernel libraries, one nvcc each, started together."""
+    """The seven kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pointcloudprocessor_tpu_torch.kernels import build as kbuild
 
     t0 = time.perf_counter()
-    names = ("nid_hist", "tap_gather", "zbuffer", "hpr", "smooth")
+    names = ("nid_hist", "tap_gather", "zbuffer", "hpr", "smooth", "mls", "sor")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(kbuild.build, names))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} libraries in parallel")
@@ -206,10 +239,12 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.3f}"
 
 
-def _bound(nbytes, ops=0.0):
-    """(bound_ms, bound_by): the least time the card could take, the larger
-    of ``nbytes`` over its memory rate and ``ops`` over its f32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+def _bound(nbytes, ops=0.0, int_ops=0.0):
+    """(bound_ms, bound_by): the least time the card could take, the largest
+    of ``nbytes`` over its memory rate, ``ops`` over its f32 rate and
+    ``int_ops`` over its 32-bit integer rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = max(ops / F32_OPS_S, int_ops / INT32_OPS_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -240,17 +275,27 @@ def _kernel_profile(fn, device="cuda", reps=20):
         return None
     fn()
     torch.cuda.synchronize()
-    # A warm-up step first: device work queued just as tracing starts can be
-    # lost, so only the second step's events are kept.
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    for _ in range(3):  # the profiler now and then loses a window's device events
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=sched) as prof:
-            for _ in range(2):
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # The profiler now and then loses some of a window's device events, and
+    # once lost all of them in three scheduled windows running: a window
+    # counts only if every name ran a whole number of times a call. First
+    # with a warm-up step (device work queued just as tracing starts can be
+    # lost, so only the second step's events are kept), then without a
+    # schedule.
+    for scheduled in (True, True, True, False, False, False):
+        if scheduled:
+            sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+            with profile(activities=acts, schedule=sched) as prof:
+                for _ in range(2):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+        else:
+            with profile(activities=acts) as prof:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-                prof.step()
         out = {}
         for e in prof.events():
             # The step's own marker is no device work of fn.
@@ -264,6 +309,7 @@ def _kernel_profile(fn, device="cuda", reps=20):
                 rec[1] += e.time_range.elapsed_us()
         if out and all(n % reps == 0 for n, _ in out.values()):
             break
+        time.sleep(0.5)
     else:
         raise RuntimeError(f"torch.profiler saw no whole window of device work: {out}")
     return {name: [n // reps, us / n] for name, (n, us) in out.items()}
@@ -593,36 +639,18 @@ def write_scene(root, device="cuda"):
     return T0
 
 
-def _config(root, nid, masks=False, hpr=False):
+def _config(root, nid, masks=False, hpr=False, mls=False):
     """The pipeline config of the smoke scene (bench.py's e2e config,
-    `bench.py:768-806`, MLS off) with the given NIDConfig, with the
-    scene's mask folder if ``masks``, and with HPR culling (``hpr_impl``
-    "auto": the grid at 1M points) and local color smoothing at
-    ``SMOOTH_RADIUS`` if ``hpr``."""
+    `bench.py:766-806`, ``bench_scene.e2e_config``) with the given
+    NIDConfig, with the scene's mask folder if ``masks``, with HPR culling
+    (``hpr_impl`` "auto": the grid at 1M points) and local color smoothing
+    at ``SMOOTH_RADIUS`` if ``hpr``, with the MLS stage
+    (``upsampling="none"``) if ``mls``."""
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
-    from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
 
-    f_px = bs.focal(WIDTH)
-    cfg = cfg_mod.PipelineConfig(
-        point_cloud_path=os.path.join(root, "map.pcd"),
-        odometry_path=os.path.join(root, "vo_interpolated_odom.txt"),
-        images_folder=os.path.join(root, "images"),
-        mask_image_folder=os.path.join(root, "masks") if masks else "",
-        output_path=os.path.join(root, "out"),
-        enable_mls=False,
-        enable_nid_optimize=True,
-        crop_padding=12.0,  # keeps the z=6 wall inside the trajectory crop
-        map_capacity=N_MAP,
-        culled_capacity=N_CULL,
-        max_keyframes=K,
-        camera=cfg_mod.CameraConfig(
-            intrinsic=(f_px, f_px, WIDTH / 2.0, HEIGHT / 2.0),
-            distortion=(0.0,) * 5,
-            width=WIDTH,
-            height=HEIGHT,
-        ),
-        nid=nid,
-    )
+    cfg = bs.e2e_config(root, nid, mls, WIDTH, HEIGHT, N_MAP, N_CULL, K)
+    if masks:
+        cfg.mask_image_folder = os.path.join(root, "masks")
     if hpr:
         cfg.culling.method = "hpr"
         cfg.fusion.local_smoothing_radius = SMOOTH_RADIUS
@@ -630,14 +658,14 @@ def _config(root, nid, masks=False, hpr=False):
 
 
 def _reset_counts():
-    from pointcloudprocessor_tpu_torch.ops import hpr, knn, nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.ops import hpr, knn, mls, nid_hist, tap_gather, zbuffer
 
-    for mod in (nid_hist, tap_gather, zbuffer, hpr, knn):
+    for mod in (nid_hist, tap_gather, zbuffer, hpr, knn, mls):
         mod.reset_launch_counts()
 
 
 def _read_counts():
-    from pointcloudprocessor_tpu_torch.ops import hpr, knn, nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.ops import hpr, knn, mls, nid_hist, tap_gather, zbuffer
 
     by_n = {name: {} for name in nid_hist.launch_counts}
     for (name, n), c in sorted(nid_hist.launch_shapes.items()):
@@ -645,7 +673,7 @@ def _read_counts():
     return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
             **{f"{k}_fallbacks": v for k, v in tap_gather.fallback_counts.items()},
             **zbuffer.launch_counts, **hpr.launch_counts, **knn.launch_counts,
-            "nid_hist_by_n": by_n}
+            **mls.launch_counts, "nid_hist_by_n": by_n}
 
 
 def _pose_error(T, T0):
@@ -655,21 +683,23 @@ def _pose_error(T, T0):
     return float(dt) * 100.0, float(np.degrees(float(dr)))
 
 
-def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False):
+def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False, mls=False):
     """``runner.process`` on the smoke scene under ``nid`` (with the mask
-    folder if ``masks``; with HPR culling and local smoothing if ``hpr``),
-    the launch counts set to 0 just before it and read just after. Asserts
-    the planted error is recovered to 1 cm / 1 deg, a finite NID, colored
-    points whose colors follow the rendered texture, the mask outputs
-    (:func:`check_mask_outputs`), and on the card K1/K2 launches and one
-    launch of each cull kernel a cull (zmin and zbuffer_visible, or with
-    ``hpr`` H2 hpr_grid): K for the NID keyframes, K for colorize, K more
-    for the mask dumps; with ``hpr`` one N1 smooth_local launch."""
+    folder if ``masks``; with HPR culling and local smoothing if ``hpr``;
+    with the MLS map stage if ``mls``), the launch counts set to 0 just
+    before it and read just after. Asserts the planted error is recovered
+    to 1 cm / 1 deg, a finite NID, colored points whose colors follow the
+    rendered texture, the mask outputs (:func:`check_mask_outputs`), and on
+    the card K1/K2 launches and one launch of each cull kernel a cull (zmin
+    and zbuffer_visible, or with ``hpr`` H2 hpr_grid): K for the NID
+    keyframes, K for colorize, K more for the mask dumps; with ``hpr`` one
+    N1 smooth_local launch; with ``mls`` one M1 mls_moments and two S1
+    knn_select launches (the two SOR passes), and the MLS stage's split."""
     from pointcloudprocessor_tpu_torch.io import pcd
     from pointcloudprocessor_tpu_torch.pipeline import runner
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
-    cfg = _config(root, nid, masks, hpr)
+    cfg = _config(root, nid, masks, hpr, mls)
     shutil.rmtree(cfg.output_path, ignore_errors=True)
     _reset_counts()
     t0 = time.perf_counter()
@@ -704,6 +734,14 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         else:
             assert launches["zmin"] == launches["zbuffer_visible"] == culls, (culls, launches)
             assert launches["hpr_grid"] == launches["smooth_local"] == 0, launches
+        assert launches["mls_moments"] == (1 if mls else 0), launches
+        assert launches["knn_select"] == (2 if mls else 0), launches
+    if mls:
+        t = res.timings
+        split = {k: round(t[k], 3) for k in ("mls_sor1", "mls_fit", "mls_sor2", "mls_write")}
+        kept = pcd.read(os.path.join(cfg.output_path, "scans-crop_mls.pcd")).points.shape[0]
+        print(f"[{card}] {label}: MLS stage {t['mls']:.3f} s = {split} (s); {kept} of "
+              f"{N_MAP} points kept in scans-crop_mls.pcd")
     if masks:
         check_mask_outputs(res, cfg.output_path, label)
 
@@ -721,10 +759,25 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     assert np.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 255
     p = out.points
     on_wall = np.abs(p[:, 2] - bs.WALL_Z) < 1e-3
-    corr = float(np.corrcoef(rgb[on_wall].mean(-1),
-                             bs.field_wall(np, p[on_wall, 0], p[on_wall, 1]))[0, 1])
-    print(f"{label}: wall color/texture correlation {corr:.4f} over {int(on_wall.sum())} points")
-    assert corr > 0.8, corr
+
+    def corr_over(sel):
+        return float(np.corrcoef(rgb[sel].mean(-1), bs.field_wall(np, p[sel, 0], p[sel, 1]))[0, 1])
+
+    # The wall behind the occluder as the keyframes see it (x in [0.3, 1.5]
+    # and |y| <= 0.6 at 2.5 m, scaled by 6 / 2.5 from cameras at x in [0,
+    # 0.84], with a margin): the cull decides its colors.
+    shadow = (p[:, 0] > 0.5) & (p[:, 0] < 3.8) & (np.abs(p[:, 1]) < 1.6)
+    corr, corr_open = corr_over(on_wall), corr_over(on_wall & ~shadow)
+    print(f"{label}: wall color/texture correlation {corr:.4f} over {int(on_wall.sum())} points "
+          f"({corr_open:.4f} outside the occluder's shadow, {int((on_wall & ~shadow).sum())} "
+          "points)")
+    if mls:
+        # The SOR keeps ~62% of the map, so the occluder's 14-px z-buffer
+        # cells go empty ~5x as often and more shadowed wall points take its
+        # colors: the bar holds where the cull has no work.
+        assert corr_open > 0.8 and corr > 0.7, (corr, corr_open)
+    else:
+        assert corr > 0.8, corr
     return launches
 
 
@@ -1568,6 +1621,364 @@ def phase_smooth(card, root, device="cuda"):
              "buckets_occupied": nonempty}]
 
 
+# The MLS bench's size (bench.py:581-606, bench_mls: the hardened corner at
+# 1M points, the default MLSConfig) and the tolerances of M1 against its
+# twin: in-radius counts and fit flags bit-equal; positions and normals as
+# tests/test_torch_mls.py holds the twin to the JAX package, but for the
+# overflow knife's edge of degenerate 2-3 point neighborhoods (counted).
+MLS_N = 1_000_000
+MLS_POS_TOL, MLS_NRM_TOL = 2e-6, 1e-5
+# f32 operations of M1, counted from csrc/mls.cu: a candidate slot read
+# (3 subtractions, 3 products, 2 sums, 2 compares), an in-radius candidate
+# (the weight ~12 with the exp, pass 1 8, pass 2 ~15, pass 3: u, v, h 15,
+# powers 6, 15 moments x 3, 6 right-hand sides ~12: ~113), a point (the
+# 3x3 solves 3 x ~40, the 6x6 solve ~150, the frame and projection ~80).
+M1_OPS_SLOT, M1_OPS_IN, M1_OPS_POINT = 10, 113, 350
+# Operations of S1's function (csrc/sor.cu), not of its bit-by-bit
+# selection: f32 ones for a candidate slot read as M1's; then, at the 32-bit
+# integer rate, one compare of the 64-bit (d2, position) key (2 operations)
+# for each in-radius key of a query with more than K (the K smallest of
+# them), and k log2 k compares for the output order of the k = min(in
+# radius, K) kept.
+S1_OPS_SLOT, S1_INT_OPS_CMP = 10, 2
+
+
+def _slots_and_in_radius(grid, pts, queries, radius, exclude_self=False):
+    """(occupied candidate slots a query, in-radius candidates a query),
+    counted with torch ops in chunks, for the bounds."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import knn
+
+    cap = grid.buckets.shape[1]
+    r2 = torch.tensor(radius * radius, dtype=torch.float32, device=pts.device)
+    slots, inr = [], []
+    for s in range(0, queries.shape[0], 32768):
+        q = queries[s: s + 32768]
+        cand, cx, cy, cz = knn._candidates_with_points(grid, pts, q)
+        d2 = (cx - q[:, 0:1]) ** 2 + (cy - q[:, 1:2]) ** 2 + (cz - q[:, 2:3]) ** 2
+        hit = (cand >= 0) & (d2 <= r2)
+        if exclude_self:
+            hit &= cand != torch.arange(s, s + q.shape[0], device=pts.device)[:, None]
+        inr.append(hit.sum(1))
+        slots.append(torch.clamp(grid.counts[knn._neighbor_hashes(grid, q).long()], max=cap)
+                     .sum(1))
+    return torch.cat(slots), torch.cat(inr)
+
+
+def _mls_check(label, pts, valid, cfg, device):
+    """M1 against its twin (``mls.mls_pass_plain`` run on the same device)
+    on one cloud, as ``mls_smooth`` runs it with ``cfg``: in-radius counts
+    and fit flags bit-equal; positions within ``MLS_POS_TOL`` and normals
+    within ``MLS_NRM_TOL`` but for the rows where a degenerate fit's normal
+    overflows to 0 in one of the two (each with at most 3 neighbors, at
+    most ``_max_flips(n)`` of them). Returns (keyword arguments of the
+    pass, position error, normal error, flips)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import mls
+
+    n = pts.shape[0]
+    kw = dict(search_radius=cfg.search_radius, sqr_gauss_param=cfg.sqr_gauss_param,
+              polynomial_order=cfg.polynomial_order, bucket_capacity=cfg.bucket_capacity,
+              table_size=max(n // 2, 1024))
+    want = mls.mls_pass_plain(pts, valid, chunk_size=min(16384, 2 * n), **kw)
+    got = mls.mls_moments_cuda(pts, valid, **kw) if device == "cuda" else want
+    (pos, nrm, surf, cnt), (pos_w, nrm_w, surf_w, cnt_w) = got, want
+    assert torch.equal(cnt, cnt_w), f"M1's in-radius counts differ from its twin's on {label}"
+    assert torch.equal(surf.ok, surf_w.ok), f"M1's fit flags differ from its twin's on {label}"
+    zero, zero_w = ~(nrm != 0).any(1), ~(nrm_w != 0).any(1)
+    flip = zero != zero_w
+    keep = ~flip & valid
+    pos_err = (pos - pos_w).abs().amax(1)
+    cos = 1.0 - (nrm * nrm_w).sum(1).abs()
+    cos_keep = cos[keep & ~zero_w]
+    err = float(pos_err[keep].max()) if keep.any() else 0.0
+    nerr = float(cos_keep.max()) if cos_keep.numel() else 0.0
+    q = torch.tensor([0.5, 0.999, 0.99999], device=pts.device)
+    inr = cnt[valid].float()
+    print(f"M1 mls_moments on {label} ({n} points, {int(valid.sum())} valid, radius "
+          f"{cfg.search_radius} m, B {cfg.bucket_capacity}): counts and ok bit-equal to the "
+          f"twin; in-radius a valid point p50 / p99.9 / max {torch.quantile(inr, q[:2]).tolist()}"
+          f" / {int(inr.max())}; {int(surf.ok.sum())} ok; {int(flip.sum())} rows with the "
+          f"normal 0 in one of the two (cap {_max_flips(n)}; in-radius "
+          f"{sorted(set(cnt[flip].tolist()))}); the other valid rows: positions within "
+          f"{err:.3e} m (tol {MLS_POS_TOL}; p50 / p99.9 / p99.999 "
+          f"{torch.quantile(pos_err[keep], q).tolist()}), normals within {nerr:.3e} in "
+          f"1 - |cos| (tol {MLS_NRM_TOL})")
+    assert int(flip.sum()) <= _max_flips(n), f"{int(flip.sum())} zero-normal flips on {label}"
+    if flip.any():
+        assert int(cnt[flip].max()) <= 3, cnt[flip]
+    assert err <= MLS_POS_TOL and nerr <= MLS_NRM_TOL, f"M1 disagrees with its twin on {label}"
+    return kw, err, nerr, int(flip.sum())
+
+
+def _max_flips(n):
+    """Zero-normal flips allowed between M1 and its twin on ``n`` points:
+    2, as tests/test_torch_mls.py allows between the twin and the JAX
+    package on 20,000 points, or 1 in 100,000 rows on a larger cloud."""
+    return max(2, n // 100_000)
+
+
+def phase_mls(card, device="cuda"):
+    """M1 on bench scene 1's map (its wall and occluder exactly planar: the
+    singular covariance) under the valid mask that the first SOR gives
+    ``smooth_cloud`` there, and on the MLS bench's hardened corner
+    (``bench_scene.mls_scene``, ``MLS_N`` points), each with the default
+    MLSConfig as ``mls_smooth`` runs it and held to its twin by
+    :func:`_mls_check`. Device and call times of ``knn.build``, the kernel
+    and the whole pass (points/s) on the corner beside the bound and the
+    twin's time. Returns the kernel's record."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import knn, mls, sor
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+    from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
+
+    cfg = cfg_mod.MLSConfig()
+    pts_m, _ = bs.scene_map(N_MAP, WIDTH, HEIGHT, SEED)
+    scene = torch.from_numpy(pts_m).to(device)
+    sor1 = sor.sor_mask(scene, torch.ones(N_MAP, dtype=torch.bool, device=device),
+                        mean_k=cfg.sor_mean_k, std_mult=cfg.sor_std_dev,
+                        cell_size=max(cfg.search_radius * 4.0, 0.25),
+                        bucket_capacity=max(cfg.bucket_capacity, cfg.sor_mean_k))
+    _, err_s, nerr_s, flips_s = _mls_check("bench scene 1's map after the first SOR", scene,
+                                           sor1, cfg, device)
+    del scene, sor1
+    n = MLS_N
+    pts = torch.from_numpy(bs.mls_scene(n)).to(device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    kw, err, nerr, flips = _mls_check("the hardened corner", pts, valid, cfg, device)
+    grid = knn.build(pts, valid, cfg.search_radius, kw["table_size"], cfg.bucket_capacity)
+
+    def kernel():
+        return mls.mls_moments_cuda(pts, valid, grid=grid, **kw)
+
+    def twin():
+        return mls.mls_pass_plain(pts, valid, chunk_size=min(16384, 2 * n), **kw)
+
+    def build():
+        return knn.build(pts, valid, cfg.search_radius, kw["table_size"], cfg.bucket_capacity)
+
+    def whole():
+        return mls.mls_smooth(pts, valid, cfg)
+
+    fns = {"build": build, "twin": twin, "mls_smooth": whole}
+    if device == "cuda":
+        fns = {"kernel": kernel, **fns, "kernel again": kernel}
+    dev_t = {k: _device_ms(fn, device) for k, fn in fns.items() if k != "twin"}
+    call_t = {k: _call_ms(fn, device, reps=3 if k == "twin" else 20)
+              for k, fn in fns.items() if k != "kernel again"}
+    slots, inr = _slots_and_in_radius(grid, pts, pts, cfg.search_radius)
+    t = kw["table_size"]
+    nbytes = (4 * t + 4 * int(torch.clamp(grid.counts, max=cfg.bucket_capacity).sum())
+              + 12 * n + 101 * n)
+    ops = (M1_OPS_SLOT * int(slots.sum()) + M1_OPS_IN * int(inr.sum()) + M1_OPS_POINT * n)
+    b_ms, by = _bound(nbytes, ops)
+    t_k = dev_t.get("kernel")
+    share = f"{b_ms / t_k:.3f}" if t_k else "not measured"
+    whole_ms = call_t["mls_smooth"]
+    rate = f"{n / (whole_ms * 1e-3):.4g}" if whole_ms else "not measured"
+    print(f"[{card}] M1 device ms: " + ", ".join(f"{k} {_ms(v)}" for k, v in dev_t.items())
+          + "; a call: " + ", ".join(f"{k} {_ms(v)}" for k, v in call_t.items())
+          + f"; bound {b_ms:.3f} ms ({by}: {nbytes} B, {ops:.4g} f32 operations over "
+          f"{int(slots.sum())} slots and {int(inr.sum())} in-radius candidates), kernel at "
+          f"{share}; the whole pass (build + M1) {rate} points/s")
+    prof = _kernel_profile(whole, device, reps=3)
+    if prof is not None:
+        print(f"[{card}] mls_smooth device work a call ({_kernel_launches(prof)} kernel "
+              "launches; launches, mean us): "
+              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+        assert prof["mls_moments_kernel"][0] == 1, prof
+    return [{"name": "mls_moments", "route": "cuda", "source": f"{PKG}/csrc/mls.cu",
+             "replaces": "pointcloudprocessor_tpu/ops/mls.py:203",
+             "max_abs_err": max(err, err_s), "max_normal_err": max(nerr, nerr_s),
+             "normal_flips": flips, "scene_max_abs_err": err_s,
+             "scene_max_normal_err": nerr_s, "scene_normal_flips": flips_s, "ms": t_k,
+             "ms_again": dev_t.get("kernel again"), "call_ms": call_t.get("kernel"),
+             "plain_ms": call_t["twin"], "plain_call_ms": call_t["twin"], "library_ms": None,
+             "bound_ms": b_ms, "bound_by": by, "build_ms": dev_t["build"],
+             "build_call_ms": call_t["build"], "mls_smooth_call_ms": whole_ms,
+             "points_per_s": None if not whole_ms else n / (whole_ms * 1e-3), "n": n}]
+
+
+def _call_ms(fn, device, reps=20):
+    """Median time a call, host included (utils.profiling.median_ms)."""
+    from pointcloudprocessor_tpu_torch.utils import profiling
+
+    return profiling.median_ms(fn, device, reps=reps, warmup=1 if reps < 5 else 3)
+
+
+def _sor_check(card, label, pts, valid, device):
+    """S1 against its twin on one cloud, as the MLS stage's SOR calls it
+    (k 60, 0.7 sigma, 0.25 m cells and radius, 60 a bucket, 2n buckets):
+    indices and flags bit-equal, distances within 2 ulp, the inlier masks'
+    differences (each within 4 ulp of the threshold). Returns the grid, the
+    count of those differences, the largest absolute distance error and its
+    gap in ulp."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import knn, sor
+
+    n = pts.shape[0]
+    grid = knn.build(pts, valid, 0.25, 2 * n, 60)
+    got = (knn.knn_select_cuda(grid, pts, pts, 0.25, 60, True) if device == "cuda"
+           else knn.chunked_radius_neighbors(grid, pts, pts, 0.25, 60, exclude_self=True))
+    want = knn.chunked_radius_neighbors(grid, pts, pts, 0.25, 60, exclude_self=True)
+    (idx, dist, ok), (idx_w, dist_w, ok_w) = got, want
+    same_idx = torch.equal(idx, idx_w) and torch.equal(ok, ok_w)
+    ulps, dist_err = -1, float("inf")
+    if same_idx:
+        ulps = int((dist[ok].view(torch.int32) - dist_w[ok].view(torch.int32)).abs().max()) \
+            if ok.any() else 0
+        dist_err = float((dist[ok] - dist_w[ok]).abs().max()) if ok.any() else 0.0
+
+    def mask(d, o):
+        cnt = o.sum(1)
+        mean_d = torch.where(cnt > 0, torch.where(o, d, 0.0).sum(1) / torch.clamp(cnt, min=1),
+                             torch.inf)
+        return (*sor.sor_threshold(mean_d, valid, 0.7), mean_d)
+
+    m, th, mean_d = mask(dist, ok)
+    m_w, th_w, _ = mask(dist_w, ok_w)
+    differ = m != m_w
+    ulp = float(np.spacing(np.float32(float(th_w))))
+    near = (mean_d - th_w).abs() <= 4 * ulp
+    print(f"S1 knn_select on {label} ({n} points): indices and flags bit-equal to the twin: "
+          f"{same_idx}; distances within {ulps} ulp ({dist_err:.3e} m); neighbors a point p50 "
+          f"{float(ok.sum(1).float().median())}; inliers {int(m.sum())} (twin "
+          f"{int(m_w.sum())}), {int(differ.sum())} differ, all within 4 ulp of the threshold "
+          f"{float(th_w)}: {bool(near[differ].all())}")
+    assert same_idx and 0 <= ulps <= 2, "S1 disagrees with its twin"
+    assert bool(near[differ].all()), "S1's inlier mask differs away from the threshold"
+    return grid, int(differ.sum()), dist_err, ulps
+
+
+def phase_sor(card, device="cuda"):
+    """S1 on the MLS bench's hardened corner (``MLS_N`` points) and on bench
+    scene 1's map (:func:`_sor_check` on each); device and call times of
+    ``knn.build``, the kernel and the twin on the corner, beside the bound.
+    Returns the kernel's record."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import knn
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+
+    pts_m, _ = bs.scene_map(N_MAP, WIDTH, HEIGHT, SEED)
+    scene = torch.from_numpy(pts_m).to(device)
+    _, differ_scene, err_scene, ulps_scene = _sor_check(card, "bench scene 1's map", scene,
+                                 torch.ones(N_MAP, dtype=torch.bool, device=device), device)
+    n = MLS_N
+    pts = torch.from_numpy(bs.mls_scene(n)).to(device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    grid, differ, err, ulps = _sor_check(card, "the hardened corner", pts, valid, device)
+
+    def kernel():
+        return knn.knn_select_cuda(grid, pts, pts, 0.25, 60, True)
+
+    def twin():
+        return knn.chunked_radius_neighbors(grid, pts, pts, 0.25, 60, exclude_self=True)
+
+    def build():
+        return knn.build(pts, valid, 0.25, 2 * n, 60)
+
+    fns = {"build": build, "twin": twin}
+    if device == "cuda":
+        fns = {"kernel": kernel, **fns, "kernel again": kernel}
+    dev_t = {k: _device_ms(fn, device) for k, fn in fns.items() if k != "twin"}
+    call_t = {k: _call_ms(fn, device, reps=3 if k == "twin" else 20)
+              for k, fn in fns.items() if k != "kernel again"}
+    slots, inr = _slots_and_in_radius(grid, pts, pts, 0.25, exclude_self=True)
+    over = inr > 60
+    nbytes = (4 * 2 * n + 4 * int(torch.clamp(grid.counts, max=60).sum()) + 12 * n + 12 * n
+              + 9 * 60 * n)
+    ops = S1_OPS_SLOT * int(slots.sum())
+    kept = torch.clamp(inr, max=60).double()
+    compares = int(inr[over].sum()) + float((kept * torch.log2(kept.clamp(min=1))).sum())
+    int_ops = S1_INT_OPS_CMP * compares
+    b_ms, by = _bound(nbytes, ops, int_ops)
+    t_k = dev_t.get("kernel")
+    share = f"{b_ms / t_k:.3f}" if t_k else "not measured"
+    print(f"[{card}] S1 device ms: " + ", ".join(f"{k} {_ms(v)}" for k, v in dev_t.items())
+          + "; a call: " + ", ".join(f"{k} {_ms(v)}" for k, v in call_t.items())
+          + f"; bound {b_ms:.3f} ms ({by}: {nbytes} B, {ops:.4g} f32 and {int_ops:.4g} "
+          f"integer operations ({compares:.4g} 64-bit compares); "
+          f"{int(slots.sum())} slots, {int(inr.sum())} in radius, {int(over.sum())} queries "
+          f"over 60), kernel at {share}")
+    return [{"name": "knn_select", "route": "cuda", "source": f"{PKG}/csrc/sor.cu",
+             "replaces": "pointcloudprocessor_tpu/ops/knn.py:294",
+             "max_abs_err": max(err, err_scene), "max_dist_ulp": max(ulps, ulps_scene),
+             "mask_differences": differ, "mask_differences_scene": differ_scene,
+             "ms": t_k, "ms_again": dev_t.get("kernel again"), "call_ms": call_t.get("kernel"),
+             "plain_ms": call_t["twin"], "plain_call_ms": call_t["twin"], "library_ms": None,
+             "bound_ms": b_ms, "bound_by": by, "build_ms": dev_t["build"],
+             "build_call_ms": call_t["build"], "n": n}]
+
+
+def phase_mls_edges(card, device="cuda"):
+    """M1 and S1 off the bench's shapes: a 20,000-point corner with 1%
+    invalid points, NaN and infinite coordinates and 64 points a bucket
+    (M1 against its twin as in :func:`phase_mls`, NaN rows equal; S1 bit-equal
+    to its twin on NaN queries, K = 1 and K = 60); then ``smooth_cloud``
+    with each upsampling method on a flat 4,000-point patch, asserting the
+    JAX tests' properties (more points out than in, all on the plane) and,
+    on the card, one S1 launch for the VGD's nearest search besides the two
+    SORs."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import cloud as cl
+    from pointcloudprocessor_tpu_torch.ops import knn, mls
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+    from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
+
+    p = bs.mls_scene(20_000, seed=3)
+    p[:3] = np.nan
+    p[3, 0], p[4, 2] = np.inf, -np.inf
+    pts = torch.from_numpy(p).to(device)
+    valid = torch.from_numpy(np.arange(len(p)) % 100 != 7).to(device)
+    kw = dict(search_radius=0.03, sqr_gauss_param=0.0009, polynomial_order=2,
+              bucket_capacity=64, table_size=10_000)
+    want = mls.mls_pass_plain(pts, valid, chunk_size=4096, **kw)
+    got = mls.mls_moments_cuda(pts, valid, **kw) if device == "cuda" else want
+    assert torch.equal(got[3], want[3]) and torch.equal(got[2].ok, want[2].ok)
+    flip = (~(got[1] != 0).any(1)) != (~(want[1] != 0).any(1))
+    finite = torch.isfinite(pts).all(1)
+    err = float((got[0] - want[0])[~flip & finite].abs().max())
+    nan_rows = torch.equal(got[0][~finite].isnan(), want[0][~finite].isnan())
+    print(f"M1 edges (NaN / inf points, 1% invalid, B 64): counts and ok bit-equal; positions "
+          f"within {err:.3e} m; {int(flip.sum())} zero-normal flips; non-finite rows alike: "
+          f"{nan_rows}")
+    assert err <= MLS_POS_TOL and nan_rows and (not flip.any() or int(got[3][flip].max()) <= 3)
+    grid = knn.build(pts, valid, 0.25, 40_000, 60)
+    for k, excl, q in ((60, True, pts), (1, False, pts[:5000] + 0.01)):
+        a = (knn.knn_select_cuda(grid, pts, q.contiguous(), 0.25, k, excl) if device == "cuda"
+             else knn.chunked_radius_neighbors(grid, pts, q, 0.25, k, exclude_self=excl))
+        b = knn.chunked_radius_neighbors(grid, pts, q, 0.25, k, exclude_self=excl)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"S1 differs at K = {k}"
+    print("S1 edges: bit-equal to the twin at K = 60 (NaN / inf points) and K = 1")
+
+    rng = np.random.default_rng(6)
+    flat = np.zeros((4000, 3), np.float32)
+    flat[:, :2] = rng.uniform(-0.5, 0.5, size=(4000, 2))
+    for method in ("sample_local_plane", "random_uniform_density", "voxel_grid_dilation"):
+        cfg = cfg_mod.MLSConfig(search_radius=0.1, sqr_gauss_param=0.01, upsampling=method,
+                                slp_upsampling_radius=0.02, slp_upsampling_stepsize=0.01,
+                                rud_point_density=4, vgd_voxel_size=0.02, vgd_iterations=1,
+                                sor_mean_k=10, sor_std_dev=3.0, bucket_capacity=64)
+        _reset_counts()
+        out = mls.smooth_cloud(cl.make(flat, device), cfg)
+        counts = _read_counts()
+        v = out.valid
+        z = float(out.points[v, 2].abs().max())
+        print(f"smooth_cloud with {method} on the {device}: {int(v.sum())} of "
+              f"{out.points.shape[0]} points valid, |z| <= {z:.2e}; M1 {counts['mls_moments']}, "
+              f"S1 {counts['knn_select']} launches")
+        assert int(v.sum()) > 4000 and z < 0.02
+        if device == "cuda":
+            assert counts["mls_moments"] == 1 and counts["knn_select"] == (
+                3 if method == "voxel_grid_dilation" else 2), counts
+
+
 def phase_tools(device="cuda"):
     """The z-buffer tools at full scale on the card (``--quick`` off it):
     each prints its JSON line; both must be exact, with kernel times."""
@@ -1617,18 +2028,29 @@ def main() -> int:
         phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE), "mask path", masks=True)
         # The earlier path: the plain objective (2 outer x 20 inner).
         phase_runner(card, root, T0, cfg_mod.NIDConfig(**PLAIN), "plain schedule")
+        # The MLS path: bench.py's e2e config with MLS on, headline schedule.
+        mls_launches = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE), "MLS path",
+                                    mls=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    kernels += phase_mls(card)
+    kernels += phase_sor(card)
+    phase_mls_edges(card)
     phase_tools()
     launches.update(tap_select=grouped["K3"]["tap_select"],
                     tap_streamed=grouped["K4"]["tap_streamed"])
-    hpr_path = ("hpr_support", "hpr_grid", "smooth_local")
+    # Each kernel's launches are those of the path it was ported for (the
+    # HPR + smoothing path's kernels, the MLS path's, the z-buffer headline
+    # path's for the rest); each record also carries the other paths'.
+    paths = {"zbuffer_path": launches, "hpr_path": hpr_launches, "mls_path": mls_launches}
+    own = {"hpr_support": "hpr_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
+           "mls_moments": "mls_path", "knn_select": "mls_path"}
     for k in kernels:
-        # The HPR + smoothing path's kernels count on that path's run; each
-        # kernel also carries its launches on the other main path.
-        k["launches"] = (hpr_launches if k["name"] in hpr_path else launches)[k["name"]]
-        k["launches_zbuffer_path" if k["name"] in hpr_path else "launches_hpr_path"] = (
-            launches if k["name"] in hpr_path else hpr_launches)[k["name"]]
+        mine = own.get(k["name"], "zbuffer_path")
+        k["launches"] = paths[mine][k["name"]]
+        for path, counts in paths.items():
+            if path != mine:
+                k[f"launches_{path}"] = counts.get(k["name"], 0)
     for k, key in zip(kernels[:2], ("fwd", "bwd")):
         k["launches_by_n"] = launches["nid_hist_by_n"][k["name"]]
         for shape, res in scene.items():

@@ -15,10 +15,19 @@ runs the queries of :func:`chunked_radius_neighbors` under ``lax.map``,
 where XLA divides a query by the cell size as a product with its reciprocal
 (its ``build`` divides exactly); the port divides exactly everywhere, so a
 query whose coordinate is within an ulp of a cell face can see its 27 cells
-one cell over (ROADMAP.md §3). :func:`smooth_local_cuda` is the N1 kernel
-(`csrc/smooth.cu`): the radius search and the color blend of
-``fusion.smooth_colors_local`` in one launch. ``launch_counts`` counts its
-launches.
+one cell over (ROADMAP.md §3). ``build(..., store_points=True)`` also lays
+the points out in the JAX package's (T, 3B) coordinate planes
+(``bucket_points``), from which :func:`candidate_points` and the
+run-deduplicated :func:`candidate_points_dedup` fetch the MLS fit's
+candidates.
+
+Two CUDA kernels live here: :func:`smooth_local_cuda` is N1
+(`csrc/smooth.cu`), the radius search and the color blend of
+``fusion.smooth_colors_local`` in one launch; :func:`knn_select_cuda` is S1
+(`csrc/sor.cu`), the K-nearest radius search of
+:func:`chunked_radius_neighbors` in one launch, which :func:`radius_search`
+takes on CUDA tensors (the SOR filter, the VGD upsampler's nearest source).
+``launch_counts`` counts their launches.
 """
 
 from __future__ import annotations
@@ -39,12 +48,16 @@ class HashGrid(NamedTuple):
     counts: (T,) int32 occupancy (may exceed B; slots past B dropped).
     cell_size: the cell edge used for bucketing.
     table_size: T.
+    bucket_points: optional (T, 3B) point coordinates in bucket layout, each
+        row [x_0..x_B-1, y_0.., z_0..], +inf in empty slots: the JAX
+        package's planes (knn.py:94-105), kept for the plain MLS fit.
     """
 
     buckets: torch.Tensor
     counts: torch.Tensor
     cell_size: float
     table_size: int
+    bucket_points: torch.Tensor | None = None
 
 
 def build(
@@ -53,12 +66,14 @@ def build(
     cell_size: float,
     table_size: int,
     bucket_capacity: int = 32,
+    store_points: bool = False,
 ) -> HashGrid:
     """The hash grid, built with a sort (no atomics), as the JAX package
     builds it (knn.py:51-117): hash each valid point's cell (invalid points
     go to a sink bucket), sort the indices by hash (stable, as
     ``jnp.argsort``), rank each within its hash run, and scatter the index
-    to (bucket, rank) for rank < capacity."""
+    to (bucket, rank) for rank < capacity. ``store_points`` also scatters
+    the coordinates into ``bucket_points``."""
     n = points.shape[0]
     dev = points.device
     h = voxel_hash(voxel_coords(points, cell_size), table_size)
@@ -77,11 +92,20 @@ def build(
     )
     buckets = torch.full((table_size * bucket_capacity + 1,), -1, dtype=torch.int32, device=dev)
     buckets[flat_slot] = order.to(torch.int32)
+    bucket_points = None
+    if store_points:
+        bp = torch.full((table_size * bucket_capacity + 1, 3), torch.inf, dtype=points.dtype,
+                        device=dev)
+        bp[flat_slot] = points[order]
+        # (T, B, 3) -> (T, 3, B) -> (T, 3B), coordinate-major rows.
+        bucket_points = (bp[:-1].reshape(table_size, bucket_capacity, 3).transpose(1, 2)
+                         .reshape(table_size, 3 * bucket_capacity))
     return HashGrid(
         buckets=buckets[:-1].reshape(table_size, bucket_capacity),
         counts=counts,
         cell_size=cell_size,
         table_size=table_size,
+        bucket_points=bucket_points,
     )
 
 
@@ -96,16 +120,61 @@ def _neighbor_hashes(grid: HashGrid, query_points: torch.Tensor) -> torch.Tensor
     return voxel_hash(cells[:, None, :] + off[None, :, :], grid.table_size)
 
 
+def pack_cell_key(cells: torch.Tensor):
+    """(..., 3) int32 cell coords -> (key, fits): a unique int32 key a cell
+    while every coordinate lies in [-512, 511], and a 0-dim bool saying
+    whether all do (JAX knn.py:120; int32 arithmetic wraps as XLA's)."""
+    c = cells + 512
+    fits = torch.all((c >= 0) & (c < 1024))
+    return c[..., 0] | (c[..., 1] << 10) | (c[..., 2] << 20), fits
+
+
+def _planes(rows: torch.Tensor, m: int):
+    """(M, 27, 3B) bucket rows -> (cx, cy, cz), each (M, 27 * B)."""
+    b = rows.shape[-1] // 3
+    return tuple(rows[..., i * b: (i + 1) * b].reshape(m, 27 * b) for i in range(3))
+
+
+def candidate_points(grid: HashGrid, query_points: torch.Tensor):
+    """Candidate coordinate planes (cx, cy, cz), each (M, 27 * B), +inf in
+    empty slots, from ``bucket_points`` (``build(store_points=True)``)."""
+    rows = grid.bucket_points[_neighbor_hashes(grid, query_points).long()]  # (M, 27, 3B)
+    return _planes(rows, query_points.shape[0])
+
+
+def candidate_points_dedup(grid: HashGrid, q_chunk: torch.Tensor, key_chunk: torch.Tensor,
+                           run_cap: int):
+    """:func:`candidate_points` for queries grouped by cell (runs of equal
+    ``key_chunk``, the keys of :func:`pack_cell_key`): each run's 27-cell
+    window is fetched once, for its first query, and broadcast to the run
+    (JAX knn.py:133-209). Returns ``(cx, cy, cz, ok)``; ``ok`` (0-dim bool)
+    is False when the chunk holds more than ``run_cap`` runs, and the
+    planes are then not to be used."""
+    m = q_chunk.shape[0]
+    dev = q_chunk.device
+    starts = torch.ones((m,), dtype=torch.bool, device=dev)
+    starts[1:] = key_chunk[1:] != key_chunk[:-1]
+    run_id = torch.cumsum(starts.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_runs = run_id[-1] + 1
+    iota = torch.arange(m, dtype=torch.int32, device=dev)
+    lead_pos = torch.sort(torch.where(starts, iota, m)).values[:run_cap]
+    lead_q = q_chunk[torch.clamp(lead_pos, max=m - 1).long()]
+    rows = grid.bucket_points[_neighbor_hashes(grid, lead_q).long()]  # (R, 27, 3B)
+    wins = rows.reshape(run_cap, -1)[torch.clamp(run_id, max=run_cap - 1).long()]
+    return (*_planes(wins.reshape(m, 27, rows.shape[-1]), m), n_runs <= run_cap)
+
+
 def gather_candidates(grid: HashGrid, query_points: torch.Tensor) -> torch.Tensor:
     """(M, 27 * B) candidate point indices (-1 = empty) from the 27 cells
     around each query."""
     cand = grid.buckets[_neighbor_hashes(grid, query_points).long()]  # (M, 27, B)
-    return cand.reshape(cand.shape[0], -1)
+    return cand.flatten(1)
 
 
 def _candidates_with_points(grid: HashGrid, points: torch.Tensor, query_points: torch.Tensor):
     """(cand (M, C), cx, cy, cz each (M, C)): candidate indices and their
-    coordinates, gathered from ``points``."""
+    coordinates gathered from ``points`` (those of point 0 in empty slots,
+    which the callers mask by ``cand >= 0``)."""
     cand = gather_candidates(grid, query_points)
     cand_pts = points[torch.clamp(cand, min=0).long()]
     return cand, cand_pts[..., 0], cand_pts[..., 1], cand_pts[..., 2]
@@ -118,11 +187,18 @@ def radius_neighbors_with_points(
     radius: float,
     max_neighbors: int,
     exclude_self_index: torch.Tensor | None = None,
+    select: str = "exact",
 ):
     """:func:`radius_neighbors` that also returns the selected neighbors'
     positions (M, K, 3) (0 in empty slots). Selection is exact: the K
     smallest squared distances, ties to the lower candidate position, as
-    ``lax.top_k(-d2, K)`` selects them (a stable sort, not ``torch.topk``)."""
+    ``lax.top_k(-d2, K)`` selects them (a stable sort, not ``torch.topk``).
+
+    ``select="approx"`` is the JAX package's ``lax.approx_min_k``, which is
+    exact off the TPU (on the CPU it equals ``top_k``,
+    tests/test_torch_mls.py), so here it is the same exact selection."""
+    if select not in ("exact", "approx"):
+        raise ValueError(f"select must be 'exact' or 'approx', got {select!r}")
     cand, cx, cy, cz = _candidates_with_points(grid, points, query_points)
     dx = cx - query_points[:, 0:1]
     dy = cy - query_points[:, 1:2]
@@ -188,12 +264,36 @@ def chunked_radius_neighbors(
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def radius_search(
+    grid: HashGrid,
+    points: torch.Tensor,
+    query_points: torch.Tensor,
+    radius: float,
+    max_neighbors: int,
+    chunk_size: int = 65536,
+    exclude_self: bool = False,
+):
+    """:func:`chunked_radius_neighbors` by device: CPU tensors take it as it
+    is (the plain version); CUDA tensors launch S1
+    (:func:`knn_select_cuda`), one launch for all queries, with the same
+    indices, distances and flags. Any other device raises."""
+    dev = query_points.device.type
+    if dev == "cpu":
+        return chunked_radius_neighbors(grid, points, query_points, radius, max_neighbors,
+                                        chunk_size, exclude_self)
+    if dev == "cuda":
+        return knn_select_cuda(grid, points.contiguous(), query_points.contiguous(), radius,
+                               max_neighbors, exclude_self)
+    raise NotImplementedError(f"radius_search: no kernel for device {query_points.device}")
+
+
 # ---------------------------------------------------------------------------
-# N1: the radius search and color blend of smooth_colors_local, fused
+# N1: the radius search and color blend of smooth_colors_local, fused;
+# S1: the K-nearest radius search of chunked_radius_neighbors
 # ---------------------------------------------------------------------------
 
-# Launches of the CUDA kernel in this process (see reset_launch_counts).
-launch_counts = {"smooth_local": 0}
+# Launches of the CUDA kernels in this process (see reset_launch_counts).
+launch_counts = {"smooth_local": 0, "knn_select": 0}
 
 
 def reset_launch_counts() -> None:
@@ -207,6 +307,12 @@ _SIGNATURES = {
     "smooth_local": ([_PTR] * 6 + [_I32] * 3 + [_F32] * 2 + [_I32, _PTR], _I32),
 }
 MAX_BUCKET_CAPACITY = 32  # csrc/smooth.cu kMaxB
+_SELECT_SIGNATURES = {
+    # buckets, counts, points, queries, idx, dist, ok, n_q, table, cap, cell, r2, k,
+    # exclude_self, stream
+    "knn_select": ([_PTR] * 7 + [_I32] * 3 + [_F32] * 2 + [_I32] * 2 + [_PTR], _I32),
+}
+MAX_SELECT_CAPACITY = 128  # csrc/sor.cu kMaxB
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -251,3 +357,44 @@ def smooth_local_cuda(grid: HashGrid, points: torch.Tensor, rgb: torch.Tensor,
         raise RuntimeError(f"smooth_local launch failed: CUDA error {err}")
     launch_counts["smooth_local"] += 1
     return out
+
+
+def knn_select_cuda(grid: HashGrid, points: torch.Tensor, query_points: torch.Tensor,
+                    radius: float, max_neighbors: int, exclude_self: bool = False):
+    """S1 on the card: :func:`chunked_radius_neighbors` for all queries in
+    one launch — (idx (M, K) int32, dist (M, K) f32, ok (M, K) bool), K =
+    min(max_neighbors, 27 * B): the K smallest squared distances within
+    ``radius`` (ties to the lower candidate position, a bucket listed twice
+    where two cells share it), nearest first, -1 / +inf / False in empty
+    slots; with ``exclude_self`` query i skips point i (the queries are then
+    the points). The plain version is :func:`chunked_radius_neighbors`."""
+    dev = query_points.device
+    if dev.type != "cuda":
+        raise ValueError(f"knn_select_cuda: queries must be on a CUDA device, got {dev}")
+    n, m = points.shape[0], query_points.shape[0]
+    t, cap = grid.buckets.shape
+    _check("buckets", grid.buckets, torch.int32, (t, cap), dev)
+    _check("counts", grid.counts, torch.int32, (t,), dev)
+    _check("points", points, torch.float32, (n, 3), dev)
+    _check("queries", query_points, torch.float32, (m, 3), dev)
+    if exclude_self and m != n:
+        raise ValueError(f"knn_select: exclude_self needs the points as queries ({m} != {n})")
+    if not 1 <= cap <= MAX_SELECT_CAPACITY or max_neighbors < 1 or m >= 2**31 or t >= 2**31:
+        raise ValueError(f"knn_select: capacity {cap} (<= {MAX_SELECT_CAPACITY}), "
+                         f"max_neighbors {max_neighbors}, {m} queries, table {t} out of range")
+    k = min(max_neighbors, 27 * cap)
+    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
+    dist = torch.empty((m, k), dtype=torch.float32, device=dev)
+    ok = torch.empty((m, k), dtype=torch.bool, device=dev)
+    if m == 0:
+        return idx, dist, ok
+    r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
+    err = kbuild.library("sor", _SELECT_SIGNATURES).knn_select(
+        grid.buckets.data_ptr(), grid.counts.data_ptr(), points.data_ptr(),
+        query_points.data_ptr(), idx.data_ptr(), dist.data_ptr(), ok.data_ptr(), m, t, cap,
+        float(grid.cell_size), r2, k, int(bool(exclude_self)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"knn_select launch failed: CUDA error {err}")
+    launch_counts["knn_select"] += 1
+    return idx, dist, ok

@@ -1,18 +1,18 @@
 """Pipeline orchestration — the `PointCloudProcessor::process()` equivalent.
 
 Port of `pointcloudprocessor_tpu/pipeline/runner.py` (stage sequence of
-`PointCloudProcessor.cpp:1007-1032`), with MLS off:
+`PointCloudProcessor.cpp:1007-1032`):
 
-    loadImagesAndOdometry -> loadPointCloud (crop) -> selectKeyframes
-    -> per-keyframe cull (z-buffer or HPR) -> [NID refine of the shared
-    correction] -> colorize + top-K fuse -> [local color smoothing]
-    -> save outputs
+    loadImagesAndOdometry -> loadPointCloud (crop) -> [MLS map stage:
+    SOR -> MLS (+ upsampling) -> SOR] -> selectKeyframes -> per-keyframe
+    cull (z-buffer or HPR) -> [NID refine of the shared correction]
+    -> colorize + top-K fuse -> [local color smoothing] -> save outputs
 
 Stages hand off device tensors on the ``device`` the caller names; nothing
 falls back to another device. Branches outside this slice raise
-NotImplementedError (see ROADMAP.md): MLS, per-keyframe refinement,
-re-culling between outer iterations, the manual initial guess, and the
-frozen-tap cache's partial refresh and wide window. With a mask folder, the
+NotImplementedError (see ROADMAP.md): per-keyframe refinement, re-culling
+between outer iterations, the manual initial guess, and the frozen-tap
+cache's partial refresh and wide window. With a mask folder, the
 mask path runs as the JAX runner's does (`runner.py:517-526, 585-649`).
 """
 
@@ -33,7 +33,7 @@ from ..core import se3
 from ..io import images as img_io
 from ..io import pcd
 from ..models import camera as cam
-from ..ops import fusion, hpr, zbuffer
+from ..ops import fusion, hpr, mls, zbuffer
 from ..opt import nid as nid_mod
 from ..opt import refine
 from ..utils import profiling
@@ -58,7 +58,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError for every configured branch the port does
     not run yet — never a silent fallback."""
     unported = {
-        "enable_mls": cfg.enable_mls,
         "enable_manual_guess": cfg.enable_manual_guess,
         "nid.per_keyframe": cfg.nid.per_keyframe,
         "nid.recull_every_outer_iter": cfg.nid.recull_every_outer_iter,
@@ -71,6 +70,8 @@ def check_supported(cfg: PipelineConfig) -> None:
             f"pointcloudprocessor_tpu_torch does not run {', '.join(on)} yet "
             "(see ROADMAP.md); use pointcloudprocessor_tpu for these branches"
         )
+    if cfg.enable_mls and cfg.mls.upsampling.lower() not in mls.UPSAMPLING:
+        raise ValueError(f"unknown MLS upsampling method: {cfg.mls.upsampling!r}")
 
 
 def _make_camera(cfg: PipelineConfig, device) -> cam.PinholeCamera:
@@ -235,20 +236,31 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
     traj = ingest.frames_trajectory(frames)
     metrics.log("frames_loaded", count=len(frames))
 
-    # 2. Map load + trajectory crop (loadPointCloud, :92-154).
+    # 2. Map load + trajectory crop (loadPointCloud, :92-154), then the
+    # optional MLS map stage (CloudSmooth::process, cloudSmooth.cpp:77-181).
     crop_path = os.path.join(cfg.output_path, "scans-crop.pcd")
-    with timer.stage("load_crop"):
-        if cfg.resume and os.path.exists(crop_path):
-            # Stage checkpoint: artifacts double as restart points.
-            map_cloud = pcd.read_cloud(crop_path, device, capacity=cfg.map_capacity)
-            metrics.log("crop_resumed", path=crop_path)
-        else:
+    mls_path = os.path.join(cfg.output_path, "scans-crop_mls.pcd")
+    ready_path = mls_path if cfg.enable_mls else crop_path
+    if cfg.resume and os.path.exists(ready_path):
+        # Stage checkpoint: artifacts double as restart points.
+        with timer.stage("load_crop"):
+            map_cloud = pcd.read_cloud(ready_path, device, capacity=cfg.map_capacity)
+        metrics.log("crop_resumed", path=ready_path)
+    else:
+        with timer.stage("load_crop"):
             map_cloud = pcd.read_cloud(cfg.point_cloud_path, device, capacity=cfg.map_capacity)
             map_cloud = cl.trajectory_crop(
                 map_cloud, torch.as_tensor(traj.positions, device=device),
                 padding=cfg.crop_padding,
             )
             pcd.write_cloud(crop_path, map_cloud)
+        if cfg.enable_mls:
+            # Upsampling may leave the map with another capacity than
+            # cfg.map_capacity; every later stage takes any.
+            with timer.stage("mls"):
+                map_cloud = mls.smooth_cloud(map_cloud, cfg.mls, timer=timer)
+                with timer.stage("mls_write"):
+                    pcd.write_cloud(mls_path, map_cloud)
     metrics.log("map_ready", points=map_cloud.count())
 
     # 3. Keyframes (selectKeyframes, :1050-1075).

@@ -9,6 +9,9 @@ one scene), the keyframe images are ray-cast with torch on the device.
 
     scene = build(device="cuda")             # 4096x3000, 1M points, 8 keyframes
     scene = build(512, 384, 100_000, 4, "cpu")
+
+:func:`mls_scene` is the MLS bench's hardened corner (`bench.py:553-578`),
+:func:`e2e_config` the e2e pipeline config, MLS on or off (`bench.py:766-806`).
 """
 
 from __future__ import annotations
@@ -240,3 +243,62 @@ def hpr_edge_sets(seed: int = SEED, n_bulk: int = 4096) -> dict:
     one[len(pts) // 3] = True
     sets["single valid"] = (pts, one)
     return sets
+
+
+def mls_scene(n_points: int, seed: int = 1) -> np.ndarray:
+    """(n_points, 3) f32: the MLS bench's hardened corner (`bench.py:553-578`),
+    drawn as it draws it. Three pieces with 5 mm surface noise: a dense wall
+    at z = 6 m (~30k points/m^2, half the points), a perpendicular wall at
+    x = 0 sharing its edge (a quarter), and a sparse extension of the first
+    at ~3k points/m^2 (the rest)."""
+    rng = np.random.default_rng(seed)
+    n_a = n_points // 2
+    n_b = n_points // 4
+    n_c = n_points - n_a - n_b
+    side_a = float(np.sqrt(n_a / 30000.0))
+    side_b = float(np.sqrt(n_b / 30000.0))
+    side_c = float(np.sqrt(n_c / 3000.0))
+
+    def noise(n):
+        return 0.005 * rng.standard_normal(n)
+
+    a = np.stack([rng.uniform(0, side_a, n_a), rng.uniform(0, side_a, n_a),
+                  6.0 + noise(n_a)], -1)
+    b = np.stack([0.0 + noise(n_b), rng.uniform(0, side_b, n_b),
+                  6.0 - rng.uniform(0, side_b, n_b)], -1)
+    c = np.stack([rng.uniform(-side_c, 0, n_c), rng.uniform(0, side_c, n_c),
+                  6.0 + noise(n_c)], -1)
+    return np.concatenate([a, b, c]).astype(np.float32)
+
+
+def e2e_config(root: str, nid, enable_mls: bool = False, width: int = WIDTH,
+               height: int = HEIGHT, n_map: int = N_MAP, n_cull: int = N_CULL, k: int = K):
+    """bench.py's e2e pipeline config (`bench.py:766-806`) over a scene
+    written under ``root`` (``map.pcd``, ``vo_interpolated_odom.txt``,
+    ``images/``; outputs to ``out/``), with the NIDConfig ``nid`` and the
+    MLS stage (``MLSConfig(upsampling="none")``) on if ``enable_mls``."""
+    import os
+
+    from ..utils import config as cfg_mod
+
+    f_px = focal(width)
+    return cfg_mod.PipelineConfig(
+        point_cloud_path=os.path.join(root, "map.pcd"),
+        odometry_path=os.path.join(root, "vo_interpolated_odom.txt"),
+        images_folder=os.path.join(root, "images"),
+        output_path=os.path.join(root, "out"),
+        enable_mls=enable_mls,
+        enable_nid_optimize=True,
+        crop_padding=12.0,  # keeps the z = 6 m wall inside the trajectory crop
+        map_capacity=n_map,
+        culled_capacity=n_cull,
+        max_keyframes=k,
+        camera=cfg_mod.CameraConfig(
+            intrinsic=(f_px, f_px, width / 2.0, height / 2.0),
+            distortion=(0.0,) * 5,
+            width=width,
+            height=height,
+        ),
+        mls=cfg_mod.MLSConfig(upsampling="none"),
+        nid=nid,
+    )

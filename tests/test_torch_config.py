@@ -56,6 +56,8 @@ def test_port_imports_no_jax():
         "import pointcloudprocessor_tpu_torch.ops.hpr\n"
         "import pointcloudprocessor_tpu_torch.ops.knn\n"
         "import pointcloudprocessor_tpu_torch.ops.voxel\n"
+        "import pointcloudprocessor_tpu_torch.ops.mls\n"
+        "import pointcloudprocessor_tpu_torch.ops.sor\n"
         "import pointcloudprocessor_tpu_torch.tools.bench_scene\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pointcloudprocessor_tpu'\n"
@@ -88,7 +90,6 @@ def test_cli_device_defaults_to_cuda():
 @pytest.mark.parametrize(
     "path, value",
     [
-        ("enable_mls", True),
         ("enable_manual_guess", True),
         ("nid.per_keyframe", True),
         ("nid.recull_every_outer_iter", True),
@@ -110,6 +111,20 @@ def test_unported_branches_raise(path, value):
 
 def test_default_config_is_supported():
     runner.check_supported(tcfg.PipelineConfig())
+
+
+@pytest.mark.parametrize("upsampling", ["none", "sample_local_plane", "random_uniform_density",
+                                        "voxel_grid_dilation"])
+def test_enable_mls_is_supported(upsampling):
+    """The MLS map stage runs in the port (tests/test_torch_mls.py,
+    tests/test_torch_mls_pipeline.py), with each upsampling method; an
+    unknown method raises before any stage runs."""
+    cfg = tcfg.PipelineConfig(enable_mls=True)
+    cfg.mls.upsampling = upsampling
+    runner.check_supported(cfg)
+    cfg.mls.upsampling = "poisson"
+    with pytest.raises(ValueError, match="upsampling"):
+        runner.check_supported(cfg)
 
 
 @pytest.mark.parametrize("impl", ["auto", "grid", "dense"])

@@ -49,6 +49,17 @@ POSE_BOUND_M, POSE_BOUND_RAD = 0.03, np.radians(1.0)
 SMOOTHING_RADIUS = 0.15  # ~11 wall neighbors, >32 on the slab
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch ops: the suite runs several
+    workers on the machine's cores, and under that load a pool of threads
+    over many small ops runs ~50x slower (and slows its neighbours)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def _truth(tz=0.0):
     rv = np.asarray(ROT_OFFSET, np.float64)
     th = np.linalg.norm(rv)
