@@ -111,22 +111,38 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. M1 (``phase_mls``) with the default MLSConfig on bench scene 1's map
    under the first SOR's mask (its exactly planar wall and occluder: the
    singular covariance) and on the MLS bench's 1M-point hardened corner
-   (``bench_scene.mls_scene``, bench.py:553-578): in-radius counts and fit
-   flags bit-equal to its twin run on the card, positions within 2e-6 m
-   and normals within 1e-5 in 1 - |cos| but for rows whose degenerate (2-3
-   point) fit overflows to a zero normal in one of the two (at most 1 in
-   100,000 rows); on the corner, device and call times of the grid build,
-   the kernel, the whole pass (points/s) and the twin beside the bound;
+   (``bench_scene.mls_scene``, bench.py:553-578), each under three
+   schedules handed to the kernel as its order (the wrapper's own: the
+   grid's sort order; the identity; a seeded random permutation):
+   in-radius counts and fit flags bit-equal to its twin run on the card,
+   positions within 2e-6 m and normals within 1e-5 in 1 - |cos| but for
+   rows whose degenerate (2-3 point) fit overflows to a zero normal in one
+   of the two (at most 1 in 100,000 rows); on the corner, device and call
+   times of the grid build, the schedule, ``knn.cell_order``, the kernel,
+   the whole pass (points/s) and the twin beside the bound, the kernel on
+   the map, and the windows the own schedule's launch stages (one a
+   distinct cell of a block's chunk, counted by the kernel);
    ``torch.profiler`` asserts one launch a pass.
 16. S1 (``phase_sor``) on bench scene 1's map and on the corner, as the
-   SOR calls it (k 60, 0.25 m, 60 a bucket): indices and flags bit-equal
-   to its twin, distances within 2 ulp (the largest error is the record's
-   ``max_abs_err``), inlier-mask differences (each within 4 ulp of the
-   threshold); device and call times, bound, twin.
+   SOR calls it (k 60, 0.25 m, 60 a bucket), under the same three
+   schedules: indices, flags and distances bit-equal to its twin (distances
+   held within 2 ulp, the largest gap printed), inlier-mask differences
+   (each within 4 ulp of the threshold); device and call times of the
+   build, the schedule, ``knn.cell_order``, the kernel and the twin, bound,
+   windows (as M1's); ``torch.profiler`` asserts one launch a
+   ``sor_stats`` call.
 17. Off the bench's shapes (``phase_mls_edges``): M1 and S1 against their
-   twins on a 20,000-point corner with NaN and infinite points, 1% invalid
-   and 64 points a bucket (S1 at K = 60 and K = 1); ``smooth_cloud`` with
-   each upsampling method on a flat patch, with one more S1 launch for the
+   twins under the three schedules on a 20,000-point corner with NaN and
+   infinite points and 1% invalid (also with 64 points a bucket, with n / 8
+   buckets for M1 and 7 for S1, where most occupied cells share a bucket,
+   and S1 at K = 1 on shifted queries that are not the points), on a cell-
+   face cloud (points on faces of the 0.25 m and 0.03 m cells), on corners
+   of 1, 63, 65 and 1,000,003 points (ragged block chunks), and, for M1
+   with an f64 conditioning witness (``_conditioning``), on a snapped cloud
+   (every coordinate on a lattice), a lattice cloud (every coordinate on
+   the 0.03 m one) and the NaN cloud with 5 buckets, the
+   occupied cells sharing a bucket counted; ``smooth_cloud`` with each
+   upsampling method on a flat patch, with one more S1 launch for the
    VGD's nearest-source search.
 18. Tools at full scale: ``tools/colorize_anatomy`` and
    ``tools/zbuffer_probe``, each printing its JSON line; both must report
@@ -146,6 +162,15 @@ f32 operations over 67 TFLOP/s or 32-bit integer ones over 16.7 TOP/s,
 whichever is largest). K1/K2 also carry
 their launches by shape and their device / call / host times and bounds on
 the scene's inputs at both shapes (``scene_fine_*``, ``scene_coarse_*``).
+M1/S1 also carry ``order_ms`` (the device time of the schedule the path
+hands the kernel: the grid's own sort order, ``HashGrid.order``, no device
+work), ``cell_order_ms`` (``knn.cell_order``, the schedule for queries
+that are not the grid's points), ``windows`` and ``queries_per_window``
+(p50), which the kernel counts in the checked launch under the path's own
+schedule (``run_sizes``), of the corner and ``scene_*`` of the map, and
+``launches_a_call``
+(``torch.profiler``: kernel launches a ``sor_stats`` / ``mls_smooth``
+call, asserted 1).
 K5/Z1 carry their pass's device time as ``ms`` and its twin's (the gate,
 the cell and the scatter-min or the test, in plain torch on the same
 inputs) as ``plain_ms``, a whole cull's call as ``call_ms``, the mask's
@@ -1666,51 +1691,215 @@ def _slots_and_in_radius(grid, pts, queries, radius, exclude_self=False):
     return torch.cat(slots), torch.cat(inr)
 
 
-def _mls_check(label, pts, valid, cfg, device):
+def _schedules(m, device, own=None):
+    """The three schedules S1 and M1 are held under: the path's own
+    (``own``; None: the wrapper's default), the identity and a seeded random
+    permutation, (m,) int32."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED)
+    return {"own": own, "identity": torch.arange(m, dtype=torch.int32, device=device),
+            "random": torch.randperm(m, generator=g).to(torch.int32).to(device)}
+
+
+# Bins of the run-size histogram the kernels fill (``run_sizes``): bin s
+# counts the windows staged for s queries, the last one those of more.
+RUN_SIZE_BINS = 1025
+
+
+def _run_sizes(device):
+    """A zeroed run-size histogram for a checked launch on the card, else
+    None (the twins stage nothing)."""
+    import torch
+
+    return (torch.zeros(RUN_SIZE_BINS, dtype=torch.int32, device=device)
+            if device == "cuda" else None)
+
+
+def _window_stats(run_sizes):
+    """(windows staged, p50 queries a window) from the kernel's run-size
+    histogram; (None, None) without one."""
+    import torch
+
+    if run_sizes is None:
+        return None, None
+    hist = run_sizes.long()
+    sizes = torch.repeat_interleave(torch.arange(hist.numel(), device=hist.device), hist)
+    return int(hist.sum()), float(sizes.double().quantile(0.5))
+
+
+def _mls_kw(cfg, n):
+    """``mls_smooth``'s keyword arguments of the pass for ``n`` points."""
+    return dict(search_radius=cfg.search_radius, sqr_gauss_param=cfg.sqr_gauss_param,
+                polynomial_order=cfg.polynomial_order, bucket_capacity=cfg.bucket_capacity,
+                table_size=max(n // 2, 1024))
+
+
+def _mls_check(label, pts, valid, kw, device, witness=False):
     """M1 against its twin (``mls.mls_pass_plain`` run on the same device)
-    on one cloud, as ``mls_smooth`` runs it with ``cfg``: in-radius counts
-    and fit flags bit-equal; positions within ``MLS_POS_TOL`` and normals
-    within ``MLS_NRM_TOL`` but for the rows where a degenerate fit's normal
-    overflows to 0 in one of the two (each with at most 3 neighbors, at
-    most ``_max_flips(n)`` of them). Returns (keyword arguments of the
-    pass, position error, normal error, flips)."""
+    on one cloud, with the pass's keyword arguments ``kw``, under each of
+    :func:`_schedules`: in-radius counts and fit flags bit-equal; positions
+    within ``MLS_POS_TOL`` and normals within ``MLS_NRM_TOL`` on the finite
+    rows but for the rows where a degenerate fit's normal overflows to 0 in
+    one of the two (each with at most 3 neighbors, at most ``_max_flips(n)``
+    of them); non-finite rows NaN where the twin's are. With ``witness``,
+    a finite row outside those bounds is left out only where
+    :func:`_conditioning` shows its fit ill-conditioned (its readings
+    printed); any other such row fails. Returns (position error, normal
+    error, flips), the largest over the schedules, and (windows staged, p50
+    points a window) of the own schedule's launch."""
     import torch
 
     from pointcloudprocessor_tpu_torch.ops import mls
 
     n = pts.shape[0]
-    kw = dict(search_radius=cfg.search_radius, sqr_gauss_param=cfg.sqr_gauss_param,
-              polynomial_order=cfg.polynomial_order, bucket_capacity=cfg.bucket_capacity,
-              table_size=max(n // 2, 1024))
-    want = mls.mls_pass_plain(pts, valid, chunk_size=min(16384, 2 * n), **kw)
-    got = mls.mls_moments_cuda(pts, valid, **kw) if device == "cuda" else want
-    (pos, nrm, surf, cnt), (pos_w, nrm_w, surf_w, cnt_w) = got, want
-    assert torch.equal(cnt, cnt_w), f"M1's in-radius counts differ from its twin's on {label}"
-    assert torch.equal(surf.ok, surf_w.ok), f"M1's fit flags differ from its twin's on {label}"
-    zero, zero_w = ~(nrm != 0).any(1), ~(nrm_w != 0).any(1)
-    flip = zero != zero_w
-    keep = ~flip & valid
-    pos_err = (pos - pos_w).abs().amax(1)
-    cos = 1.0 - (nrm * nrm_w).sum(1).abs()
-    cos_keep = cos[keep & ~zero_w]
-    err = float(pos_err[keep].max()) if keep.any() else 0.0
-    nerr = float(cos_keep.max()) if cos_keep.numel() else 0.0
+    want = mls.mls_pass_plain(pts, valid, chunk_size=min(16384, max(2 * n, 1024)), **kw)
+    pos_w, nrm_w, surf_w, cnt_w = want
+    finite = torch.isfinite(pts).all(1)
     q = torch.tensor([0.5, 0.999, 0.99999], device=pts.device)
-    inr = cnt[valid].float()
-    print(f"M1 mls_moments on {label} ({n} points, {int(valid.sum())} valid, radius "
-          f"{cfg.search_radius} m, B {cfg.bucket_capacity}): counts and ok bit-equal to the "
-          f"twin; in-radius a valid point p50 / p99.9 / max {torch.quantile(inr, q[:2]).tolist()}"
-          f" / {int(inr.max())}; {int(surf.ok.sum())} ok; {int(flip.sum())} rows with the "
-          f"normal 0 in one of the two (cap {_max_flips(n)}; in-radius "
-          f"{sorted(set(cnt[flip].tolist()))}); the other valid rows: positions within "
-          f"{err:.3e} m (tol {MLS_POS_TOL}; p50 / p99.9 / p99.999 "
-          f"{torch.quantile(pos_err[keep], q).tolist()}), normals within {nerr:.3e} in "
-          f"1 - |cos| (tol {MLS_NRM_TOL})")
-    assert int(flip.sum()) <= _max_flips(n), f"{int(flip.sum())} zero-normal flips on {label}"
-    if flip.any():
-        assert int(cnt[flip].max()) <= 3, cnt[flip]
-    assert err <= MLS_POS_TOL and nerr <= MLS_NRM_TOL, f"M1 disagrees with its twin on {label}"
-    return kw, err, nerr, int(flip.sum())
+    worst = (0.0, 0.0, 0)
+    stats = (None, None)
+    for name, order in _schedules(n, device).items():
+        sizes = _run_sizes(device) if name == "own" else None
+        got = (mls.mls_moments_cuda(pts, valid, order=order, run_sizes=sizes, **kw)
+               if device == "cuda" else want)
+        if name == "own":
+            stats = _window_stats(sizes)
+        pos, nrm, surf, cnt = got
+        assert torch.equal(cnt, cnt_w), f"M1's in-radius counts differ on {label} ({name})"
+        assert torch.equal(surf.ok, surf_w.ok), f"M1's fit flags differ on {label} ({name})"
+        zero, zero_w = ~(nrm != 0).any(1), ~(nrm_w != 0).any(1)
+        flip = zero != zero_w
+        pos_err = (pos - pos_w).abs().amax(1)
+        cos = 1.0 - (nrm * nrm_w).sum(1).abs()
+        rows = valid & finite
+        exempt = torch.zeros_like(rows)
+        if witness:
+            out = rows & (flip | (pos_err > MLS_POS_TOL)
+                          | ((cos > MLS_NRM_TOL) & ~zero & ~zero_w))
+            if out.any():
+                o = out.nonzero()[:, 0]
+                ill, dpos, dnrm = _conditioning(pts, valid, kw, o, cnt_w)
+                exempt[o] = ill
+                print(f"M1 on {label}, {name} schedule: {len(o)} finite rows outside the "
+                      f"bounds (in-radius {sorted(set(cnt[o].tolist()))}; positions "
+                      f"{_range(pos_err[o])} m, normals {_range(cos[o])}, "
+                      f"{int(flip[o].sum())} zero-normal flips), {int(ill.sum())} of them "
+                      f"ill-conditioned by the f64 witness (f32-sized perturbations move them "
+                      f"by {_range(dpos[ill])} m, {_range(dnrm[ill])}; the others by "
+                      f"{_range(dpos[~ill])} m, {_range(dnrm[~ill])})")
+        flip = flip & ~exempt
+        keep = ~flip & rows & ~exempt
+        cos_keep = cos[keep & ~zero_w]
+        err = float(pos_err[keep].max()) if keep.any() else 0.0
+        nerr = float(cos_keep.max()) if cos_keep.numel() else 0.0
+        nan_alike = torch.equal(pos[~finite].isnan(), pos_w[~finite].isnan())
+        if name == "own":
+            inr = cnt[valid].float()
+            pq = torch.quantile(pos_err[keep], q).tolist() if keep.any() else []
+            print(f"M1 mls_moments on {label} ({n} points, {int(valid.sum())} valid, radius "
+                  f"{kw['search_radius']} m, B {kw['bucket_capacity']}, table "
+                  f"{kw['table_size']}): in-radius a valid point p50 / p99.9 / max "
+                  f"{torch.quantile(inr, q[:2]).tolist() if inr.numel() else []} / "
+                  f"{int(inr.max()) if inr.numel() else 0}; {int(surf.ok.sum())} ok; "
+                  f"positions p50 / p99.9 / p99.999 {pq}")
+        print(f"M1 on {label}, {name} schedule: counts and ok bit-equal to the twin; "
+              f"{int(flip.sum())} rows with the normal 0 in one of the two (cap "
+              f"{_max_flips(n)}; in-radius {sorted(set(cnt[flip].tolist()))}); the other "
+              f"finite valid rows: positions within {err:.3e} m (tol {MLS_POS_TOL}), normals "
+              f"within {nerr:.3e} in 1 - |cos| (tol {MLS_NRM_TOL}); non-finite rows alike: "
+              f"{nan_alike}" + (f"; {int(exempt.sum())} ill-conditioned rows left out"
+                                if witness else ""))
+        assert int(flip.sum()) <= _max_flips(n), f"{int(flip.sum())} zero-normal flips on {label}"
+        if flip.any():
+            assert int(cnt[flip].max()) <= 3, cnt[flip]
+        assert err <= MLS_POS_TOL and nerr <= MLS_NRM_TOL and nan_alike, (
+            f"M1 disagrees with its twin on {label} ({name})")
+        worst = (max(worst[0], err), max(worst[1], nerr), max(worst[2], int(flip.sum())))
+    return (*worst, *stats)
+
+
+def _range(t):
+    """'[min, max]' of a tensor, '[]' when empty."""
+    return f"[{float(t.min()):.3e}, {float(t.max()):.3e}]" if t.numel() else "[]"
+
+
+# Trials of _conditioning's witness: each a perturbation of the fit's sums.
+WITNESS_TRIALS = 16
+
+
+def _conditioning(pts, valid, kw, rows, cnt_w):
+    """The f64 witness of :func:`_mls_check`: whether f32 arithmetic
+    determines the moments fit of each of ``rows`` to within the bounds.
+    Its in-radius candidates are the twin's (``mls._in_radius`` over the
+    twin's grid, counts asserted equal to ``cnt_w``). Their offsets, cast
+    to f64, go through the fit in f64 (the twin's sums, then its own
+    ``mls._oriented_frame``, ``mls._chol_solve`` and ``mls.project_onto``),
+    once as they are and ``WITNESS_TRIALS`` times with each sum moved by g
+    times the sum of its terms' magnitudes, its sign a hash of the row's
+    index, the trial and the sum (so a row's witness does not depend on the
+    other rows checked with it), g = (k + 4) 2^-24
+    for k candidates: the error bound of an f32 sum of k three-factor
+    terms in any order. A row is ill-conditioned where one of those moves
+    carries its f64 position past ``MLS_POS_TOL`` or its normal past
+    ``MLS_NRM_TOL`` (1 - |cos|) from the unmoved fit: a change within f32
+    rounding that takes the answer out of the bounds is the witness.
+    Returns (ill, the largest position move, the largest normal move),
+    each (R,)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import knn, mls
+
+    r = kw["search_radius"]
+    grid = knn.build(pts, valid, r, kw["table_size"], kw["bucket_capacity"], store_points=True)
+    q = pts[rows]
+    dx, dy, dz, _, cnt = mls._in_radius(q, *knn.candidate_points(grid, q), r)
+    assert torch.equal(cnt.to(torch.int32), cnt_w[rows])
+    d = torch.stack([dx, dy, dz], -1).double()
+    q64 = q.double()
+    w = torch.exp(-(d * d).sum(-1) / kw["sqr_gauss_param"]) * (
+        torch.arange(d.shape[1], device=d.device) < cnt[:, None])
+    g = (cnt.double() + 4.0) * 2.0 ** -24
+    salt = [0]
+
+    def fit(trial):
+        def total(terms):  # sum over the candidates, moved within its f32 bound
+            s = terms.sum(1)
+            if trial < 0:
+                return s
+            salt[0] += 1
+            shape = (-1, *[1] * (s.dim() - 1))
+            entry = torch.arange(s[0].numel(), device=s.device).view(s.shape[1:])
+            h = ((rows.long().view(shape) * 73856093) ^ (entry * 19349669)
+                 ^ ((trial * 64 + salt[0]) * 83492791)) % 1000003
+            sign = ((h % 2) * 2 - 1).to(s)
+            return s + sign * g.view(shape) * terms.abs().sum(1)
+
+        wsum = total(w).clamp(min=1e-20)
+        m = total(w[..., None] * d) / wsum[:, None]
+        e = d - m[:, None]
+        C = total(w[..., None, None] * e[..., :, None] * e[..., None, :])
+        normal, tu, tv = mls._oriented_frame(C, q64, q64 + m)
+        coef = torch.zeros((len(rows), 6), dtype=d.dtype, device=d.device)
+        if kw["polynomial_order"] >= 2:
+            u, v = (e * tu[:, None]).sum(-1), (e * tv[:, None]).sum(-1)
+            h = (e * normal[:, None]).sum(-1)
+            ph = torch.stack([torch.ones_like(u), u, v, u * u, u * v, v * v], -1)
+            A = total(w[..., None, None] * ph[..., :, None] * ph[..., None, :])
+            A = A + 1e-8 * torch.eye(6, dtype=d.dtype, device=d.device)
+            coef = mls._chol_solve(A, total((w * h)[..., None] * ph))
+            coef = torch.where((cnt >= 6)[:, None], coef, 0.0)
+        surf = mls.MLSSurface(q64 + m, normal, tu, tv, coef, cnt >= 3)
+        return mls.project_onto(surf, q64)
+
+    pos0, nrm0 = fit(-1)
+    dpos = torch.zeros(len(rows), dtype=torch.float64, device=d.device)
+    dnrm = torch.zeros_like(dpos)
+    for trial in range(WITNESS_TRIALS):
+        pos, nrm = fit(trial)
+        dpos = torch.maximum(dpos, (pos - pos0).abs().amax(-1))
+        dnrm = torch.maximum(dnrm, 1.0 - (nrm * nrm0).sum(-1).abs())
+    return (dpos > MLS_POS_TOL) | (dnrm > MLS_NRM_TOL), dpos, dnrm
 
 
 def _max_flips(n):
@@ -1742,13 +1931,21 @@ def phase_mls(card, device="cuda"):
                         mean_k=cfg.sor_mean_k, std_mult=cfg.sor_std_dev,
                         cell_size=max(cfg.search_radius * 4.0, 0.25),
                         bucket_capacity=max(cfg.bucket_capacity, cfg.sor_mean_k))
-    _, err_s, nerr_s, flips_s = _mls_check("bench scene 1's map after the first SOR", scene,
-                                           sor1, cfg, device)
-    del scene, sor1
+    skw = _mls_kw(cfg, N_MAP)
+    err_s, nerr_s, flips_s, windows_s, per_window_s = _mls_check(
+        "bench scene 1's map after the first SOR", scene, sor1, skw, device)
+    sgrid = knn.build(scene, sor1, cfg.search_radius, skw["table_size"], cfg.bucket_capacity)
+    scene_ms = (_device_ms(lambda: mls.mls_moments_cuda(scene, sor1, grid=sgrid, **skw))
+                if device == "cuda" else None)
+    print(f"[{card}] M1 on bench scene 1's map after the first SOR: device ms {_ms(scene_ms)}; "
+          f"{windows_s} windows staged (p50 {per_window_s} points a window)")
+    del scene, sor1, sgrid
     n = MLS_N
     pts = torch.from_numpy(bs.mls_scene(n)).to(device)
     valid = torch.ones(n, dtype=torch.bool, device=device)
-    kw, err, nerr, flips = _mls_check("the hardened corner", pts, valid, cfg, device)
+    kw = _mls_kw(cfg, n)
+    err, nerr, flips, windows, per_window = _mls_check("the hardened corner", pts, valid, kw,
+                                                       device)
     grid = knn.build(pts, valid, cfg.search_radius, kw["table_size"], cfg.bucket_capacity)
 
     def kernel():
@@ -1763,7 +1960,14 @@ def phase_mls(card, device="cuda"):
     def whole():
         return mls.mls_smooth(pts, valid, cfg)
 
-    fns = {"build": build, "twin": twin, "mls_smooth": whole}
+    def schedule():
+        return grid.order
+
+    def cell_order():
+        return knn.cell_order(pts, cfg.search_radius, kw["table_size"])
+
+    fns = {"build": build, "order": schedule, "cell_order": cell_order, "twin": twin,
+           "mls_smooth": whole}
     if device == "cuda":
         fns = {"kernel": kernel, **fns, "kernel again": kernel}
     dev_t = {k: _device_ms(fn, device) for k, fn in fns.items() if k != "twin"}
@@ -1772,7 +1976,7 @@ def phase_mls(card, device="cuda"):
     slots, inr = _slots_and_in_radius(grid, pts, pts, cfg.search_radius)
     t = kw["table_size"]
     nbytes = (4 * t + 4 * int(torch.clamp(grid.counts, max=cfg.bucket_capacity).sum())
-              + 12 * n + 101 * n)
+              + 12 * n + 4 * n + 101 * n)
     ops = (M1_OPS_SLOT * int(slots.sum()) + M1_OPS_IN * int(inr.sum()) + M1_OPS_POINT * n)
     b_ms, by = _bound(nbytes, ops)
     t_k = dev_t.get("kernel")
@@ -1783,13 +1987,16 @@ def phase_mls(card, device="cuda"):
           + "; a call: " + ", ".join(f"{k} {_ms(v)}" for k, v in call_t.items())
           + f"; bound {b_ms:.3f} ms ({by}: {nbytes} B, {ops:.4g} f32 operations over "
           f"{int(slots.sum())} slots and {int(inr.sum())} in-radius candidates), kernel at "
-          f"{share}; the whole pass (build + M1) {rate} points/s")
+          f"{share}; the whole pass (build + M1) {rate} points/s; {windows} windows staged "
+          f"(p50 {per_window} points a window)")
     prof = _kernel_profile(whole, device, reps=3)
+    a_call = None
     if prof is not None:
         print(f"[{card}] mls_smooth device work a call ({_kernel_launches(prof)} kernel "
               "launches; launches, mean us): "
               + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
-        assert prof["mls_moments_kernel"][0] == 1, prof
+        a_call = prof["mls_moments_kernel"][0]
+        assert a_call == 1, prof
     return [{"name": "mls_moments", "route": "cuda", "source": f"{PKG}/csrc/mls.cu",
              "replaces": "pointcloudprocessor_tpu/ops/mls.py:203",
              "max_abs_err": max(err, err_s), "max_normal_err": max(nerr, nerr_s),
@@ -1798,7 +2005,11 @@ def phase_mls(card, device="cuda"):
              "ms_again": dev_t.get("kernel again"), "call_ms": call_t.get("kernel"),
              "plain_ms": call_t["twin"], "plain_call_ms": call_t["twin"], "library_ms": None,
              "bound_ms": b_ms, "bound_by": by, "build_ms": dev_t["build"],
-             "build_call_ms": call_t["build"], "mls_smooth_call_ms": whole_ms,
+             "build_call_ms": call_t["build"], "order_ms": dev_t["order"],
+             "cell_order_ms": dev_t["cell_order"], "windows": windows,
+             "queries_per_window": per_window, "scene_ms": scene_ms, "scene_windows": windows_s,
+             "scene_queries_per_window": per_window_s, "launches_a_call": a_call,
+             "mls_smooth_call_ms": whole_ms,
              "points_per_s": None if not whole_ms else n / (whole_ms * 1e-3), "n": n}]
 
 
@@ -1809,29 +2020,66 @@ def _call_ms(fn, device, reps=20):
     return profiling.median_ms(fn, device, reps=reps, warmup=1 if reps < 5 else 3)
 
 
+def _s1_check(label, grid, pts, queries, k, exclude_self, device):
+    """S1 (``knn_select_cuda``, radius the grid's cell) under each of
+    :func:`_schedules` against its twin (``chunked_radius_neighbors`` on the
+    same device): indices and flags bit-equal, distances within 2 ulp. The
+    own schedule is the grid's order where the queries are the grid's
+    points (``exclude_self``, as ``sor_stats`` calls it), else the
+    wrapper's. Returns the twin's (idx, dist, ok), the largest distance
+    error (m, ulp) over the schedules and (windows staged, p50 queries a
+    window) of the own schedule's launch."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import knn
+
+    r = grid.cell_size
+    want = knn.chunked_radius_neighbors(grid, pts, queries, r, k, exclude_self=exclude_self)
+    idx_w, dist_w, ok_w = want
+    err, ulps = 0.0, 0
+    stats = (None, None)
+    own = grid.order if exclude_self else None
+    for name, order in _schedules(queries.shape[0], device, own).items():
+        sizes = _run_sizes(device) if name == "own" else None
+        got = (knn.knn_select_cuda(grid, pts, queries, r, k, exclude_self, order=order,
+                                   run_sizes=sizes)
+               if device == "cuda" else want)
+        if name == "own":
+            stats = _window_stats(sizes)
+        idx, dist, ok = got
+        assert torch.equal(idx, idx_w) and torch.equal(ok, ok_w), (
+            f"S1's indices or flags differ from its twin's on {label} ({name} schedule)")
+        if ok.any():
+            ulps = max(ulps, int((dist[ok].view(torch.int32) - dist_w[ok].view(torch.int32))
+                                 .abs().max()))
+            err = max(err, float((dist[ok] - dist_w[ok]).abs().max()))
+        assert ulps <= 2 and torch.equal(dist[~ok], dist_w[~ok]), (
+            f"S1's distances differ from its twin's on {label} ({name} schedule)")
+    print(f"S1 knn_select on {label} ({queries.shape[0]} queries, K = {k}"
+          f"{', the query excluded' if exclude_self else ''}): indices and flags bit-equal to "
+          f"the twin under the own, identity and random schedules; distances within {ulps} "
+          f"ulp ({err:.3e} m)")
+    return want, err, ulps, stats
+
+
 def _sor_check(card, label, pts, valid, device):
     """S1 against its twin on one cloud, as the MLS stage's SOR calls it
-    (k 60, 0.7 sigma, 0.25 m cells and radius, 60 a bucket, 2n buckets):
-    indices and flags bit-equal, distances within 2 ulp, the inlier masks'
-    differences (each within 4 ulp of the threshold). Returns the grid, the
-    count of those differences, the largest absolute distance error and its
-    gap in ulp."""
+    (k 60, 0.7 sigma, 0.25 m cells and radius, 60 a bucket, 2n buckets),
+    under each of :func:`_schedules` (:func:`_s1_check`), and the inlier
+    masks' differences (each within 4 ulp of the threshold). Returns the
+    grid, the count of those differences, the largest absolute distance
+    error, its gap in ulp and (windows staged, p50 queries a window) of
+    the own schedule's launch."""
     import torch
 
     from pointcloudprocessor_tpu_torch.ops import knn, sor
 
     n = pts.shape[0]
     grid = knn.build(pts, valid, 0.25, 2 * n, 60)
-    got = (knn.knn_select_cuda(grid, pts, pts, 0.25, 60, True) if device == "cuda"
-           else knn.chunked_radius_neighbors(grid, pts, pts, 0.25, 60, exclude_self=True))
-    want = knn.chunked_radius_neighbors(grid, pts, pts, 0.25, 60, exclude_self=True)
-    (idx, dist, ok), (idx_w, dist_w, ok_w) = got, want
-    same_idx = torch.equal(idx, idx_w) and torch.equal(ok, ok_w)
-    ulps, dist_err = -1, float("inf")
-    if same_idx:
-        ulps = int((dist[ok].view(torch.int32) - dist_w[ok].view(torch.int32)).abs().max()) \
-            if ok.any() else 0
-        dist_err = float((dist[ok] - dist_w[ok]).abs().max()) if ok.any() else 0.0
+    (idx_w, dist_w, ok_w), dist_err, ulps, stats = _s1_check(label, grid, pts, pts, 60, True,
+                                                            device)
+    got = knn.radius_search(grid, pts, pts, 0.25, 60, exclude_self=True, order=grid.order)
+    idx, dist, ok = got
 
     def mask(d, o):
         cnt = o.sum(1)
@@ -1844,37 +2092,43 @@ def _sor_check(card, label, pts, valid, device):
     differ = m != m_w
     ulp = float(np.spacing(np.float32(float(th_w))))
     near = (mean_d - th_w).abs() <= 4 * ulp
-    print(f"S1 knn_select on {label} ({n} points): indices and flags bit-equal to the twin: "
-          f"{same_idx}; distances within {ulps} ulp ({dist_err:.3e} m); neighbors a point p50 "
-          f"{float(ok.sum(1).float().median())}; inliers {int(m.sum())} (twin "
-          f"{int(m_w.sum())}), {int(differ.sum())} differ, all within 4 ulp of the threshold "
-          f"{float(th_w)}: {bool(near[differ].all())}")
-    assert same_idx and 0 <= ulps <= 2, "S1 disagrees with its twin"
+    print(f"S1 on {label}: neighbors a point p50 {float(ok.sum(1).float().median())}; inliers "
+          f"{int(m.sum())} (twin {int(m_w.sum())}), {int(differ.sum())} differ, all within 4 "
+          f"ulp of the threshold {float(th_w)}: {bool(near[differ].all())}")
     assert bool(near[differ].all()), "S1's inlier mask differs away from the threshold"
-    return grid, int(differ.sum()), dist_err, ulps
+    return grid, int(differ.sum()), dist_err, ulps, stats
 
 
 def phase_sor(card, device="cuda"):
     """S1 on the MLS bench's hardened corner (``MLS_N`` points) and on bench
     scene 1's map (:func:`_sor_check` on each); device and call times of
-    ``knn.build``, the kernel and the twin on the corner, beside the bound.
+    ``knn.build``, the schedule, the kernel and the twin on the corner
+    beside the bound, the kernel's on the map, and the windows each stages.
     Returns the kernel's record."""
     import torch
 
-    from pointcloudprocessor_tpu_torch.ops import knn
+    from pointcloudprocessor_tpu_torch.ops import knn, sor
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
     pts_m, _ = bs.scene_map(N_MAP, WIDTH, HEIGHT, SEED)
     scene = torch.from_numpy(pts_m).to(device)
-    _, differ_scene, err_scene, ulps_scene = _sor_check(card, "bench scene 1's map", scene,
-                                 torch.ones(N_MAP, dtype=torch.bool, device=device), device)
+    sgrid, differ_scene, err_scene, ulps_scene, (windows_s, per_window_s) = _sor_check(
+        card, "bench scene 1's map", scene, torch.ones(N_MAP, dtype=torch.bool, device=device),
+        device)
+    scene_ms = (_device_ms(lambda: knn.knn_select_cuda(sgrid, scene, scene, 0.25, 60, True,
+                                                       order=sgrid.order))
+                if device == "cuda" else None)
+    print(f"[{card}] S1 on bench scene 1's map: device ms {_ms(scene_ms)}; {windows_s} windows "
+          f"staged (p50 {per_window_s} queries a window)")
+    del scene, sgrid
     n = MLS_N
     pts = torch.from_numpy(bs.mls_scene(n)).to(device)
     valid = torch.ones(n, dtype=torch.bool, device=device)
-    grid, differ, err, ulps = _sor_check(card, "the hardened corner", pts, valid, device)
+    grid, differ, err, ulps, (windows, per_window) = _sor_check(card, "the hardened corner",
+                                                                pts, valid, device)
 
     def kernel():
-        return knn.knn_select_cuda(grid, pts, pts, 0.25, 60, True)
+        return knn.knn_select_cuda(grid, pts, pts, 0.25, 60, True, order=grid.order)
 
     def twin():
         return knn.chunked_radius_neighbors(grid, pts, pts, 0.25, 60, exclude_self=True)
@@ -1882,7 +2136,13 @@ def phase_sor(card, device="cuda"):
     def build():
         return knn.build(pts, valid, 0.25, 2 * n, 60)
 
-    fns = {"build": build, "twin": twin}
+    def schedule():
+        return grid.order
+
+    def cell_order():
+        return knn.cell_order(pts, 0.25, 2 * n)
+
+    fns = {"build": build, "order": schedule, "cell_order": cell_order, "twin": twin}
     if device == "cuda":
         fns = {"kernel": kernel, **fns, "kernel again": kernel}
     dev_t = {k: _device_ms(fn, device) for k, fn in fns.items() if k != "twin"}
@@ -1891,7 +2151,7 @@ def phase_sor(card, device="cuda"):
     slots, inr = _slots_and_in_radius(grid, pts, pts, 0.25, exclude_self=True)
     over = inr > 60
     nbytes = (4 * 2 * n + 4 * int(torch.clamp(grid.counts, max=60).sum()) + 12 * n + 12 * n
-              + 9 * 60 * n)
+              + 4 * n + 9 * 60 * n)
     ops = S1_OPS_SLOT * int(slots.sum())
     kept = torch.clamp(inr, max=60).double()
     compares = int(inr[over].sum()) + float((kept * torch.log2(kept.clamp(min=1))).sum())
@@ -1904,7 +2164,16 @@ def phase_sor(card, device="cuda"):
           + f"; bound {b_ms:.3f} ms ({by}: {nbytes} B, {ops:.4g} f32 and {int_ops:.4g} "
           f"integer operations ({compares:.4g} 64-bit compares); "
           f"{int(slots.sum())} slots, {int(inr.sum())} in radius, {int(over.sum())} queries "
-          f"over 60), kernel at {share}")
+          f"over 60), kernel at {share}; {windows} windows staged (p50 {per_window} queries "
+          "a window)")
+    prof = _kernel_profile(lambda: sor.sor_stats(pts, valid, 60, 0.25, None, 60), device, reps=3)
+    a_call = None
+    if prof is not None:
+        print(f"[{card}] sor_stats device work a call ({_kernel_launches(prof)} kernel launches; "
+              "launches, mean us): "
+              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+        a_call = prof["knn_select_kernel"][0]
+        assert a_call == 1, prof
     return [{"name": "knn_select", "route": "cuda", "source": f"{PKG}/csrc/sor.cu",
              "replaces": "pointcloudprocessor_tpu/ops/knn.py:294",
              "max_abs_err": max(err, err_scene), "max_dist_ulp": max(ulps, ulps_scene),
@@ -1912,50 +2181,137 @@ def phase_sor(card, device="cuda"):
              "ms": t_k, "ms_again": dev_t.get("kernel again"), "call_ms": call_t.get("kernel"),
              "plain_ms": call_t["twin"], "plain_call_ms": call_t["twin"], "library_ms": None,
              "bound_ms": b_ms, "bound_by": by, "build_ms": dev_t["build"],
-             "build_call_ms": call_t["build"], "n": n}]
+             "build_call_ms": call_t["build"], "order_ms": dev_t["order"],
+             "cell_order_ms": dev_t["cell_order"], "windows": windows,
+             "queries_per_window": per_window, "scene_ms": scene_ms, "scene_windows": windows_s,
+             "scene_queries_per_window": per_window_s, "launches_a_call": a_call, "n": n}]
+
+
+# Off the bench's shapes: the ragged counts of phase_mls_edges (S1 takes 128
+# queries a block, M1 64: a lone point, one short of M1's chunk, one past
+# it, and a cloud three past a million).
+EDGE_SIZES = (1, 63, 65, 1_000_003)
+
+
+def _edge_clouds():
+    """{label: (points (n, 3) f32, valid (n,) bool)} of phase_mls_edges,
+    from numpy seeds: the NaN / inf cloud (a 20,000-point corner with NaN
+    and +-inf coordinates and 1% invalid), the cell-face cloud (a corner
+    whose points lie on faces of the SOR's 0.25 m cells and M1's 0.03 m
+    ones), the snapped cloud (every coordinate on one of the two lattices),
+    the lattice cloud (every coordinate on the 0.03 m lattice) and a corner
+    of each of ``EDGE_SIZES`` points."""
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+
+    p = bs.mls_scene(20_000, seed=3)
+    p[:3] = np.nan
+    p[3, 0], p[4, 2] = np.inf, -np.inf
+    clouds = {"the NaN / inf cloud": (p, np.arange(len(p)) % 100 != 7)}
+    f = bs.mls_scene(20_000, seed=4)
+    # mls_scene's pieces: the dense wall (the first half), the wall at x = 0
+    # (the next quarter), the sparse wall (the rest). Each wall's own axis on
+    # the 0.03 m lattice puts it on a face of both cells (z = 6 m = 200 x
+    # 0.03 = 24 x 0.25, x = 0); 1 in 16 points of the dense wall also has x
+    # on the 0.25 m lattice or y on the 0.03 m one, so that every axis meets
+    # faces without making a neighborhood collinear.
+    n_a, n_b = len(f) // 2, len(f) // 4
+    lattice = [(slice(0, n_a), 2, 0.03), (slice(n_a, n_a + n_b), 0, 0.03),
+               (slice(n_a + n_b, None), 2, 0.03), (slice(0, n_a, 16), 0, 0.25),
+               (slice(8, n_a, 16), 1, 0.03)]
+    for rows, axis, cell in lattice:
+        c = np.float32(cell)
+        f[rows, axis] = (np.round(f[rows, axis] / c) * c).astype(np.float32)
+    clouds["the cell-face cloud"] = (f, np.ones(len(f), bool))
+    # Every coordinate on a lattice: each wall's own axis on 0.03 m, of the
+    # in-plane ones 1 in 4 on 0.25 m, the rest on 0.03 m. Points pile up on
+    # lattice sites and lines: many neighborhoods are duplicated or
+    # collinear points, whose normal f32 sums do not determine (M1 is held
+    # there with the f64 witness of _conditioning).
+    g = bs.mls_scene(20_000, seed=4)
+    for rows, (own, u, v) in ((slice(0, n_a), (2, 0, 1)), (slice(n_a, n_a + n_b), (0, 1, 2)),
+                              (slice(n_a + n_b, None), (2, 0, 1))):
+        block = g[rows]
+        i = np.arange(len(block))
+        for axis, cell in ((own, 0.03), (u, np.where(i % 4 == 1, 0.25, 0.03)),
+                           (v, np.where(i % 4 == 3, 0.25, 0.03))):
+            c = np.asarray(cell, np.float32)
+            block[:, axis] = (np.round(block[:, axis] / c) * c).astype(np.float32)
+        g[rows] = block
+    clouds["the snapped cloud"] = (g, np.ones(len(g), bool))
+    # Every coordinate of every point on the 0.03 m lattice: the wall's own
+    # axis on a face of both cells, the points stacked on lattice sites.
+    lat = bs.mls_scene(20_000, seed=4)
+    c = np.float32(0.03)
+    clouds["the lattice cloud"] = ((np.round(lat / c) * c).astype(np.float32),
+                                   np.ones(len(lat), bool))
+    for n in EDGE_SIZES:
+        clouds[f"a {n}-point corner"] = (bs.mls_scene(n, seed=5), np.ones(n, bool))
+    return clouds
+
+
+def _shared_buckets(pts, valid, cell, table):
+    """Occupied cells (of the valid points) whose bucket holds another
+    occupied cell too."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops.voxel import voxel_coords, voxel_hash
+
+    cells = torch.unique(voxel_coords(pts[valid], cell), dim=0)
+    _, inverse, per_bucket = torch.unique(voxel_hash(cells, table), return_inverse=True,
+                                          return_counts=True)
+    return int((per_bucket[inverse] > 1).sum())
 
 
 def phase_mls_edges(card, device="cuda"):
-    """M1 and S1 off the bench's shapes: a 20,000-point corner with 1%
-    invalid points, NaN and infinite coordinates and 64 points a bucket
-    (M1 against its twin as in :func:`phase_mls`, NaN rows equal; S1 bit-equal
-    to its twin on NaN queries, K = 1 and K = 60); then ``smooth_cloud``
-    with each upsampling method on a flat 4,000-point patch, asserting the
-    JAX tests' properties (more points out than in, all on the plane) and,
-    on the card, one S1 launch for the VGD's nearest search besides the two
+    """M1 and S1 off the bench's shapes, each under the three schedules of
+    :func:`_schedules` against its twin (M1 as :func:`_mls_check`, S1 as
+    :func:`_s1_check`): on the clouds of :func:`_edge_clouds` (M1 with the
+    default MLSConfig, and with 64 points a bucket on the NaN / inf cloud;
+    S1 as the SOR calls it at K = 60 and, on shifted queries that are not
+    the points, at K = 1), and with tables of 7 (S1) and n / 8 and 5 (M1)
+    buckets, where most occupied cells share a bucket (with 5, a cell's 27
+    buckets list the same points many times over); M1 on the snapped and
+    lattice clouds and with 5 buckets under :func:`_conditioning`'s
+    witness, everywhere
+    else to the plain bounds; then ``smooth_cloud`` with
+    each upsampling method on a flat 4,000-point patch, asserting the JAX
+    tests' properties (more points out than in, all on the plane) and, on
+    the card, one S1 launch for the VGD's nearest search besides the two
     SORs."""
     import torch
 
     from pointcloudprocessor_tpu_torch.core import cloud as cl
     from pointcloudprocessor_tpu_torch.ops import knn, mls
-    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
     from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
 
-    p = bs.mls_scene(20_000, seed=3)
-    p[:3] = np.nan
-    p[3, 0], p[4, 2] = np.inf, -np.inf
-    pts = torch.from_numpy(p).to(device)
-    valid = torch.from_numpy(np.arange(len(p)) % 100 != 7).to(device)
-    kw = dict(search_radius=0.03, sqr_gauss_param=0.0009, polynomial_order=2,
-              bucket_capacity=64, table_size=10_000)
-    want = mls.mls_pass_plain(pts, valid, chunk_size=4096, **kw)
-    got = mls.mls_moments_cuda(pts, valid, **kw) if device == "cuda" else want
-    assert torch.equal(got[3], want[3]) and torch.equal(got[2].ok, want[2].ok)
-    flip = (~(got[1] != 0).any(1)) != (~(want[1] != 0).any(1))
-    finite = torch.isfinite(pts).all(1)
-    err = float((got[0] - want[0])[~flip & finite].abs().max())
-    nan_rows = torch.equal(got[0][~finite].isnan(), want[0][~finite].isnan())
-    print(f"M1 edges (NaN / inf points, 1% invalid, B 64): counts and ok bit-equal; positions "
-          f"within {err:.3e} m; {int(flip.sum())} zero-normal flips; non-finite rows alike: "
-          f"{nan_rows}")
-    assert err <= MLS_POS_TOL and nan_rows and (not flip.any() or int(got[3][flip].max()) <= 3)
-    grid = knn.build(pts, valid, 0.25, 40_000, 60)
-    for k, excl, q in ((60, True, pts), (1, False, pts[:5000] + 0.01)):
-        a = (knn.knn_select_cuda(grid, pts, q.contiguous(), 0.25, k, excl) if device == "cuda"
-             else knn.chunked_radius_neighbors(grid, pts, q, 0.25, k, exclude_self=excl))
-        b = knn.chunked_radius_neighbors(grid, pts, q, 0.25, k, exclude_self=excl)
-        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"S1 differs at K = {k}"
-    print("S1 edges: bit-equal to the twin at K = 60 (NaN / inf points) and K = 1")
+    cfg = cfg_mod.MLSConfig()
+    for label, (p, v) in _edge_clouds().items():
+        pts = torch.from_numpy(p).to(device)
+        valid = torch.from_numpy(v).to(device)
+        n = pts.shape[0]
+        shared = [_shared_buckets(pts, valid, cell, table)
+                  for cell, table in ((cfg.search_radius, max(n // 2, 1024)),
+                                      (0.25, max(2 * n, 1024)))]
+        print(f"{label}: occupied cells sharing a bucket with another, M1's grid / S1's: "
+              f"{shared[0]} / {shared[1]}")
+        if label == "the NaN / inf cloud":
+            assert shared[0] > 0, "the NaN / inf cloud has no bucket shared by two cells"
+        _mls_check(label, pts, valid, _mls_kw(cfg, n), device,
+                   witness=label in ("the snapped cloud", "the lattice cloud"))
+        grid = knn.build(pts, valid, 0.25, max(2 * n, 1024), 60)
+        _s1_check(label, grid, pts, pts, 60, True, device)
+        if label == "the NaN / inf cloud":
+            _mls_check(label + ", B 64", pts, valid,
+                       dict(_mls_kw(cfg, n), bucket_capacity=64, table_size=10_000), device)
+            q = (pts[:5000] + 0.01).contiguous()
+            _s1_check(label + ", shifted queries", grid, pts, q, 1, False, device)
+            _mls_check(label + ", n / 8 buckets", pts, valid,
+                       dict(_mls_kw(cfg, n), table_size=n // 8), device)
+            _mls_check(label + ", 5 buckets", pts, valid, dict(_mls_kw(cfg, n), table_size=5),
+                       device, witness=True)
+            _s1_check(label + ", 7 buckets", knn.build(pts, valid, 0.25, 7, 60), pts, pts, 60,
+                      True, device)
+        del pts, valid, grid
 
     rng = np.random.default_rng(6)
     flat = np.zeros((4000, 3), np.float32)

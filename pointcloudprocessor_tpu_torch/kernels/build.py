@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers that take raw
 device pointers and a ``cudaStream_t`` and return ``cudaGetLastError()``. At
 first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``kernels/_build/`` (git-ignored), named by a hash of the
-source and flags, and loaded with ctypes. A rebuild happens only when the
-source changes. A failed build raises with nvcc's output: there is no
-fallback.
+source, the headers it includes and the flags, and loaded with ctypes. A
+rebuild happens only when one of them changes. A failed build raises with
+nvcc's output: there is no fallback.
 
 Usage: ``library("nid_hist")`` returns the loaded ``ctypes.CDLL``;
 ``build("nid_hist")`` returns a :class:`Build` record (path, seconds spent
@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -75,10 +76,30 @@ def _source(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: str, seen: list[str]) -> list[str]:
+    """``path`` and the files it includes with quotes (from its directory),
+    each once, in the order first met."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def _digest(name: str) -> str:
+    """Hash of the source, of every header it includes with quotes (such as
+    ``csrc/cell_window.cuh``) and of the flags: a library is rebuilt when
+    any of them changes."""
     h = hashlib.sha256()
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    for path in _sources(_source(name), []):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

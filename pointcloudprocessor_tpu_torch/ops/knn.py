@@ -27,6 +27,10 @@ Two CUDA kernels live here: :func:`smooth_local_cuda` is N1
 (`csrc/sor.cu`), the K-nearest radius search of
 :func:`chunked_radius_neighbors` in one launch, which :func:`radius_search`
 takes on CUDA tensors (the SOR filter, the VGD upsampler's nearest source).
+S1 takes the queries in a schedule that groups equal cells (the grid's own
+sort order ``HashGrid.order`` where the caller's queries are the grid's
+points, else :func:`cell_order`) and stages each cell's 27-bucket window
+once a block in shared memory.
 ``launch_counts`` counts their launches.
 """
 
@@ -51,6 +55,10 @@ class HashGrid(NamedTuple):
     bucket_points: optional (T, 3B) point coordinates in bucket layout, each
         row [x_0..x_B-1, y_0.., z_0..], +inf in empty slots: the JAX
         package's planes (knn.py:94-105), kept for the plain MLS fit.
+    order: optional (N,) int32, the points sorted by bucket (stable; in a
+        bucket the valid before the invalid), which :func:`build` sorts
+        anyway: the schedule that a CUDA search whose queries are the
+        grid's points is given.
     """
 
     buckets: torch.Tensor
@@ -58,6 +66,7 @@ class HashGrid(NamedTuple):
     cell_size: float
     table_size: int
     bucket_points: torch.Tensor | None = None
+    order: torch.Tensor | None = None
 
 
 def build(
@@ -69,34 +78,37 @@ def build(
     store_points: bool = False,
 ) -> HashGrid:
     """The hash grid, built with a sort (no atomics), as the JAX package
-    builds it (knn.py:51-117): hash each valid point's cell (invalid points
-    go to a sink bucket), sort the indices by hash (stable, as
-    ``jnp.argsort``), rank each within its hash run, and scatter the index
-    to (bucket, rank) for rank < capacity. ``store_points`` also scatters
-    the coordinates into ``bucket_points``."""
+    builds it (knn.py:51-117): hash each point's cell, sort the indices by
+    hash (stable, as ``jnp.argsort``; an invalid point after the valid ones
+    of its bucket, where the JAX package sends it to a sink bucket), rank
+    each valid point within its hash run, and scatter the index to (bucket,
+    rank) for rank < capacity. The sorted indices are kept as ``order``.
+    ``store_points`` also scatters the coordinates into ``bucket_points``."""
     n = points.shape[0]
     dev = points.device
     h = voxel_hash(voxel_coords(points, cell_size), table_size)
-    h = torch.where(valid, h, table_size)
-    sorted_h, order = torch.sort(h, stable=True)
-    # A run's start is the first index of its hash in the sorted hashes (the
+    if table_size >= 2**30:
+        h = h.to(torch.int64)
+    sorted_k, order = torch.sort(h * 2 + ~valid, stable=True)
+    # A run's start is the first index of its key in the sorted keys (the
     # JAX package's cummax of the run starts; torch's cummax on the card
     # is a slow scan: 2.7 ms at 1M points).
-    rank = torch.arange(n, dtype=torch.int64, device=dev) - torch.searchsorted(sorted_h, sorted_h)
-    counts = torch.zeros((table_size + 1,), dtype=torch.int32, device=dev).scatter_add_(
-        0, h.long(), valid.to(torch.int32))[:table_size]
-    keep = (rank < bucket_capacity) & (sorted_h < table_size)
+    rank = torch.arange(n, dtype=torch.int64, device=dev) - torch.searchsorted(sorted_k, sorted_k)
+    counts = torch.zeros((table_size,), dtype=torch.int32, device=dev).scatter_add_(
+        0, h.long(), valid.to(torch.int32))
+    keep = (rank < bucket_capacity) & (sorted_k % 2 == 0)
     flat_slot = torch.where(
-        keep, sorted_h.long() * bucket_capacity + torch.clamp(rank, max=bucket_capacity - 1),
+        keep, (sorted_k // 2).long() * bucket_capacity + torch.clamp(rank, max=bucket_capacity - 1),
         table_size * bucket_capacity,
     )
+    order = order.to(torch.int32)
     buckets = torch.full((table_size * bucket_capacity + 1,), -1, dtype=torch.int32, device=dev)
-    buckets[flat_slot] = order.to(torch.int32)
+    buckets[flat_slot] = order
     bucket_points = None
     if store_points:
         bp = torch.full((table_size * bucket_capacity + 1, 3), torch.inf, dtype=points.dtype,
                         device=dev)
-        bp[flat_slot] = points[order]
+        bp[flat_slot] = points[order.long()]
         # (T, B, 3) -> (T, 3, B) -> (T, 3B), coordinate-major rows.
         bucket_points = (bp[:-1].reshape(table_size, bucket_capacity, 3).transpose(1, 2)
                          .reshape(table_size, 3 * bucket_capacity))
@@ -106,6 +118,7 @@ def build(
         cell_size=cell_size,
         table_size=table_size,
         bucket_points=bucket_points,
+        order=order,
     )
 
 
@@ -127,6 +140,19 @@ def pack_cell_key(cells: torch.Tensor):
     c = cells + 512
     fits = torch.all((c >= 0) & (c < 1024))
     return c[..., 0] | (c[..., 1] << 10) | (c[..., 2] << 20), fits
+
+
+def cell_order(query_points: torch.Tensor, cell_size: float, table_size: int) -> torch.Tensor:
+    """(M,) int32 permutation of the queries sorted by (bucket hash, packed
+    cell key) (:func:`pack_cell_key`), stably: equal cells next to each
+    other, hash collisions and all, while the cells fit the key's extent (a
+    cell past it may share its key and hash with another, and only then
+    interleave with it)."""
+    cells = voxel_coords(query_points, cell_size)
+    key, _ = pack_cell_key(cells)
+    h = voxel_hash(cells, table_size)
+    lex = (h.to(torch.int64) << 32) | (key.to(torch.int64) + 2**31)
+    return torch.sort(lex, stable=True).indices.to(torch.int32)
 
 
 def _planes(rows: torch.Tensor, m: int):
@@ -272,18 +298,20 @@ def radius_search(
     max_neighbors: int,
     chunk_size: int = 65536,
     exclude_self: bool = False,
+    order: torch.Tensor | None = None,
 ):
     """:func:`chunked_radius_neighbors` by device: CPU tensors take it as it
     is (the plain version); CUDA tensors launch S1
-    (:func:`knn_select_cuda`), one launch for all queries, with the same
-    indices, distances and flags. Any other device raises."""
+    (:func:`knn_select_cuda`, taking the queries in ``order``), one launch
+    for all queries, with the same indices, distances and flags. Any other
+    device raises."""
     dev = query_points.device.type
     if dev == "cpu":
         return chunked_radius_neighbors(grid, points, query_points, radius, max_neighbors,
                                         chunk_size, exclude_self)
     if dev == "cuda":
         return knn_select_cuda(grid, points.contiguous(), query_points.contiguous(), radius,
-                               max_neighbors, exclude_self)
+                               max_neighbors, exclude_self, order=order)
     raise NotImplementedError(f"radius_search: no kernel for device {query_points.device}")
 
 
@@ -308,9 +336,9 @@ _SIGNATURES = {
 }
 MAX_BUCKET_CAPACITY = 32  # csrc/smooth.cu kMaxB
 _SELECT_SIGNATURES = {
-    # buckets, counts, points, queries, idx, dist, ok, n_q, table, cap, cell, r2, k,
-    # exclude_self, stream
-    "knn_select": ([_PTR] * 7 + [_I32] * 3 + [_F32] * 2 + [_I32] * 2 + [_PTR], _I32),
+    # buckets, counts, points, queries, order, idx, dist, ok, run_sizes, n_sizes, n_q,
+    # table, cap, cell, r2, k, exclude_self, stream
+    "knn_select": ([_PTR] * 9 + [_I32] * 4 + [_F32] * 2 + [_I32] * 2 + [_PTR], _I32),
 }
 MAX_SELECT_CAPACITY = 128  # csrc/sor.cu kMaxB
 
@@ -322,6 +350,17 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous of shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _run_sizes(run_sizes: torch.Tensor | None, device) -> tuple[int | None, int]:
+    """(pointer, length) of an optional (L,) int32 histogram of the windows
+    a launch stages; (None, 0) without one."""
+    if run_sizes is None:
+        return None, 0
+    if run_sizes.dim() != 1 or run_sizes.numel() < 1:
+        raise ValueError(f"run_sizes must be of shape (L,), L >= 1, got {tuple(run_sizes.shape)}")
+    _check("run_sizes", run_sizes, torch.int32, run_sizes.shape, device)
+    return run_sizes.data_ptr(), run_sizes.numel()
 
 
 def smooth_local_cuda(grid: HashGrid, points: torch.Tensor, rgb: torch.Tensor,
@@ -360,14 +399,21 @@ def smooth_local_cuda(grid: HashGrid, points: torch.Tensor, rgb: torch.Tensor,
 
 
 def knn_select_cuda(grid: HashGrid, points: torch.Tensor, query_points: torch.Tensor,
-                    radius: float, max_neighbors: int, exclude_self: bool = False):
+                    radius: float, max_neighbors: int, exclude_self: bool = False,
+                    order: torch.Tensor | None = None, run_sizes: torch.Tensor | None = None):
     """S1 on the card: :func:`chunked_radius_neighbors` for all queries in
     one launch — (idx (M, K) int32, dist (M, K) f32, ok (M, K) bool), K =
     min(max_neighbors, 27 * B): the K smallest squared distances within
     ``radius`` (ties to the lower candidate position, a bucket listed twice
     where two cells share it), nearest first, -1 / +inf / False in empty
     slots; with ``exclude_self`` query i skips point i (the queries are then
-    the points). The plain version is :func:`chunked_radius_neighbors`."""
+    the points). The kernel takes the queries in ``order``, an (M,) int32
+    permutation (default :func:`cell_order`; a caller whose queries are the
+    grid's points passes ``grid.order``), and stages the window of each
+    cell among a block's queries once; the results, in query order, do not
+    depend on it. ``run_sizes``, where given, an (L,) int32 tensor on the
+    card, gains 1 at min(s, L - 1) for each window the launch stages, s its
+    queries. The plain version is :func:`chunked_radius_neighbors`."""
     dev = query_points.device
     if dev.type != "cuda":
         raise ValueError(f"knn_select_cuda: queries must be on a CUDA device, got {dev}")
@@ -388,12 +434,16 @@ def knn_select_cuda(grid: HashGrid, points: torch.Tensor, query_points: torch.Te
     ok = torch.empty((m, k), dtype=torch.bool, device=dev)
     if m == 0:
         return idx, dist, ok
+    if order is None:
+        order = cell_order(query_points, grid.cell_size, t)
+    _check("order", order, torch.int32, (m,), dev)
+    sizes_ptr, n_sizes = _run_sizes(run_sizes, dev)
     r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
     err = kbuild.library("sor", _SELECT_SIGNATURES).knn_select(
         grid.buckets.data_ptr(), grid.counts.data_ptr(), points.data_ptr(),
-        query_points.data_ptr(), idx.data_ptr(), dist.data_ptr(), ok.data_ptr(), m, t, cap,
-        float(grid.cell_size), r2, k, int(bool(exclude_self)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        query_points.data_ptr(), order.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+        ok.data_ptr(), sizes_ptr, n_sizes, m, t, cap, float(grid.cell_size), r2, k,
+        int(bool(exclude_self)), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_select launch failed: CUDA error {err}")
     launch_counts["knn_select"] += 1

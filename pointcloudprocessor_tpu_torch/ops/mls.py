@@ -17,7 +17,9 @@ plain version, the JAX package's pass op for op (the cell-sorted,
 run-deduplicated candidate fetch with its per-query fallback included);
 on CUDA tensors the grid is built with torch ops and the M1 kernel
 (`csrc/mls.cu`) does the fetch, the fit and the projection of every point in
-one launch. ``launch_counts`` counts its launches. The top-K fit
+one launch, taking the points in the grid's sort order and staging each
+cell's candidate window once a block (the TPU's dedup fetch, redone for
+shared memory). ``launch_counts`` counts its launches. The top-K fit
 (``fit_impl="topk"``) is plain torch on every device.
 
 The JAX package runs its pass under ``jit``, where XLA divides by the cell
@@ -390,7 +392,7 @@ def mls_smooth(
     ``fit_impl="moments"`` (the default) fits over every in-radius
     candidate: on CPU tensors by the plain pass (``dedup_candidates`` as
     the JAX package's), on CUDA tensors by M1, one launch, where
-    ``dedup_candidates`` changes nothing (the kernel reads each query's
+    ``dedup_candidates`` changes nothing (the kernel stages each cell's
     window itself). ``"topk"`` fits over the ``cfg.max_neighbors``
     nearest, plain torch on every device."""
     n = points.shape[0]
@@ -425,21 +427,28 @@ def reset_launch_counts() -> None:
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # buckets, counts, points, pos, nrm, origin, normal, tu, tv, coeffs, ok, cnt,
-    # n, table, cap, cell, r2, sqr_gauss, order, stream
-    "mls_moments": ([_PTR] * 12 + [_I32] * 3 + [_F32] * 3 + [_I32, _PTR], _I32),
+    # buckets, counts, points, schedule, pos, nrm, origin, normal, tu, tv, coeffs, ok,
+    # cnt, run_sizes, n_sizes, n, table, cap, cell, r2, sqr_gauss, order, stream
+    "mls_moments": ([_PTR] * 14 + [_I32] * 4 + [_F32] * 3 + [_I32, _PTR], _I32),
 }
 MAX_BUCKET_CAPACITY = 128  # csrc/mls.cu kMaxB
 
 
 def mls_moments_cuda(points, valid, *, search_radius, sqr_gauss_param, polynomial_order,
-                     bucket_capacity, table_size, grid: knn.HashGrid | None = None):
+                     bucket_capacity, table_size, grid: knn.HashGrid | None = None,
+                     order: torch.Tensor | None = None, run_sizes: torch.Tensor | None = None):
     """M1 on the card: the moments pass of :func:`mls_pass_plain` over the
     hash grid of the valid points (torch ops; ``grid``, where given, is that
     grid built already), then one launch that, for every point, reads the
     in-radius candidates of its 27 cells, fits the weighted plane and
-    polynomial and projects the point. Returns (positions, normals,
-    MLSSurface, in-radius counts (N,) int32)."""
+    polynomial and projects the point. The kernel takes the points in
+    ``order``, an (N,) int32 permutation (default: the grid's own sort
+    order ``grid.order``, else :func:`knn.cell_order`), and stages the
+    window of each cell among a block's points once; the results, in point
+    order, do not depend on it. ``run_sizes``, where given, an (L,) int32
+    tensor on the card, gains 1 at min(s, L - 1) for each window the launch
+    stages, s its points. Returns
+    (positions, normals, MLSSurface, in-radius counts (N,) int32)."""
     dev = points.device
     if dev.type != "cuda":
         raise ValueError(f"mls_moments_cuda: points must be on a CUDA device, got {dev}")
@@ -459,13 +468,19 @@ def mls_moments_cuda(points, valid, *, search_radius, sqr_gauss_param, polynomia
     ok = torch.empty((n,), dtype=torch.bool, device=dev)
     cnt = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
+        if order is None:
+            order = (grid.order if grid.order is not None
+                     else knn.cell_order(points, grid.cell_size, table_size))
+        knn._check("order", order, torch.int32, (n,), dev)
+        sizes_ptr, n_sizes = knn._run_sizes(run_sizes, dev)
         r2 = torch.tensor(search_radius * search_radius, dtype=torch.float32).item()
         sg = torch.tensor(sqr_gauss_param, dtype=torch.float32).item()
         err = kbuild.library("mls", _SIGNATURES).mls_moments(
             grid.buckets.data_ptr(), grid.counts.data_ptr(), points.data_ptr(),
-            *(t.data_ptr() for t in out3), coeffs.data_ptr(), ok.data_ptr(), cnt.data_ptr(),
-            n, table_size, bucket_capacity, float(search_radius), r2, sg,
-            int(polynomial_order), torch.cuda.current_stream(dev).cuda_stream)
+            order.data_ptr(), *(t.data_ptr() for t in out3), coeffs.data_ptr(),
+            ok.data_ptr(), cnt.data_ptr(), sizes_ptr, n_sizes, n, table_size, bucket_capacity,
+            float(search_radius), r2, sg, int(polynomial_order),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"mls_moments launch failed: CUDA error {err}")
         launch_counts["mls_moments"] += 1

@@ -53,7 +53,7 @@ def sor_stats(
     grid = knn.build(points, valid, cell_size, table_size, bucket_capacity)
     _, dist, ok = knn.radius_search(grid, points, points, radius=cell_size,
                                     max_neighbors=mean_k, chunk_size=chunk_size,
-                                    exclude_self=True)
+                                    exclude_self=True, order=grid.order)
     cnt = torch.sum(ok, dim=1)
     total = torch.sum(torch.where(ok, dist, 0.0), dim=1)
     return torch.where(cnt > 0, total / torch.clamp(cnt, min=1), torch.inf)
