@@ -8,10 +8,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for matmuls and cuDNN.
-2. Build: compiles the seven kernel libraries (csrc/nid_hist.cu: K1/K2,
-   csrc/tap_gather.cu: K3/K4, csrc/zbuffer.cu: K5 zmin and zbuffer_visible,
-   csrc/hpr.cu: H1 hpr_support and H2 hpr_grid, csrc/smooth.cu: N1
-   smooth_local, csrc/mls.cu: M1 mls_moments, csrc/sor.cu: S1 knn_select)
+2. Build: compiles the eight kernel libraries (csrc/nid_hist.cu: K1/K2,
+   csrc/tap_gather.cu: G1 tap_take and K3/K4, csrc/zbuffer.cu: K5 zmin and
+   zbuffer_visible, csrc/colorize.cu: C1 colorize_scatter and
+   colorize_update, csrc/hpr.cu: H1 hpr_support and H2 hpr_grid,
+   csrc/smooth.cu: N1 smooth_local, csrc/mls.cu: M1 mls_moments,
+   csrc/sor.cu: S1 knn_select)
    with nvcc for sm_90a, one nvcc each, started together, from the sources
    in this checkout.
 3. K1/K2 against their plain torch twins on the random set at the main
@@ -38,15 +40,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    coarse-to-fine stride 16, frozen taps with guard 0.75, ftol 3e-4).
    Asserts the recovered correction is within 1 cm / 1 degree of T0, a
    finite NID, colored points whose colors follow the rendered texture, K1/K2
-   launches at both shapes (counted by points a keyframe), and 16 launches
-   each of zmin and zbuffer_visible (8 culls + 8 colorize observations, one
-   launch of each a cull).
-5. K3/K4 (each one launch that plans and selects) on the scene's own 8 x
-   4096x3000 row tables, the culled points raster-sorted at the start pose:
-   at that pose (clean groups; fast path) and at T0 (overflow; fallback),
-   each kernel bit-equal to its twin on every row, flag and count (also
-   with a masked step and a ragged point count), equal to the direct take
-   on the ok rows of clean groups, and the whole grouped take equal to it
+   launches at both shapes (counted by points a keyframe), 8 launches each
+   of zmin and zbuffer_visible (the NID culls) and of colorize_scatter and
+   colorize_update (C1, a colorize keyframe each), and one G1 tap_take a
+   direct take: each coarse evaluation, each frozen-tap gather and the final
+   exact evaluation (26 + 5 + 1 on the scene).
+5. G1 and K3/K4 (each one launch; K3/K4 plan and select) on the scene's own
+   8 x 4096x3000 row tables, the culled points raster-sorted at the start
+   pose. G1 bit-equal to its twin and to ``tap_rows[kf, anchor]`` on every
+   point at the start pose and at T0 and to its twin on edge knots (the
+   image's borders, negative, +-1e9, the int32 extremes); its device / call
+   / host times beside the twin, the eager take, ``index_select`` and the
+   bound. K3/K4 at that pose (clean groups; fast path) and at T0
+   (overflow; fallback), each bit-equal to its twin on every row, flag and
+   count (also with a masked step and a ragged point count), equal to the
+   direct take on the ok rows of clean groups, and the whole grouped take
+   equal to it
    on every ok row. Median times of the kernel, the twin,
    ``index_select``, the direct take with an int64 index and as
    ``_gather_taps`` pays it, the whole grouped take at the sort pose and at
@@ -75,11 +84,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    a cull, and the same for step 0 (the eager gate, then ``zmin`` and
    ``zbuffer_visible`` with cells given), the cells-given twins and
    ``scatter_reduce_``.
+7b. C1 (``phase_colorize``): ``colorize.fuse_keyframe`` (a memset, then
+   ``colorize_scatter`` and ``colorize_update``) bit-equal to its twin run
+   on the card, every field of the fusion state after every keyframe, over
+   the scene's 8 keyframes twice in a row at T0: without and with masks
+   (labels from the seed), with HSV (0.7, 1.2), reference_compat and optimal
+   distance 3.0, under HPR (H2, then pass (b) alone), on the edge set of
+   ``bench_scene.cull_edge_points`` put in front of the camera, on a ragged
+   n and n = 0; the mask dumps (``keyframe_rgb_mask``) bit-equal to theirs;
+   the twin's divisions on the card against the CPU's on all 2^24 colors and
+   the scene's scores (``c1_division_check``, with a Python-number divisor
+   and with the twin's 0-dim tensor); at keyframe 0 the step's and each
+   pass's device time (``torch.profiler``, a memset and two launches a step
+   asserted, one launch of pass (b) under HPR) beside the bound counted
+   from the call's data, the twin's, and the whole ``fuse`` through C1 and
+   through the twin.
 8. The HPR + smoothing path: ``runner.process`` under the headline
    schedule with ``culling.method="hpr"`` (``hpr_impl`` "auto": the grid at
    1M points) and ``fusion.local_smoothing_radius`` = ``SMOOTH_RADIUS``.
    Asserts as phase 4, with 16 launches of H2 (8 NID culls + 8 colorize
-   observations), one of N1 and none of the z-buffer kernels or H1.
+   observations), 8 of C1's pass (b) and none of its pass (a), one of N1 and
+   none of the z-buffer kernels or H1.
 9. H1 (``phase_hpr_dense``): the dense cull on the two-wall scene at
    100,000 and 262,144 points bit-equal to its twin run on the CPU on the
    same inputs (all directions, then every 16th); against the twin run on
@@ -99,9 +124,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    mask folder set. Asserts what tests/test_pipeline_e2e.py's
    test_e2e_with_masks asserts (labels follow the mask, highlighted points
    are red, one dump per keyframe, the accumulated cloud is the sum of the
-   dumps) and 24 launches each of zmin and zbuffer_visible (+8 dumps).
+   dumps), 8 launches each of zmin and zbuffer_visible and 16 of each C1
+   pass (+8 dumps).
 13. The earlier path: ``runner.process`` under the plain objective (2 outer
-   x 20 inner), as in phase 4 otherwise.
+   x 20 inner), as in phase 4 otherwise, with one G1 launch an evaluation.
 14. The MLS path: ``runner.process`` with bench.py's e2e MLS config
    (``bench_scene.e2e_config``: MLS on, ``upsampling="none"``) under the
    headline schedule. Asserts as phase 4 (the texture bar outside the
@@ -144,9 +170,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    occupied cells sharing a bucket counted; ``smooth_cloud`` with each
    upsampling method on a flat patch, with one more S1 launch for the
    VGD's nearest-source search.
-18. Tools at full scale: ``tools/colorize_anatomy`` and
-   ``tools/zbuffer_probe``, each printing its JSON line; both must report
-   non-null kernel times and exact masks / buffers.
+18. Tools at full scale: ``tools/colorize_anatomy`` (the eager stages and
+   the production C1 fuse) and ``tools/zbuffer_probe``, each printing its
+   JSON line; both must report non-null kernel times and exact masks /
+   buffers (and fuses).
 
 The launch counts are set to 0 just before each path and read just after;
 a kernel's ``launches`` are those of the headline run, H1/H2/N1's those of
@@ -171,6 +198,12 @@ schedule (``run_sizes``), of the corner and ``scene_*`` of the map, and
 ``launches_a_call``
 (``torch.profiler``: kernel launches a ``sor_stats`` / ``mls_smooth``
 call, asserted 1).
+C1's records (colorize_scatter, colorize_update) carry their pass's device
+time as ``ms`` (``torch.profiler``), the twin's as ``plain_ms`` (for pass
+(a) the transform, projection, gate, cell and scatter-min; for pass (b) the
+whole twin step), ``step_ms`` / ``call_ms`` of the step, ``fuse_call_ms``
+and ``fuse_twin_call_ms`` and the division check's counts. G1 carries its
+device time beside ``index_select`` (``library_ms``) and the eager take.
 K5/Z1 carry their pass's device time as ``ms`` and its twin's (the gate,
 the cell and the scatter-min or the test, in plain torch on the same
 inputs) as ``plain_ms``, a whole cull's call as ``call_ms``, the mask's
@@ -245,13 +278,13 @@ def phase_env():
 
 
 def phase_build():
-    """The seven kernel libraries, one nvcc each, started together."""
+    """The eight kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pointcloudprocessor_tpu_torch.kernels import build as kbuild
 
     t0 = time.perf_counter()
-    names = ("nid_hist", "tap_gather", "zbuffer", "hpr", "smooth", "mls", "sor")
+    names = ("nid_hist", "tap_gather", "zbuffer", "colorize", "hpr", "smooth", "mls", "sor")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(kbuild.build, names))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} libraries in parallel")
@@ -684,20 +717,23 @@ def _config(root, nid, masks=False, hpr=False, mls=False):
 
 def _reset_counts():
     from pointcloudprocessor_tpu_torch.ops import hpr, knn, mls, nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.pipeline import colorize
 
-    for mod in (nid_hist, tap_gather, zbuffer, hpr, knn, mls):
+    for mod in (nid_hist, tap_gather, zbuffer, colorize, hpr, knn, mls):
         mod.reset_launch_counts()
 
 
 def _read_counts():
     from pointcloudprocessor_tpu_torch.ops import hpr, knn, mls, nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.pipeline import colorize
 
     by_n = {name: {} for name in nid_hist.launch_counts}
     for (name, n), c in sorted(nid_hist.launch_shapes.items()):
         by_n[name][str(n)] = c
     return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
             **{f"{k}_fallbacks": v for k, v in tap_gather.fallback_counts.items()},
-            **zbuffer.launch_counts, **hpr.launch_counts, **knn.launch_counts,
+            **zbuffer.launch_counts, **colorize.launch_counts, **hpr.launch_counts,
+            **knn.launch_counts,
             **mls.launch_counts, "nid_hist_by_n": by_n}
 
 
@@ -708,27 +744,46 @@ def _pose_error(T, T0):
     return float(dt) * 100.0, float(np.degrees(float(dr)))
 
 
-def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False, mls=False):
+def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False, mls=False,
+                 eager=False):
     """``runner.process`` on the smoke scene under ``nid`` (with the mask
     folder if ``masks``; with HPR culling and local smoothing if ``hpr``;
     with the MLS map stage if ``mls``), the launch counts set to 0 just
     before it and read just after. Asserts the planted error is recovered
     to 1 cm / 1 deg, a finite NID, colored points whose colors follow the
     rendered texture, the mask outputs (:func:`check_mask_outputs`), and on
-    the card K1/K2 launches and one launch of each cull kernel a cull (zmin
-    and zbuffer_visible, or with ``hpr`` H2 hpr_grid): K for the NID
-    keyframes, K for colorize, K more for the mask dumps; with ``hpr`` one
-    N1 smooth_local launch; with ``mls`` one M1 mls_moments and two S1
-    knn_select launches (the two SOR passes), and the MLS stage's split."""
+    the card K1/K2 launches; one launch of each z-buffer kernel (zmin and
+    zbuffer_visible) a NID keyframe; one of each C1 pass (colorize_scatter
+    and colorize_update) a colorize keyframe and, with masks, a dump; with
+    ``hpr`` H2 hpr_grid for all of those culls and C1's pass (b) alone, and
+    one N1 smooth_local launch; one G1 tap_take a direct take; with ``mls``
+    one M1 mls_moments and two S1 knn_select launches (the two SOR passes),
+    and the MLS stage's split. With ``eager`` (no masks) C1 and G1 give way
+    to their twins (``fuse_keyframe_plain``, ``direct_take_plain``): the
+    eager path they replaced, whose colorize culls take the z-buffer
+    kernels. Returns (launches, summary): the pose, NID, evaluations,
+    gathers, colored points, the colored cloud's SHA-256 and the
+    ``colorize_fuse`` stage's seconds."""
+    import hashlib
+
     from pointcloudprocessor_tpu_torch.io import pcd
-    from pointcloudprocessor_tpu_torch.pipeline import runner
+    from pointcloudprocessor_tpu_torch.ops import tap_gather
+    from pointcloudprocessor_tpu_torch.pipeline import colorize, runner
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
     cfg = _config(root, nid, masks, hpr, mls)
     shutil.rmtree(cfg.output_path, ignore_errors=True)
+    kernels = (colorize.fuse_keyframe, tap_gather.direct_take)
+    if eager:
+        assert not masks
+        colorize.fuse_keyframe = colorize.fuse_keyframe_plain
+        tap_gather.direct_take = tap_gather.direct_take_plain
     _reset_counts()
     t0 = time.perf_counter()
-    res = runner.process(cfg, device)
+    try:
+        res = runner.process(cfg, device)
+    finally:
+        colorize.fuse_keyframe, tap_gather.direct_take = kernels
     wall = time.perf_counter() - t0
     launches = _read_counts()
     with open(os.path.join(cfg.output_path, "metrics.jsonl")) as f:
@@ -745,20 +800,49 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     assert np.isfinite(res.nid_value), res.nid_value
     assert err_cm < 1.0 and err_deg < 1.0, "refine did not recover the planted error"
     assert res.num_colored_points > 0
+    with open(res.colored_cloud_path, "rb") as f:
+        summary = {"T": (res.T_correction.q.tolist(), res.T_correction.t.tolist()),
+                   "nid": res.nid_value, "evaluations": res.nid_evaluations,
+                   "gathers": refined["gathers"], "colored": res.num_colored_points,
+                   "colored_pcd_sha256": hashlib.sha256(f.read()).hexdigest(),
+                   "colorize_fuse_s": res.timings["colorize_fuse"]}
     if device == "cuda":
         assert launches["nid_hist_fwd"] > 0 and launches["nid_hist_bwd"] > 0, launches
         for name, by_n in launches["nid_hist_by_n"].items():
             assert sum(by_n.values()) == launches[name], launches
         if nid.coarse_outer_iterations:  # both shapes of the coarse-to-fine solve
             assert len(launches["nid_hist_by_n"]["nid_hist_fwd"]) == 2, launches
-        culls = (3 if masks else 2) * K
+    if device == "cuda" and eager:  # the NID and colorize culls on the z-buffer kernels
+        assert launches["tap_take"] == launches["colorize_scatter"] == 0, launches
+        assert launches["colorize_update"] == 0, launches
+        assert launches["zmin"] == launches["zbuffer_visible"] == 2 * K, launches
+    elif device == "cuda":
+        # The NID culls take the z-buffer kernels (or H2) once a keyframe;
+        # colorize and, with masks, the dumps take C1 once a keyframe each
+        # (a memset and both passes, or under HPR H2 and pass (b)).
+        steps = (2 if masks else 1) * K
         if hpr:
-            assert launches["hpr_grid"] == culls and launches["hpr_support"] == 0, launches
+            assert launches["hpr_grid"] == K + steps and launches["hpr_support"] == 0, launches
             assert launches["zmin"] == launches["zbuffer_visible"] == 0, launches
+            assert launches["colorize_scatter"] == 0, launches
+            assert launches["colorize_update"] == steps, (steps, launches)
             assert launches["smooth_local"] == 1, launches
         else:
-            assert launches["zmin"] == launches["zbuffer_visible"] == culls, (culls, launches)
+            assert launches["zmin"] == launches["zbuffer_visible"] == K, launches
+            assert launches["colorize_scatter"] == launches["colorize_update"] == steps, (
+                steps, launches)
             assert launches["hpr_grid"] == launches["smooth_local"] == 0, launches
+        # G1: one launch a direct take. Every evaluation of the plain
+        # objective gathers (the coarse phase's, all of the plain schedule's);
+        # with frozen taps so does each refresh of the cache, the first
+        # included, and the final exact evaluation.
+        if nid.frozen_taps:
+            coarse = sum(c for n, c in launches["nid_hist_by_n"]["nid_hist_fwd"].items()
+                         if int(n) < N_CULL)
+            takes = coarse + refined["gathers"] + 1
+        else:
+            takes = launches["nid_hist_fwd"]
+        assert launches["tap_take"] == takes, (takes, launches)
         assert launches["mls_moments"] == (1 if mls else 0), launches
         assert launches["knn_select"] == (2 if mls else 0), launches
     if mls:
@@ -803,7 +887,7 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         assert corr_open > 0.8 and corr > 0.7, (corr, corr_open)
     else:
         assert corr > 0.8, corr
-    return launches
+    return launches, summary
 
 
 def check_mask_outputs(res, out_dir, label):
@@ -893,14 +977,45 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
     takes = {"tap_select": ("grouped_take_slabbed", tg.grouped_take_slabbed, True),
              "tap_streamed": ("grouped_take_streamed", tg.grouped_take_streamed, "streamed")}
     records = {name: {"max_abs_err": 0.0} for name in kernels}
+    g1_rec = {"name": "tap_take", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
+              "replaces": "pointcloudprocessor_tpu/opt/nid.py:514", "max_abs_err": 0.0}
+    # G1 on the edge knots: each keyframe's corners and edges, one past them,
+    # negative, +-1e9 (behind the camera) and the int32 extremes, crossed,
+    # then 3,001 knots drawn in [-1e9, 1e9] (a ragged count).
+    w, h = camera.width, camera.height
+    ends = np.asarray([0, 1, w - 1, w, w + 1, -1, -7, 10**9, -10**9, 2**31 - 1, -2**31], np.int64)
+    uu, vv = np.meshgrid(ends, np.concatenate([ends[:2], [h - 1, h, h + 1], ends[5:]]))
+    rs = np.random.default_rng(SEED)
+    edge = np.concatenate([np.stack([uu.ravel(), vv.ravel()], -1),
+                           rs.integers(-10**9, 10**9, (3001, 2))]).astype(np.int32)
+    edge = torch.from_numpy(np.stack([np.roll(edge, j, axis=0) for j in range(k)])).to(device)
+    e_got = tg.direct_take(kfs.tap_rows, edge, w, h)
+    e_want = tg.direct_take_plain(kfs.tap_rows, edge, w, h)
+    assert torch.equal(e_got, e_want), "G1 != its twin on the edge knots"
+    print(f"G1 tap_take on {k} x {edge.shape[1]} edge knots: bit-equal to its twin")
     for pose_label, T in (("sort pose", se3.identity(device)), ("planted T0", T0.to(device))):
         _, knot, inl = nid._project_all(camera, T, kfs)
-        anchor = nid._anchors(camera, knot)
+        anchor = tg.anchors(knot, camera.width, camera.height)
         flat = (anchor + torch.arange(k, dtype=torch.int32, device=device)[:, None] * r).reshape(-1)
         ok = inl.reshape(-1)
         n = flat.shape[0]
         flat64 = flat.long()
         direct = rows[flat64]
+        # G1, the direct take as _gather_taps runs it: one launch, bit-equal
+        # to its twin and to tap_rows[kf, anchor] on every point.
+        _reset_counts()
+        g1 = tg.direct_take(kfs.tap_rows, knot, camera.width, camera.height)
+        g1_launches = _read_counts()["tap_take"]
+        g1_twin = tg.direct_take_plain(kfs.tap_rows, knot, camera.width, camera.height)
+        assert torch.equal(g1, g1_twin), f"G1 != its twin at the {pose_label}"
+        assert torch.equal(g1.reshape(-1, 2), direct), f"G1 != tap_rows[kf, anchor] at the {pose_label}"
+        assert device != "cuda" or g1_launches == 1, g1_launches
+        g1_rec["max_abs_err"] = max(g1_rec["max_abs_err"],
+                                    float((g1.long() - g1_twin.long()).abs().max()))
+        print(f"G1 tap_take at the {pose_label}: {k} x {n // k} knots ({int(ok.sum())} gated in) "
+              "bit-equal to its twin and to tap_rows[kf, anchor] on every point")
+        if pose_label == "sort pose":
+            g1_rec.update(_g1_times(card, camera, kfs, knot, flat, kf_idx, anchor, device))
         for name, kernel in kernels.items():
             take_name, take, use_grouped = takes[name]
             got = kernel(rows, flat, ok, slab=slab)
@@ -1002,11 +1117,52 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
         print(f"[{card}] {name}: whole grouped take {_ms(rec['take_ms'])} ms at the sort pose, "
               f"{_ms(rec['fallback_take_ms'])} ms at T0")
     return [
+        g1_rec,
         {"name": "tap_select", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
          "replaces": "pointcloudprocessor_tpu/ops/tap_gather.py:95", **records["tap_select"]},
         {"name": "tap_streamed", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
          "replaces": "pointcloudprocessor_tpu/ops/tap_gather.py:343", **records["tap_streamed"]},
     ]
+
+
+def _g1_times(card, camera, kfs, knot, flat, kf_idx, anchor, device):
+    """G1's device / call / host times at the scene's shape beside its twin,
+    the eager take (``tap_rows[kf, anchor]`` with the anchors given, as
+    ``_gather_taps`` took it before G1), ``index_select`` on the flat index
+    and the bound: each knot read once, each distinct row its points clip
+    to read once (8 B), the taps written once."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
+
+    w, h = camera.width, camera.height
+    rows = kfs.tap_rows.reshape(-1, 2)
+    fns = {
+        "kernel": lambda: tg.direct_take(kfs.tap_rows, knot, w, h),
+        "twin": lambda: tg.direct_take_plain(kfs.tap_rows, knot, w, h),
+        "eager take": lambda: kfs.tap_rows[kf_idx, anchor.long()],
+        "index_select": lambda: torch.index_select(rows, 0, flat),
+    }
+    dev_t = {key: _device_ms(fn, device) for key, fn in fns.items()}
+    dev_t["kernel again"] = _device_ms(fns["kernel"], device)
+    call_t = {key: _median_ms(fn, device) for key, fn in fns.items()}
+    host_t = {key: _host_us(fns[key], device) for key in ("kernel", "index_select")}
+    n_rows = int(torch.unique(flat).numel())
+    nbytes = 2 * _nbytes(knot) + 8 * n_rows
+    bound_ms, bound_by = _bound(nbytes)
+    print(f"[{card}] G1 tap_take {tuple(knot.shape[:2])}: device ms: "
+          + ", ".join(f"{key} {_ms(v)}" for key, v in dev_t.items()))
+    print(f"[{card}] G1: ms a call (host included): "
+          + ", ".join(f"{key} {_ms(v)}" for key, v in call_t.items()))
+    print(f"[{card}] G1: host us a call: " + ", ".join(f"{key} {_ms(v)}" for key, v in host_t.items()))
+    share = f"{bound_ms / dev_t['kernel']:.2f}" if dev_t["kernel"] else "not measured"
+    print(f"G1 bound {bound_ms * 1e3:.1f} us ({bound_by}: {nbytes} B, {n_rows} distinct rows), "
+          f"kernel at {share} of it")
+    return {"ms": dev_t["kernel"], "ms_again": dev_t["kernel again"], "plain_ms": dev_t["twin"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": dev_t["index_select"],
+            "eager_take_ms": dev_t["eager take"], "call_ms": call_t["kernel"],
+            "plain_call_ms": call_t["twin"], "library_call_ms": call_t["index_select"],
+            "host_us": host_t["kernel"], "library_host_us": host_t["index_select"]}
 
 
 def phase_grouped(card, camera, kfs, T0, device="cuda"):
@@ -1309,6 +1465,308 @@ def phase_zbuffer(card, root, device="cuda"):
          "bound_ms": test_bound[0], "bound_by": test_bound[1], "library_ms": None,
          "step0_ms": dev_t["step 0 zbuffer_visible"],
          "step0_call_ms": call_t["step 0 zbuffer_visible"], **whole},
+    ]
+
+
+# C1's division check: every 24-bit color.
+DIVISION_COLORS = 1 << 24
+
+
+def _clone_state(s):
+    from pointcloudprocessor_tpu_torch.ops import fusion
+    from pointcloudprocessor_tpu_torch.pipeline import colorize
+
+    def c(t):
+        return None if t is None else t.clone()
+
+    return colorize.FuseState(fusion.TopKColors(s.topk.scores.clone(), s.topk.rgb.clone()),
+                              s.count.clone(), c(s.best_score), c(s.best_label))
+
+
+def _bits_differ(a, b) -> int:
+    """Elements of two tensors whose bits differ (b moved to a's device)."""
+    import torch
+
+    b = b.to(a.device)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def _state_diffs(a, b) -> dict:
+    """Per field of two fusion states, the elements whose bits differ."""
+    pairs = {"scores": (a.topk.scores, b.topk.scores), "rgb": (a.topk.rgb, b.topk.rgb),
+             "count": (a.count, b.count), "best_score": (a.best_score, b.best_score),
+             "best_label": (a.best_label, b.best_label)}
+    return {k: _bits_differ(x, y) for k, (x, y) in pairs.items() if x is not None}
+
+
+def _c1_scene(root, T_correction, device):
+    """(cfg, camera, cloud, poses, views, images, masks, culling) of the C1
+    checks: the smoke scene's crop, the 8 keyframes' poses and views as the
+    runner's colorize forms them (``T_correction`` applied; the batch
+    asserted bit-equal to each view formed alone), their RGB images and one
+    label image a keyframe (labels 0-255 from the seed, rolled by
+    keyframe), all on ``device``."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.io import images as img_io
+    from pointcloudprocessor_tpu_torch.pipeline import colorize, runner
+
+    cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
+    poses = runner._camera_to_world(frames, kf_idx, runner._extrinsic_lidar_to_cam(cfg, device),
+                                    device)
+    # The views as fuse forms them, in one batch, and each keyframe alone:
+    # the same bits.
+    batch = colorize.keyframe_pose(poses, T_correction)
+    views = [batch.at(j) for j in range(len(kf_idx))]
+    for j, view in enumerate(views):
+        one = colorize.keyframe_pose(se3.SE3(poses.q[j], poses.t[j]), T_correction)
+        assert all(_bits_differ(a, b) == 0 for a, b in (
+            (view.T.q, one.T.q), (view.T.t, one.T.t), (view.R, one.R))), f"view {j}"
+    images = torch.from_numpy(
+        np.stack([img_io.load_rgb(frames[i].image_path) for i in kf_idx])).to(device)
+    labels = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (HEIGHT, WIDTH), dtype=np.int32)).to(device)
+    masks = [torch.roll(labels, 97 * j, dims=1) for j in range(len(kf_idx))]
+    return cfg, camera, cloud, poses, views, images, masks, runner._culling_kwargs(cfg)
+
+
+def c1_division_check(camera, views, points, valid, images, culling, sat=0.7, bri=1.2,
+                      opt_dist=3.0):
+    """How far the twin's divisions on the card stray from the CPU's
+    (ops/fusion: ``hsv_adjust``'s by 255 and the distance score's by the
+    optimal distance), on identical inputs: the first DIVISION_COLORS packed
+    colors (all 2^24) through ``pack_rgb(hsv_adjust(., sat, bri))``, and the
+    score at ``opt_dist`` of the map's points in each keyframe (camera-frame
+    points and ranges computed on the card, copied to the CPU;
+    reference_compat off, since its own square root would be the CPU's,
+    which torch does not round correctly on every input). Counted once with
+    the twin as it is (a 0-dim tensor divisor, ``fusion._divide``) and once
+    with a Python-number divisor, which torch applies on the card as a
+    product with its reciprocal. Returns {"colors": (number, tensor),
+    "scores": (number, tensor), ...}: the elements that differ, each way."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import fusion
+    from pointcloudprocessor_tpu_torch.pipeline import colorize
+
+    dev = points.device
+    c = torch.arange(DIVISION_COLORS, dtype=torch.int32, device=dev)
+    colors = fusion.unpack_rgb(c)
+    cams = []
+    for view, img in zip(views, images):
+        obs = colorize.observe_keyframe(camera, img, view.T, points, valid,
+                                        camera_position_world=view.position, **culling)
+        x, y, z = obs.points_camera.unbind(-1)
+        cams.append((x, y, z, torch.sqrt(x * x + y * y + z * z), view.position))
+
+    def counts():
+        n_col = _bits_differ(fusion.pack_rgb(fusion.hsv_adjust(colors, sat, bri)),
+                             fusion.pack_rgb(fusion.hsv_adjust(colors.cpu(), sat, bri)))
+        n_score = 0
+        for args in cams:
+            kw = dict(optimal_distance=opt_dist)
+            n_score += _bits_differ(fusion.final_score_xyz(*args, **kw),
+                                    fusion.final_score_xyz(*(a.cpu() for a in args), **kw))
+        return n_col, n_score
+
+    after = counts()
+    tensor_divide = fusion._divide
+    fusion._divide = lambda x, d: x / d
+    try:
+        before = counts()
+    finally:
+        fusion._divide = tensor_divide
+    return {"colors": (before[0], after[0]), "scores": (before[1], after[1]),
+            "n_colors": DIVISION_COLORS, "n_scores": len(cams) * points.shape[0]}
+
+
+def phase_colorize(card, root, T0, device="cuda"):
+    """C1: ``fuse_keyframe`` (a memset and ``colorize_scatter`` +
+    ``colorize_update``) bit-equal to its twin run on the card, field by
+    field after every keyframe, over the scene's 8 keyframes twice in a row
+    (the registers fill, then replace their minima), at the planted
+    correction T0: with and without masks; with HSV (0.7, 1.2),
+    reference_compat and optimal distance 3.0; under HPR (H2, then pass (b)
+    alone); on the edge set of ``bench_scene.cull_edge_points`` put in front
+    of the camera; on a ragged n and n = 0. The dumps (``keyframe_rgb_mask``)
+    bit-equal to theirs. The twin's divisions on the card against the
+    CPU's at HSV (0.7, 1.2) and optimal distance 3.0
+    (``c1_division_check``). At keyframe 0: device and call times of the
+    step, each pass (``torch.profiler``: a memset and two launches a step,
+    asserted) and the twin beside the bound, and of the whole ``fuse``
+    through C1 and through the twin. Returns the C1a / C1b records."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.models import camera as cam
+    from pointcloudprocessor_tpu_torch.ops import zbuffer as zb
+    from pointcloudprocessor_tpu_torch.pipeline import colorize
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+
+    T_corr = T0.to(device)
+    cfg, camera, cloud, poses, views, images, masks, culling = _c1_scene(root, T_corr, device)
+    pts, val = cloud.points, cloud.valid
+    top_k = cfg.fusion.top_k
+    hsv = dict(saturation_scale=0.7, brightness_scale=1.2, reference_compat_orientation=True,
+               optimal_distance=3.0)
+    tally = {"steps": 0, "mismatches": 0}
+
+    def check(label, p, v, views_, imgs, msk, rounds=2, **opts):
+        kw = {**culling, **opts}
+        ks = colorize.init_fuse_state(p.shape[0], device, top_k, msk is not None)
+        ts = colorize.init_fuse_state(p.shape[0], device, top_k, msk is not None)
+        for _ in range(rounds):
+            for j, view in enumerate(views_):
+                m = None if msk is None else msk[j]
+                colorize.fuse_keyframe(ks, camera, imgs[j], view, p, v, m, **kw)
+                colorize.fuse_keyframe_plain(ts, camera, imgs[j], view, p, v, m, **kw)
+                d = _state_diffs(ks, ts)
+                tally["steps"] += 1
+                tally["mismatches"] += sum(d.values())
+                assert not any(d.values()), f"C1 {label}, keyframe {j}: kernel != twin {d}"
+        filled = int(torch.isfinite(ks.topk.scores).sum())
+        print(f"C1 {label}: {rounds} x {len(views_)} keyframes of {p.shape[0]} points, every "
+              f"state bit-equal to the twin's; observations {int(ks.count.sum())}, filled "
+              f"slots {filled}, points colored {int(torch.isfinite(ks.topk.scores[0]).sum())}")
+        return ks
+
+    check("default", pts, val, views, images, None)
+    check("masks", pts, val, views, images, masks)
+    check("HSV (0.7, 1.2), reference_compat, optimal distance 3.0, masks", pts, val, views,
+          images, masks, **hsv)
+    check("HPR (grid)", pts, val, views, images, None, rounds=1, culling_method="hpr",
+          hpr_impl="grid")
+    # The edge set in front of the camera: the identity view, each (u, v, z)
+    # put back through the scene's distortion-free pinhole at depth z.
+    edge = bs.cull_edge_points(WIDTH, HEIGHT, cfg.culling.downsample_factor, 20_000, SEED)
+    fx, fy, cx, cy = (float(c) for c in camera.intrinsic.cpu())
+    u, v, z = (edge[k].astype(np.float64) for k in ("u", "v", "z"))
+    with np.errstate(invalid="ignore", over="ignore"):
+        xyz = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1).astype(np.float32)
+    e_pts = torch.from_numpy(xyz).to(device)
+    e_val = torch.from_numpy(edge["valid"]).to(device)
+    eye = colorize.keyframe_pose(se3.identity(device), se3.identity(device))
+    check("edge set", e_pts, e_val, [eye, views[0]], images[:2], masks[:2], **hsv)
+    n = pts.shape[0]
+    check(f"n = {n - 77:,}", pts[: n - 77], val[: n - 77], views[:3], images, masks)
+    check("n = 0", pts[:0], val[:0], views[:2], images, masks)
+
+    # The dumps, every output bit for bit.
+    cases = [(j, {}) for j in range(len(views))]
+    cases += [(0, dict(culling_method="hpr", hpr_impl="grid")), (1, hsv)]
+    for j, opts in cases:
+        colors = {k: opts[k] for k in ("saturation_scale", "brightness_scale") if k in opts}
+        kw = {**culling, **{k: o for k, o in opts.items() if k.startswith(("culling", "hpr"))}}
+        got = colorize.keyframe_rgb_mask(camera, pts, val, images[j], masks[j],
+                                         se3.SE3(poses.q[j], poses.t[j]), T_corr, **colors, **kw)
+        want = colorize.keyframe_rgb_mask_plain(camera, pts, val, images[j], masks[j], views[j],
+                                                **colors, **kw)
+        d = [_bits_differ(a, b) for a, b in zip(got, want)]
+        assert not any(d), f"C1 dump {j} {opts}: kernel != twin {d}"
+    print(f"C1 dumps: {len(cases)} keyframe views (points, rgb, label, visible) bit-equal to the "
+          "twin's, one under HPR, one with the HSV map")
+    print(f"C1: {tally['mismatches']} state elements differ from the twin's over "
+          f"{tally['steps']} steps checked")
+
+    # The twin's divisions on the card against the CPU's (ops/fusion).
+    div = c1_division_check(camera, views, pts, val, images, culling)
+    print(f"C1 twin's divisions, card vs CPU: of all {div['n_colors']} colors through HSV "
+          f"(0.7, 1.2), {div['colors'][0]} differ when dividing by a number, "
+          f"{div['colors'][1]} by a 0-dim tensor (the twin); of {div['n_scores']} scores at "
+          f"optimal distance 3.0 ({len(views)} keyframes), {div['scores'][0]} and "
+          f"{div['scores'][1]}")
+    assert div["colors"][1] == div["scores"][1] == 0, div
+
+    # Times at keyframe 0, the state saturated by the warm-up (no masks).
+    view, img = views[0], images[0]
+    st = colorize.init_fuse_state(n, device, top_k)
+    tw = colorize.init_fuse_state(n, device, top_k)
+
+    def step():
+        return colorize.fuse_keyframe(st, camera, img, view, pts, val, **culling)
+
+    def twin():
+        return colorize.fuse_keyframe_plain(tw, camera, img, view, pts, val, **culling)
+
+    def twin_scatter():  # the twin of pass (a): transform, projection, gate, cell, scatter-min
+        x, y, z = se3.transform_xyz(view.T, pts[:, 0], pts[:, 1], pts[:, 2])
+        r = torch.sqrt(x * x + y * y + z * z)
+        u, v = cam.project_xyz(camera, x, y, z)
+        ok, c, nc = zb.cells(camera, u, v, z, val, cfg.culling.downsample_factor)
+        big = torch.finfo(torch.float32).max
+        return zb.zmin_plain(c, torch.where(ok, r, big), big, nc + 1)
+
+    def fuse(plain):
+        return colorize.fuse(camera, pts, val, images, poses, T_corr, top_k=top_k, plain=plain,
+                             **culling)
+
+    dev_t = {k: _device_ms(fn, device) for k, fn in (
+        ("step", step), ("twin step", twin), ("twin of pass (a)", twin_scatter), ("step again", step))}
+    call_t = {k: _median_ms(fn, device) for k, fn in (
+        ("step", step), ("twin step", twin), ("fuse", lambda: fuse(False)),
+        ("fuse, twin", lambda: fuse(True)))}
+    prof = _kernel_profile(step, device)
+    passes = {"colorize_scatter": None, "colorize_update": None}
+    if device == "cuda":
+        print(f"[{card}] C1 step: device work a call (launches, mean us): "
+              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+        assert sorted(prof) == sorted([*passes, "Memset"]), prof
+        assert _kernel_launches(prof) == 2 and prof["Memset"][0] == 1, prof
+        passes = {k: prof[k][1] * 1e-3 for k in passes}
+        prof_hpr = _kernel_profile(lambda: colorize.fuse_keyframe(
+            st, camera, img, view, pts, val, **{**culling, "culling_method": "hpr"}), device)
+        print(f"[{card}] C1 step under HPR: " + json.dumps(
+            {k: [c, round(us, 2)] for k, (c, us) in prof_hpr.items()}))
+        assert prof_hpr["colorize_update"][0] == 1 and "colorize_scatter" not in prof_hpr, prof_hpr
+    print(f"[{card}] C1 at keyframe 0, {n} points: device ms: "
+          + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items()))
+    print(f"[{card}] C1: ms a call (host included): "
+          + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items()))
+
+    # The bound, from this call's data: pass (a) reads xyz and valid (13 B a
+    # point) and writes the key buffer once; pass (b) reads them again and the
+    # keys, each distinct pixel a visible point samples (3 B), a visible
+    # point's K scores and its count (read and written), and writes the slots
+    # a call replaces (8 B each).
+    before = _clone_state(st)
+    obs = colorize.observe_keyframe(camera, img, view.T, pts, val, camera_position_world=view.position,
+                                    **culling)
+    step()
+    n_vis = int(obs.visible.sum())
+    ui = torch.clamp(obs.pixels[:, 0][obs.visible].to(torch.int64), 0, WIDTH - 1)
+    vi = torch.clamp(obs.pixels[:, 1][obs.visible].to(torch.int64), 0, HEIGHT - 1)
+    n_pix = int(torch.unique(vi * WIDTH + ui).numel())
+    replaced = _bits_differ(st.topk.scores, before.topk.scores)
+    gw, gh = zb.grid(camera, cfg.culling.downsample_factor)
+    keys = 4 * gw * gh
+    a_bytes = 13 * n + keys
+    b_bytes = 13 * n + keys + 3 * n_pix + n_vis * (4 * top_k + 8) + 8 * replaced
+    bound_a, bound_b = _bound(a_bytes), _bound(b_bytes)
+    for name, (b_ms, by), nb in (("colorize_scatter", bound_a, a_bytes),
+                                 ("colorize_update", bound_b, b_bytes)):
+        t = passes[name]
+        share = "not measured" if t is None else f"{b_ms / t:.2f}"
+        print(f"{name}: device {_ms(t)} ms, bound {b_ms * 1e3:.2f} us ({by}: {nb} B; {n_vis} "
+              f"visible, {n_pix} pixels, {replaced} slots replaced), at {share} of it")
+    common = {"route": "cuda", "source": f"{PKG}/csrc/colorize.cu", "max_abs_err": 0.0,
+              "mismatches": tally["mismatches"], "call_ms": call_t["step"],
+              "step_ms": dev_t["step"], "twin_step_ms": dev_t["twin step"],
+              "twin_step_call_ms": call_t["twin step"], "fuse_call_ms": call_t["fuse"],
+              "fuse_twin_call_ms": call_t["fuse, twin"], "library_ms": None,
+              "division_diffs": {k: div[k] for k in ("colors", "scores")}}
+    return [
+        {"name": "colorize_scatter", "replaces": "pointcloudprocessor_tpu/pipeline/colorize.py:49",
+         "ms": passes["colorize_scatter"], "plain_ms": dev_t["twin of pass (a)"],
+         "bound_ms": bound_a[0], "bound_by": bound_a[1], **common},
+        # The twin step's host side outlasts the hidden host time (its device
+        # time is then not measured): its call time stands in.
+        {"name": "colorize_update", "replaces": "pointcloudprocessor_tpu/ops/fusion.py:72",
+         "ms": passes["colorize_update"],
+         "plain_ms": dev_t["twin step"] if dev_t["twin step"] else call_t["twin step"],
+         "bound_ms": bound_b[0], "bound_by": bound_b[1], **common},
     ]
 
 
@@ -2337,7 +2795,8 @@ def phase_mls_edges(card, device="cuda"):
 
 def phase_tools(device="cuda"):
     """The z-buffer tools at full scale on the card (``--quick`` off it):
-    each prints its JSON line; both must be exact, with kernel times."""
+    each prints its JSON line; both must be exact, with kernel times, the
+    anatomy with the production (C1) and the eager fuse a frame."""
     from pointcloudprocessor_tpu_torch.tools import colorize_anatomy, zbuffer_probe
 
     argv = [] if device == "cuda" else ["--quick", "--device", device]
@@ -2347,6 +2806,7 @@ def phase_tools(device="cuda"):
     if device == "cuda":
         assert anatomy["zbuffer_scatter"] is not None and probe["kernel_ms"] is not None, (
             anatomy, probe)
+        assert anatomy["full"] is not None and anatomy["full_plain"] is not None, anatomy
 
 
 def main() -> int:
@@ -2367,16 +2827,26 @@ def main() -> int:
     try:
         T0 = write_scene(root)
         # Main path: the headline schedule (bench.py:797-805).
-        launches = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE), "headline schedule")
+        launches, headline = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                          "headline schedule")
+        # The same run through the twins of C1 and G1, the eager path they
+        # replaced: the same pose, NID, counts and colored cloud, byte for byte.
+        _, eager = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                "headline schedule, eager C1 / G1", eager=True)
+        same = {k: headline[k] == eager[k] for k in headline if k != "colorize_fuse_s"}
+        print(f"[{card}] headline with C1 / G1 vs their twins: {same}; colorize_fuse "
+              f"{headline['colorize_fuse_s']:.3f} s vs {eager['colorize_fuse_s']:.3f} s")
+        assert all(same.values()), (headline, eager)
         camera, kfs = scene_keyframes(root)
         scene = phase_kernels_scene(card, camera, kfs)
         kernels += phase_tap_gather(card, camera, kfs, T0)
         grouped = phase_grouped(card, camera, kfs, T0)
         del kfs
         kernels += phase_zbuffer(card, root)
+        kernels += phase_colorize(card, root, T0)
         # The HPR + smoothing path under the headline schedule.
-        hpr_launches = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
-                                    "HPR + smoothing", hpr=True)
+        hpr_launches, _ = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                       "HPR + smoothing", hpr=True)
         kernels += phase_hpr_dense(card, root)
         kernels += phase_hpr_grid(card, root)
         kernels += phase_smooth(card, root)
@@ -2385,8 +2855,8 @@ def main() -> int:
         # The earlier path: the plain objective (2 outer x 20 inner).
         phase_runner(card, root, T0, cfg_mod.NIDConfig(**PLAIN), "plain schedule")
         # The MLS path: bench.py's e2e config with MLS on, headline schedule.
-        mls_launches = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE), "MLS path",
-                                    mls=True)
+        mls_launches, _ = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                       "MLS path", mls=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels += phase_mls(card)

@@ -1,0 +1,326 @@
+// Colorize and fuse one keyframe for Hopper (sm_90a): C1, two passes.
+//
+// Replaces what the JAX package leaves to XLA on the main path's colorize
+// (no Pallas source): pointcloudprocessor_tpu/pipeline/colorize.py:49-140
+// (observe_keyframe: the transform, the projection, the z-buffer cull, the
+// nearest-pixel sample, the HSV map and the score) with ops/fusion.py:53-81
+// (pack_image_rgb, update_topk) and the label and count updates of the
+// `lax.scan` body at colorize.py:332. The port's plain version is
+// pipeline/colorize.fuse_keyframe_plain.
+//
+// On the card, a z-buffer keyframe is one memset and two launches:
+//   memset                    the (gw * gh,) u32 key buffer to all ones
+//   pass (a) colorize_scatter  per point: p_cam = R p + t, rng = |p_cam|,
+//            (u, v) = project(p_cam), the gate and the cell of
+//            zbuffer.cuh, then atomicMin(keys[cell], key(rng)) if gated in
+//   pass (b) colorize_update   per point: the same p_cam, rng, u and v
+//            (recomputed, never written), vis = gated in && rng <=
+//            min(decode(keys[cell]), FLT_MAX) + eps; then the nearest pixel
+//            (clamp(to_int32(u), 0, W - 1), the same for v), its 3 bytes
+//            read from the (H, W, 3) uint8 image (no packed image), the HSV
+//            map where a scale is not 1, the score (orientation and
+//            distance, with the reference_compat branch), the replace-first-
+//            min update of the (K, N) slot-major top-K registers, count +=
+//            vis and, with a mask image, its label and the strictly better
+//            best score and label.
+// The HPR branch runs H2 on the eager transform and pass (b) alone, with
+// H2's mask in place of the depth test. The mask dumps (keyframe_rgb_mask)
+// run the same passes with the fusion state null and the dump outputs set:
+// camera-frame points, the sampled colour (the highlight label painted red),
+// the label and vis, for every point.
+//
+// Exactness. Pass (b) equals the plain version bit for bit. The plain
+// version rounds every product and sum apart (torch's eager ops), and nvcc
+// would contract a*b + c into an FMA, so every step is written with
+// __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn in torch's
+// order: ((R00 x + R01 y) + R02 z) + t0, ((1 + k1 r2) + k2 r4) + k3 r6.
+// Python-number constants enter as the f32 of the double Python holds (the
+// launcher folds 1 - score_floor in double, then casts); 1e-9 and 1e-12 are
+// compared as f32. Float -> int conversions are utils/numeric.to_int32's:
+// NaN -> 0, saturate, truncate. torch's clamp and amin propagate NaN, so the
+// helpers below do. Divisions are IEEE (the plain version divides by 0-dim
+// tensors, which torch on the card divides exactly).
+//
+// What bounds it on the H100: the bytes. Pass (a) reads 13 B a point (xyz,
+// valid) and scatters into the 250 KB key buffer, which lives in L2. Pass (b)
+// reads those 13 B again and the cell's key, and for a visible point the
+// 3-byte sample, the K scores (20 B at K = 5) and the count, and writes at
+// most one slot (8 B) and the count; with masks the label and the best score
+// and label. About 69 B a point a keyframe without masks at most: ~21 us for
+// 1M points at the 3.35 TB/s of an NVIDIA H100 80GB HBM3 at 700 W (its data
+// sheet). The arithmetic (~100 f32 operations a point) is far below that. One point a thread: a warp's loads of xyz and of the
+// slot-major registers are coalesced; the key and pixel reads are gathers.
+// The keyframe's pose and camera (24 floats) come from device pointers, so
+// nothing is read back to the host, and each block stages them once in shared
+// memory.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "zbuffer.cuh"
+
+// What the launcher hands both passes; the field order is the ctypes
+// Structure's in pipeline/colorize.py.
+struct ColorizeArgs {
+  // The map: (n, 3) f32 world points and (n,) bool valid, element strides.
+  const float* pts;
+  long long sp0, sp1;
+  const unsigned char* valid;
+  long long sv;
+  int n;
+  // The keyframe: T_camera_world as R (3x3 row-major) and t, the camera's
+  // intrinsics (fx, fy, cx, cy) and distortion (k1, k2, p1, p2, k3), and its
+  // position in the world (reference_compat; null: the camera-frame score).
+  const float* R;
+  const float* t;
+  const float* intr;
+  const float* dist;
+  const float* pos;
+  // The cull: the image size and cell, the depth epsilon, and either the
+  // (gw * gh,) key buffer (z-buffer) or a given (n,) bool mask (HPR).
+  int width, height, ds;
+  float eps;
+  unsigned* keys;
+  const unsigned char* vis_in;
+  // The (img_h, img_w, 3) uint8 image and the (img_h, img_w) int32 labels
+  // (null without masks).
+  const unsigned char* image;
+  int img_h, img_w;
+  const int* mask;
+  // The HSV map (hsv != 0 where a scale is not 1) and the score.
+  int hsv;
+  float sat, bri;
+  float opt_dist, floor_, one_minus_floor;
+  // The fusion state, null in the dump mode: (k, n) slot-major scores and
+  // packed colours, (n,) int32 count, and with masks (n,) best score / label.
+  int k;
+  float* scores;
+  int* rgb;
+  int* count;
+  float* best_s;
+  int* best_l;
+  // The dump outputs, null on the fusion path: (n, 3) camera-frame points,
+  // (n, 3) f32 colours, (n,) int32 labels, (n,) bool vis.
+  float* pts_cam;
+  float* rgb_out;
+  int* label_out;
+  unsigned char* vis_out;
+  int highlight;
+};
+
+namespace {
+
+using namespace zbuf;
+
+constexpr int kThreads = 256;
+constexpr int kView = 24;  // R 9, t 3, fx fy cx cy, k1 k2 p1 p2 k3, camera position 3
+
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+
+// torch.clamp, NaN propagating.
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
+__device__ __forceinline__ float clamp(float x, float lo, float hi) {
+  return clamp_max(clamp_min(x, lo), hi);
+}
+
+// utils/numeric.to_int32: NaN -> 0, saturate, truncate toward zero.
+__device__ __forceinline__ int to_int32(float x) { return isnan(x) ? 0 : __float2int_rz(x); }
+
+// The keyframe's 24 floats, staged once a block; every thread of the block
+// must call it.
+__device__ __forceinline__ void stage_view(const ColorizeArgs& a, float* s) {
+  const int i = threadIdx.x;
+  if (i < 9) s[i] = a.R[i];
+  else if (i < 12) s[i] = a.t[i - 9];
+  else if (i < 16) s[i] = a.intr[i - 12];
+  else if (i < 21) s[i] = a.dist[i - 16];
+  else if (i < kView) s[i] = a.pos ? a.pos[i - 21] : 0.0f;
+  __syncthreads();
+}
+
+struct Projected {
+  float x, y, z;  // camera frame (core/se3.transform_xyz)
+  float rng;      // |p_cam|
+  float u, v;     // pixel (models/camera.project_xyz)
+};
+
+// Point i transformed and projected as the plain version rounds it.
+__device__ __forceinline__ Projected project(const ColorizeArgs& a, const float* s, long long i) {
+  const float* p = a.pts + i * a.sp0;
+  const float px = __ldg(p), py = __ldg(p + a.sp1), pz = __ldg(p + 2 * a.sp1);
+  Projected q;
+  q.x = add(add(add(mul(s[0], px), mul(s[1], py)), mul(s[2], pz)), s[9]);
+  q.y = add(add(add(mul(s[3], px), mul(s[4], py)), mul(s[5], pz)), s[10]);
+  q.z = add(add(add(mul(s[6], px), mul(s[7], py)), mul(s[8], pz)), s[11]);
+  q.rng = __fsqrt_rn(add(add(mul(q.x, q.x), mul(q.y, q.y)), mul(q.z, q.z)));
+  const float tiny = static_cast<float>(1e-9);
+  const float safe_z = fabsf(q.z) < tiny ? (q.z < 0.0f ? -tiny : tiny) : q.z;
+  const float x = dvd(q.x, safe_z), y = dvd(q.y, safe_z);
+  const float x2 = mul(x, x), y2 = mul(y, y), xy = mul(x, y);
+  const float r2 = add(x2, y2), r4 = mul(r2, r2), r6 = mul(r2, r4);
+  const float k1 = s[16], k2 = s[17], p1 = s[18], p2 = s[19], k3 = s[20];
+  const float rc = add(add(add(1.0f, mul(k1, r2)), mul(k2, r4)), mul(k3, r6));
+  const float xd = add(add(mul(rc, x), mul(p1, mul(2.0f, xy))), mul(p2, add(r2, mul(2.0f, x2))));
+  const float yd = add(add(mul(rc, y), mul(p1, add(r2, mul(2.0f, y2)))), mul(p2, mul(2.0f, xy)));
+  q.u = add(mul(s[12], xd), s[14]);
+  q.v = add(mul(s[13], yd), s[15]);
+  return q;
+}
+
+__device__ __forceinline__ bool point_valid(const ColorizeArgs& a, long long i) {
+  return __ldg(a.valid + i * a.sv) != 0;
+}
+
+// ops/fusion.hsv_adjust on one packed sample, then pack_rgb.
+__device__ __forceinline__ int hsv_adjust(int packed, float sat, float bri) {
+  const float c255 = 255.0f, tiny = static_cast<float>(1e-12);
+  float x[3];
+  x[0] = dvd(float((packed >> 16) & 0xff), c255);
+  x[1] = dvd(float((packed >> 8) & 0xff), c255);
+  x[2] = dvd(float(packed & 0xff), c255);
+  const float mx = fmaxf(fmaxf(x[0], x[1]), x[2]);
+  const float mn = fminf(fminf(x[0], x[1]), x[2]);
+  const float delta = sub(mx, mn);
+  const float s = mx > 0.0f ? dvd(delta, clamp_min(mx, tiny)) : 0.0f;
+  const float s2 = clamp(mul(s, sat), 0.0f, 1.0f);
+  const float v2 = clamp(mul(mx, bri), 0.0f, 1.0f);
+  int out = 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float ratio = delta > 0.0f ? dvd(sub(mx, x[c]), clamp_min(delta, tiny)) : 0.0f;
+    const float o = clamp(mul(mul(v2, sub(1.0f, mul(s2, ratio))), c255), 0.0f, c255);
+    out = (out << 8) | to_int32(clamp(o, 0.0f, c255));
+  }
+  return out;
+}
+
+// ops/fusion.final_score_xyz: (orientation + distance) / 2.
+__device__ __forceinline__ float final_score(const ColorizeArgs& a, const float* s,
+                                             const Projected& q) {
+  const float tiny = static_cast<float>(1e-12);
+  float cosv;
+  if (a.pos) {  // reference_compat: the world-frame position off the camera-frame point
+    const float vx = sub(q.x, s[21]), vy = sub(q.y, s[22]), vz = sub(q.z, s[23]);
+    const float vn = __fsqrt_rn(add(add(mul(vx, vx), mul(vy, vy)), mul(vz, vz)));
+    cosv = dvd(vz, clamp_min(vn, tiny));
+  } else {
+    cosv = dvd(q.z, clamp_min(q.rng, tiny));
+  }
+  const float o = add(a.floor_, mul(a.one_minus_floor, mul(add(cosv, 1.0f), 0.5f)));
+  const float diff = clamp_max(dvd(fabsf(sub(q.rng, a.opt_dist)), a.opt_dist), 1.0f);
+  const float d = add(a.floor_, mul(a.one_minus_floor, sub(1.0f, diff)));
+  return mul(0.5f, add(o, d));
+}
+
+__global__ void __launch_bounds__(kThreads) colorize_scatter(ColorizeArgs a, Grid g) {
+  __shared__ float view[kView];
+  stage_view(a, view);
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  const Projected q = project(a, view, i);
+  int cell;
+  if (gate_cell(q.u, q.v, q.z, point_valid(a, i), g, cell)) atomicMin(a.keys + cell, range_key(q.rng));
+}
+
+__global__ void __launch_bounds__(kThreads) colorize_update(ColorizeArgs a, Grid g) {
+  __shared__ float view[kView];
+  stage_view(a, view);
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  const Projected q = project(a, view, i);
+  bool vis;
+  if (a.keys) {
+    int cell;
+    vis = gate_cell(q.u, q.v, q.z, point_valid(a, i), g, cell) &&
+          q.rng <= __fadd_rn(cell_min(a.keys, cell), a.eps);
+  } else {
+    vis = __ldg(a.vis_in + i) != 0;
+  }
+  const bool dump = a.vis_out != nullptr;
+  // The nearest pixel (colorize.py:86-88) and what it holds; on the fusion
+  // path only a visible point's sample can reach the registers.
+  int packed = 0, label = 0;
+  if (vis || dump) {
+    const int ui = min(max(to_int32(q.u), 0), a.img_w - 1);
+    const int vi = min(max(to_int32(q.v), 0), a.img_h - 1);
+    const long long flat = static_cast<long long>(vi) * a.img_w + ui;
+    const unsigned char* px = a.image + 3 * flat;
+    packed = (int(__ldg(px)) << 16) | (int(__ldg(px + 1)) << 8) | int(__ldg(px + 2));
+    if (a.hsv) packed = hsv_adjust(packed, a.sat, a.bri);
+    if (a.mask) label = __ldg(a.mask + flat);
+  }
+  if (dump) {
+    a.pts_cam[3 * i] = q.x;
+    a.pts_cam[3 * i + 1] = q.y;
+    a.pts_cam[3 * i + 2] = q.z;
+    const bool red = label == a.highlight;
+    a.rgb_out[3 * i] = red ? 255.0f : float((packed >> 16) & 0xff);
+    a.rgb_out[3 * i + 1] = red ? 0.0f : float((packed >> 8) & 0xff);
+    a.rgb_out[3 * i + 2] = red ? 0.0f : float(packed & 0xff);
+    a.label_out[i] = label;
+    a.vis_out[i] = vis ? 1 : 0;
+  }
+  if (!a.scores || !vis) return;  // an invisible point's candidate is -inf: no update
+  const float score = final_score(a, view, q);
+  // ops/fusion.update_topk: the first minimal slot (torch.amin, then the
+  // smallest slot equal to it); a NaN slot makes the minimum NaN, and
+  // nothing is replaced.
+  const long long n = a.n;
+  float m = a.scores[i];
+  int slot = 0;
+  bool nan = isnan(m);
+  for (int s = 1; s < a.k; ++s) {
+    const float v = a.scores[s * n + i];
+    if (isnan(v)) {
+      nan = true;
+    } else if (v < m) {
+      m = v;
+      slot = s;
+    }
+  }
+  if (!nan && score > m) {
+    a.scores[slot * n + i] = score;
+    a.rgb[slot * n + i] = packed;
+  }
+  a.count[i] += 1;
+  if (a.best_s && score > a.best_s[i]) {
+    a.best_s[i] = score;
+    a.best_l[i] = label;
+  }
+}
+
+inline unsigned blocks(long long threads) { return unsigned((threads + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+// C1 for one keyframe: with a key buffer, a memset of it, pass (a) and pass
+// (b); with a given mask (vis_in), pass (b) alone. Nothing for n = 0.
+// Returns the first CUDA error.
+int colorize(const ColorizeArgs* args, void* stream) {
+  const ColorizeArgs& a = *args;
+  const bool dump_ok = !a.vis_out || (a.pts_cam && a.rgb_out && a.label_out);
+  const bool fuse_ok = !a.scores || (a.k >= 1 && a.rgb && a.count && (!a.best_s || a.best_l));
+  if (a.n < 0 || (!a.keys == !a.vis_in) || !dump_ok || !fuse_ok || a.img_h < 1 || a.img_w < 1)
+    return cudaErrorInvalidValue;
+  if (a.n == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Grid g = a.keys ? make_grid(a.width, a.height, a.ds) : Grid{};
+  if (a.keys) {
+    if (a.ds < 1 || g.gw < 1 || g.gh < 1) return cudaErrorInvalidValue;
+    cudaError_t err = cudaMemsetAsync(a.keys, 0xff, size_t(g.gw) * g.gh * sizeof(unsigned), st);
+    if (err != cudaSuccess) return err;
+    colorize_scatter<<<blocks(a.n), kThreads, 0, st>>>(a, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  colorize_update<<<blocks(a.n), kThreads, 0, st>>>(a, g);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

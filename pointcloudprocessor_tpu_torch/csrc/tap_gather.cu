@@ -1,5 +1,18 @@
-// Grouped tap-row gathers for Hopper (sm_90a): each variant is ONE kernel
-// that plans its groups' windows and selects every point's tap row.
+// Tap-row gathers for Hopper (sm_90a): the direct take (G1) and the grouped
+// gathers, each variant ONE kernel that plans its groups' windows and selects
+// every point's tap row.
+//
+// G1 tap_take replaces the main path's direct take, which the JAX package
+// leaves to XLA (no Pallas source): pointcloudprocessor_tpu/opt/nid.py:490-516,
+// the anchor clip(v, 0, H-1) * W + clip(u, 0, W-1) of each (K, N) knot and a
+// vmap'd jnp.take of its (2,) int32 row from the keyframe's (H*W, 2) table.
+// One thread a point (a block row a keyframe): the knot in one 8-byte load,
+// the clamps, the row in one 8-byte load at the 64-bit address kf*H*W +
+// anchor (K*H*W passes 2^31 at 175 keyframes of 4096x3000), the row out in
+// one 8-byte store. Every point reads its clipped row, whatever its gate, as
+// the plain version (ops/tap_gather.direct_take_plain) does. What bounds it:
+// the bytes, 8 B of knot, 8 B of row and 8 B out a point (the rows scattered
+// over the table, each a 32-byte sector of its own unless neighbours share).
 //
 // Replaces the two Pallas TPU kernels of pointcloudprocessor_tpu/ops/tap_gather.py
 // together with the XLA index arithmetic (the plan) around each of them:
@@ -225,6 +238,19 @@ tap_streamed_kernel(const int* __restrict__ idx, const unsigned char* __restrict
   count_groups(n_ovf, c);
 }
 
+__global__ void __launch_bounds__(kThreads)
+tap_take_kernel(const int2* __restrict__ rows, const int2* __restrict__ knot,
+                int2* __restrict__ out, int n, long long n_rows, int width, int height) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= n) return;
+  const long long kf = blockIdx.y;
+  const long long p = kf * n + j;
+  const int2 kn = __ldcs(knot + p);  // (u, v)
+  const int u = min(max(kn.x, 0), width - 1);
+  const int v = min(max(kn.y, 0), height - 1);
+  __stcs(out + p, load_row(rows + (kf * n_rows + (static_cast<long long>(v) * width + u))));
+}
+
 bool table_ok(int n_slabs, int slab) {
   return n_slabs >= 2 && slab >= 1 && static_cast<long long>(n_slabs) * slab < 0x7fffffffLL;
 }
@@ -269,6 +295,21 @@ int tap_streamed(const void* idx, const void* ok, const void* rows, void* taps, 
       static_cast<const int2*>(rows), static_cast<int2*>(taps),
       static_cast<unsigned char*>(ovf), static_cast<int*>(n_ovf), n, n_slabs, n_blocks,
       slab);
+  return cudaGetLastError();
+}
+
+// G1: taps (k, n, 2) int32 = rows[kf, clip(v) * width + clip(u)] for the
+// knots (k, n, 2) int32 (u, v) and the rows (k, width * height, 2) int32;
+// all 8-byte aligned, k <= 65,535. One launch on `stream`, none for n = 0.
+// Returns cudaGetLastError().
+int tap_take(const void* rows, const void* knot, void* taps, int k, int n, int width,
+             int height, void* stream) {
+  if (k < 1 || k > 65535 || n < 0 || width < 1 || height < 1) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const dim3 grid((n + kThreads - 1) / kThreads, k);
+  tap_take_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int2*>(rows), static_cast<const int2*>(knot), static_cast<int2*>(taps),
+      n, static_cast<long long>(width) * height, width, height);
   return cudaGetLastError();
 }
 

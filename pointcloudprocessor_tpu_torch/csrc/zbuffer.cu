@@ -17,24 +17,10 @@
 // stride; vis (N,) bool. One point a thread. Each pass reads 17 B a point;
 // (b) writes 1 B.
 //
-// Keys. The buffer holds an order-preserving u32 key of each range:
-//   key(b) = (b ^ ((b >> 31) & 0x7fffffff)) ^ 0x80000000   on the f32 bits b
-// orders every non-NaN f32 as the floats are ordered, negatives included; the
-// map without the final xor is its own inverse, which decode uses. It would
-// put -0 just below +0, so every range (and the probe's fill) first gets
-// +0.0 added, which turns -0 into +0: a buffer never holds -0, as the plain
-// version's never does. The fill key is 0xffffffff (a byte memset of 0xff),
-// above every range's key; pass (b) reads min(decode, FLT_MAX), so a cell
-// whose points all have +inf ranges reads FLT_MAX, the plain version's fill
-// (the all-ones key decodes to a NaN, which fminf drops). A NaN range on a
-// gated-in point is outside the contract: a range sqrt(x^2 + y^2 + z^2) is
-// NaN only where u, v or z is, and the gate drops those.
-//
-// Gate and cell in f32 as ops/zbuffer.cells computes them: floorf, IEEE
-// division __fdiv_rn (the build has no --use_fast_math), truncation
-// __float2int_rz. On a gated-in point u / ds is finite and in [0, W / ds],
-// where truncation is what to_int32 gives; a gated-out point's cell is never
-// used. The sum decode + eps rounds to f32 and nothing multiplies, so no FMA
+// Keys, the gate and the cell are zbuffer.cuh's, shared with colorize.cu
+// (C1). A NaN range on a gated-in point is outside the contract: a range
+// sqrt(x^2 + y^2 + z^2) is NaN only where u, v or z is, and the gate drops
+// those. The sum decode + eps rounds to f32 and nothing multiplies, so no FMA
 // changes it.
 //
 // What bounds it on the H100: the bytes (17 + 18 B a point) and, in pass
@@ -55,26 +41,20 @@
 // zbuffer_visible tests given ok, rng and cells against such a buffer.
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <string.h>
+
+#include "zbuffer.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace zbuf;
 
-// Order-preserving f32 bits <-> i32 map; an involution.
-__host__ __device__ __forceinline__ int order_bits(int b) { return b ^ ((b >> 31) & 0x7fffffff); }
-__host__ __device__ __forceinline__ unsigned encode(int b) { return unsigned(order_bits(b)) ^ 0x80000000u; }
-__host__ __device__ __forceinline__ int decode(unsigned k) { return order_bits(int(k ^ 0x80000000u)); }
+constexpr int kThreads = 256;
 
 inline int float_bits(float f) {
   int b;
   memcpy(&b, &f, sizeof b);
   return b;
-}
-
-__device__ __forceinline__ unsigned range_key(float r) {
-  return encode(__float_as_int(__fadd_rn(r, 0.0f)));  // -0 -> +0
 }
 
 // The cull's inputs: five arrays, each with its element stride.
@@ -86,23 +66,6 @@ struct Points {
   const unsigned char* valid;
   long long su, sv, sz, sr, sval;
 };
-
-// The image and its z-buffer grid.
-struct Grid {
-  float width, height, ds;  // image size and cell size in pixels, as f32
-  int gw, gh;               // cells a row, rows: width / ds, height / ds
-};
-
-// The gate and the cell of one point (`ops/zbuffer.cells`).
-__device__ __forceinline__ bool gate_cell(float u, float v, float z, unsigned char valid,
-                                          const Grid& g, int& cell) {
-  const float uf = floorf(u), vf = floorf(v);
-  const bool ok = valid && z > 0.0f && uf >= 0.0f && uf < g.width && vf >= 0.0f && vf < g.height;
-  const int ui = min(max(__float2int_rz(__fdiv_rn(u, g.ds)), 0), g.gw - 1);
-  const int vi = min(max(__float2int_rz(__fdiv_rn(v, g.ds)), 0), g.gh - 1);
-  cell = vi * g.gw + ui;
-  return ok;
-}
 
 // Point i's inputs through the strides; its gate and its cell.
 __device__ __forceinline__ bool load_gate_cell(const Points& p, const Grid& g, long long i,
@@ -129,10 +92,7 @@ cull_test(Points p, Grid g, const unsigned* __restrict__ buf, unsigned char* __r
   float r;
   int cell;
   bool v = false;
-  if (load_gate_cell(p, g, i, r, cell)) {
-    const float m = fminf(__int_as_float(decode(__ldg(buf + cell))), FLT_MAX);
-    v = r <= __fadd_rn(m, eps);
-  }
+  if (load_gate_cell(p, g, i, r, cell)) v = r <= __fadd_rn(cell_min(buf, cell), eps);
   vis[i] = v ? 1 : 0;
 }
 
@@ -192,7 +152,7 @@ int cull_mask(const void* u, const void* v, const void* z, const void* rng, cons
   const Points p{static_cast<const float*>(u), static_cast<const float*>(v),
                  static_cast<const float*>(z), static_cast<const float*>(rng),
                  static_cast<const unsigned char*>(valid), su, sv, sz, sr, sval};
-  const Grid g{float(width), float(height), float(ds), width / ds, height / ds};
+  const Grid g = make_grid(width, height, ds);
   unsigned* b = static_cast<unsigned*>(buf);
   cudaError_t err = cudaMemsetAsync(b, 0xff, size_t(g.gw) * g.gh * sizeof(unsigned), st);
   if (err != cudaSuccess) return err;

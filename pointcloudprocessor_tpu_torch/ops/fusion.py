@@ -51,6 +51,14 @@ def pack_image_rgb(image: torch.Tensor) -> torch.Tensor:
     return ((im[..., 0] << 16) | (im[..., 1] << 8) | im[..., 2]).reshape(-1)
 
 
+def _divide(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` as an IEEE division on every device: torch divides a CUDA
+    tensor by a Python number as a product with its reciprocal (as
+    ``ops/zbuffer.cells`` notes), which rounds otherwise than the CPU, the
+    JAX package op by op and the C1 kernel."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def init_topk(num_points: int, device, k: int = 5, dtype=torch.float32) -> TopKColors:
     return TopKColors(
         scores=torch.full((k, num_points), float("-inf"), dtype=dtype, device=device),
@@ -157,7 +165,7 @@ def final_score_xyz(
     else:
         cos = z / torch.clamp(rng, min=1e-12)
     o = score_floor + (1.0 - score_floor) * ((cos + 1.0) * 0.5)
-    diff = torch.clamp(torch.abs(rng - optimal_distance) / optimal_distance, max=1.0)
+    diff = torch.clamp(_divide(torch.abs(rng - optimal_distance), optimal_distance), max=1.0)
     d = score_floor + (1.0 - score_floor) * (1.0 - diff)
     return 0.5 * (o + d)
 
@@ -245,7 +253,7 @@ def hsv_adjust(rgb: torch.Tensor, saturation_scale: float = 1.0,
     (`PointCloudProcessor.cpp:722-741`); the identity at the default scales."""
     if saturation_scale == 1.0 and brightness_scale == 1.0:
         return rgb
-    x = rgb / 255.0
+    x = _divide(rgb, 255.0)
     mx = torch.amax(x, dim=-1)
     mn = torch.amin(x, dim=-1)
     delta = mx - mn

@@ -1,4 +1,11 @@
-"""Grouped tap-row gathers: CUDA kernels K3/K4 and their plain torch twins.
+"""Tap-row gathers: CUDA kernels G1 (the direct take) and K3/K4 (the grouped
+takes) with their plain torch twins.
+
+:func:`direct_take` is the main path's gather (`opt/nid._gather_taps`, the
+JAX package's `nid.py:490-516`): each (u, v) knot clipped into the image,
+its keyframe's row read. On CUDA tensors it is one launch of G1
+``tap_take``; its twin :func:`direct_take_plain` is the anchor arithmetic
+and torch's advanced-index take.
 
 Port of `pointcloudprocessor_tpu/ops/tap_gather.py`: an exact
 ``take(rows, idx)`` for every ``ok`` row (rows with ``~ok`` hold
@@ -64,7 +71,7 @@ _KERNEL_GROUP = {"tap_select": 16, "tap_streamed": 32}  # the groups the kernels
 # Launches of each CUDA kernel, grouped takes (any device) and the takes
 # that fell back to the per-row lookup, in this process (see
 # reset_launch_counts).
-launch_counts = {"tap_select": 0, "tap_streamed": 0}
+launch_counts = {"tap_take": 0, "tap_select": 0, "tap_streamed": 0}
 call_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
 fallback_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
 
@@ -81,6 +88,8 @@ _SIGNATURES = {
     "tap_select": ([_PTR] * 6 + [_I32] * 4 + [_PTR], _I32),
     # idx, ok, rows, taps, ovf, n_ovf, n, n_steps, n_slabs, n_blocks, slab, stream
     "tap_streamed": ([_PTR] * 6 + [_I32] * 5 + [_PTR], _I32),
+    # rows, knot, taps, k, n, width, height, stream
+    "tap_take": ([_PTR] * 3 + [_I32] * 4 + [_PTR], _I32),
 }
 
 
@@ -136,6 +145,67 @@ def _lookup(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     clamp them (``index_select`` takes the int32 index as it is)."""
     flat = torch.clamp(idx, 0, rows.shape[0] - 1).reshape(-1)
     return torch.index_select(rows, 0, flat).reshape(*idx.shape, 2)
+
+
+# ---------------------------------------------------------------------------
+# G1: the direct take
+# ---------------------------------------------------------------------------
+
+
+def anchors(knot: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(..., 2) int32 (u, v) knots -> (...,) int32 flat pixel indices,
+    clipped into the image as the JAX package clips them (`nid.py:508-510`)."""
+    return (torch.clamp(knot[..., 1], 0, height - 1) * width
+            + torch.clamp(knot[..., 0], 0, width - 1))
+
+
+def direct_take_plain(rows: torch.Tensor, knot: torch.Tensor, width: int,
+                      height: int) -> torch.Tensor:
+    """The twin of G1: ``rows[kf, anchor]`` for every (K, N) knot."""
+    kf_idx = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    return rows[kf_idx, anchors(knot, width, height).long()]
+
+
+def direct_take_cuda(rows: torch.Tensor, knot: torch.Tensor, width: int,
+                     height: int) -> torch.Tensor:
+    """G1 on the card: one launch of ``tap_take``, the same contract as
+    :func:`direct_take_plain`, bit for bit."""
+    dev = rows.device
+    k = rows.shape[0]
+    if not (dev.type == "cuda" and knot.device == dev and rows.dtype == torch.int32
+            and knot.dtype == torch.int32 and rows.dim() == 3 and knot.dim() == 3
+            and rows.shape[2] == 2 and rows.shape[1] == width * height
+            and knot.shape[0] == k and knot.shape[2] == 2 and 1 <= k <= 65_535
+            and knot.shape[1] < 2**31 and width * height < 2**31
+            and rows.is_contiguous() and knot.is_contiguous()
+            and rows.data_ptr() % 8 == 0 and knot.data_ptr() % 8 == 0):
+        raise ValueError(
+            f"tap_take: takes contiguous 8-byte aligned int32 CUDA tensors on one device, "
+            f"rows (K, {width}*{height}, 2) and knots (K, N, 2), 1 <= K <= 65,535; got rows "
+            f"{tuple(rows.shape)} {rows.dtype} on {dev}, knots {tuple(knot.shape)} "
+            f"{knot.dtype} on {knot.device}")
+    n = knot.shape[1]
+    taps = torch.empty((k, n, 2), dtype=torch.int32, device=dev)
+    if n == 0:
+        return taps
+    err = _kernel("tap_take")(rows.data_ptr(), knot.data_ptr(), taps.data_ptr(), k, n, width,
+                              height, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tap_take launch failed: CUDA error {err}")
+    launch_counts["tap_take"] += 1
+    return taps
+
+
+def direct_take(rows: torch.Tensor, knot: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(K, N, 2) int32 tap rows of the (K, width*height, 2) tables at the
+    (K, N, 2) int32 knots, clipped into the image: the twin on CPU tensors,
+    G1 on CUDA ones."""
+    dev = rows.device.type
+    if dev == "cpu":
+        return direct_take_plain(rows, knot, width, height)
+    if dev == "cuda":
+        return direct_take_cuda(rows, knot, width, height)
+    raise NotImplementedError(f"direct_take: no kernel for device {rows.device}")
 
 
 class GroupedSelect(NamedTuple):

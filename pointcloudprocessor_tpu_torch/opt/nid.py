@@ -200,31 +200,23 @@ def sort_by_raster(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     )
 
 
-def _anchors(camera: cam.PinholeCamera, knot: torch.Tensor) -> torch.Tensor:
-    """(..., 2) int32 knots -> (...,) int32 flat pixel indices, clipped into
-    the image exactly as the JAX package clips them (`nid.py:508-510`)."""
-    return torch.clamp(knot[..., 1], 0, camera.height - 1) * camera.width + torch.clamp(
-        knot[..., 0], 0, camera.width - 1
-    )
-
-
 def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor,
                  inlier: torch.Tensor, use_grouped=None):
     """(K, N, 2) knots -> (K, N, 2) packed tap rows (`nid.py:490-560`).
 
-    The direct per-point row take by default. ``use_grouped`` True takes
-    the slabbed grouped gather (K3), "streamed" the streamed one (K4),
-    wherever the keyframes carry a slab width: all keyframes flatten into
-    one call over the stacked row tables (flat index kf*H*W + anchor). Rows
-    whose ``inlier`` is False hold unspecified data under the grouped
-    gathers; the histogram gate zeroes them."""
-    anchor = _anchors(camera, knot)
+    The direct per-point row take by default (:func:`tap_gather.direct_take`,
+    G1 on the card). ``use_grouped`` True takes the slabbed grouped gather
+    (K3), "streamed" the streamed one (K4), wherever the keyframes carry a
+    slab width: all keyframes flatten into one call over the stacked row
+    tables (flat index kf*H*W + anchor). Rows whose ``inlier`` is False hold
+    unspecified data under the grouped gathers; the histogram gate zeroes
+    them."""
     if use_grouped is None:
         use_grouped = _use_grouped_default()
-    k, r, c = kfs.tap_rows.shape
     if not use_grouped or kfs.slab_width is None:
-        kf_idx = torch.arange(k, device=anchor.device)[:, None]
-        return kfs.tap_rows[kf_idx, anchor.long()]
+        return tap_gather.direct_take(kfs.tap_rows, knot, camera.width, camera.height)
+    anchor = tap_gather.anchors(knot, camera.width, camera.height)
+    k, r, c = kfs.tap_rows.shape
     n = anchor.shape[1]
     # int32 flat indices would wrap at K*H*W >= 2^31 (~175 keyframes of
     # 4096x3000) and gather wrong rows.

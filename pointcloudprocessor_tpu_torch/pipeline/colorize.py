@@ -3,27 +3,107 @@
 Port of `pointcloudprocessor_tpu/pipeline/colorize.py`, itself a rebuild of
 `pcdColorizationAndSmooth` (`PointCloudProcessor.cpp:474-631`): per
 keyframe, transform the map into the camera, z-buffer cull, sample the
-packed image (and the mask label), score, and update the per-point top-K
+image (and the mask label), score, and update the per-point top-K
 registers. The JAX package's `lax.scan` over keyframes is a Python loop
-here; the registers (and, with masks, the best score and its label) are the
-only state carried from one keyframe to the next.
+here over :func:`fuse_keyframe`; the registers, the observation count and,
+with masks, the best score and its label (:class:`FuseState`) are the only
+state carried from one keyframe to the next.
 
 ``culling_method`` selects the visibility test as the refine path's
 `CullingConfig.method` does: the reference colorizes through the same
 `ViewCulling::cull` (`PointCloudProcessor.cpp:527`), qhull HPR on its active
 path, so with "hpr" each keyframe's mask is the HPR mask (`ops/hpr.py`).
+
+Dispatch goes by the map's device. CPU tensors take the plain twins
+(:func:`fuse_keyframe_plain`, :func:`keyframe_rgb_mask_plain`: eager torch,
+:func:`observe_keyframe` and ``fusion.update_topk``). CUDA tensors take C1,
+the two kernels of `csrc/colorize.cu`: a z-buffer keyframe is a memset and
+two launches (``colorize_scatter``: transform, projection, gate, cell and
+scatter-min; ``colorize_update``: the same again, the depth test, the
+sample, the HSV map, the score and the register, count and label updates),
+an HPR keyframe H2 on the eager transform and one ``colorize_update``; a
+build or launch failure raises. Any other device raises. Both paths update
+the state in place and agree bit for bit. ``launch_counts`` counts each
+kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import se3
+from ..kernels import build as kbuild
 from ..models import camera as cam
 from ..ops import fusion, hpr, zbuffer
 from ..utils.numeric import to_int32
+
+# Launches of each CUDA kernel in this process (see reset_launch_counts).
+launch_counts = {"colorize_scatter": 0, "colorize_update": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+class _ColorizeArgs(ctypes.Structure):
+    """`csrc/colorize.cu`'s ``ColorizeArgs``, field for field (null
+    pointers for what a call does not use)."""
+
+    _fields_ = [
+        ("pts", _PTR), ("sp0", _I64), ("sp1", _I64), ("valid", _PTR), ("sv", _I64), ("n", _I32),
+        ("R", _PTR), ("t", _PTR), ("intr", _PTR), ("dist", _PTR), ("pos", _PTR),
+        ("width", _I32), ("height", _I32), ("ds", _I32), ("eps", _F32),
+        ("keys", _PTR), ("vis_in", _PTR),
+        ("image", _PTR), ("img_h", _I32), ("img_w", _I32), ("mask", _PTR),
+        ("hsv", _I32), ("sat", _F32), ("bri", _F32),
+        ("opt_dist", _F32), ("floor_", _F32), ("one_minus_floor", _F32),
+        ("k", _I32), ("scores", _PTR), ("rgb", _PTR), ("count", _PTR),
+        ("best_s", _PTR), ("best_l", _PTR),
+        ("pts_cam", _PTR), ("rgb_out", _PTR), ("label_out", _PTR), ("vis_out", _PTR),
+        ("highlight", _I32),
+    ]
+
+
+_SIGNATURES = {"colorize": ([ctypes.POINTER(_ColorizeArgs), _PTR], _I32)}
+
+
+def _lib() -> ctypes.CDLL:
+    return kbuild.library("colorize", _SIGNATURES)
+
+
+class KeyframePose(NamedTuple):
+    """A keyframe's view of the map (or a batch of them): ``T`` (camera <-
+    world), its rotation matrix ``R`` (``se3.quat_to_matrix(T.q)``, as
+    ``se3.transform_xyz`` forms it) and the camera's position in the world
+    (the reference_compat score's)."""
+
+    T: se3.SE3
+    R: torch.Tensor  # (..., 3, 3)
+    position: torch.Tensor  # (..., 3)
+
+    def to(self, device) -> "KeyframePose":
+        return KeyframePose(self.T.to(device), self.R.to(device), self.position.to(device))
+
+    def at(self, j: int) -> "KeyframePose":
+        """Keyframe ``j`` of a batch (views, no copy)."""
+        return KeyframePose(se3.SE3(self.T.q[j], self.T.t[j]), self.R[j], self.position[j])
+
+
+def keyframe_pose(kf_pose: se3.SE3, T_correction: se3.SE3) -> KeyframePose:
+    """The view of a keyframe whose camera -> world pose is ``kf_pose``,
+    corrected as ``T_c2w * T_correction`` (`PointCloudProcessor.cpp:507,
+    516`), or of each keyframe of a batch in one set of ops; none runs over
+    the points. A batch gives each keyframe the bits it gets alone
+    (``tests/test_torch_colorize_kernel.py``; ``chip_smoke.py`` on the card)."""
+    T = se3.inverse(se3.compose(kf_pose, T_correction))
+    return KeyframePose(T, se3.quat_to_matrix(T.q), kf_pose.t)
 
 
 class KeyframeObservation(NamedTuple):
@@ -35,6 +115,14 @@ class KeyframeObservation(NamedTuple):
     rgb_packed: torch.Tensor  # (N,) int32 0xRRGGBB
     score: torch.Tensor  # (N,) finalScore
     label: Optional[torch.Tensor] = None  # (N,) int32 mask label
+
+
+def _hpr_visible(camera, x, y, z, u, v, valid, radius, tolerance, impl, dense_cutoff):
+    """The HPR mask of the camera-frame points, gated on the unfloored pixel
+    coordinates as the JAX package's colorize gates them (colorize.py:95-109)."""
+    gate = (valid & (z > 0.0) & (u >= 0) & (u < camera.width)
+            & (v >= 0) & (v < camera.height))
+    return hpr.mask(torch.stack([x, y, z], dim=-1), gate, radius, tolerance, impl, dense_cutoff)
 
 
 def observe_keyframe(
@@ -70,10 +158,8 @@ def observe_keyframe(
     rng = torch.sqrt(x * x + y * y + z * z)
     u, v = cam.project_xyz(camera, x, y, z)
     if culling_method == "hpr":
-        gate = (valid & (z > 0.0) & (u >= 0) & (u < camera.width)
-                & (v >= 0) & (v < camera.height))
-        vis = hpr.mask(torch.stack([x, y, z], dim=-1), gate, hpr_radius, hpr_tolerance,
-                       hpr_impl, hpr_dense_cutoff)
+        vis = _hpr_visible(camera, x, y, z, u, v, valid, hpr_radius, hpr_tolerance, hpr_impl,
+                           hpr_dense_cutoff)
     elif culling_method == "zbuffer":
         vis = zbuffer.cull_mask_uv(
             camera, u, v, z, rng, valid,
@@ -110,6 +196,242 @@ def observe_keyframe(
     return KeyframeObservation(pts_cam, pixels, vis, rgb_packed, score, label)
 
 
+# ---------------------------------------------------------------------------
+# C1 on the card
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"C1: {name} must be on {device} (CUDA), got {t.device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"C1: {name} must be contiguous {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, mask_image,
+                   culling: dict, *, state: Optional["FuseState"] = None, dumps=None,
+                   optimal_distance: float = 2.0, score_floor: float = 0.2,
+                   saturation_scale: float = 1.0, brightness_scale: float = 1.0,
+                   reference_compat: bool = False, highlight: int = 255) -> None:
+    """One launch of C1 (with a z-buffer cull, a memset and two): the
+    fusion ``state`` updated in place, or the ``dumps`` (points_camera,
+    rgb, label, visible) written."""
+    dev = points_world.device
+    n = points_world.shape[0] if points_world.dim() == 2 else -1
+    if dev.type != "cuda" or tuple(points_world.shape) != (n, 3) or n >= 2**31:
+        raise ValueError(f"C1: points must be (N, 3) on a CUDA device, got "
+                         f"{tuple(points_world.shape)} on {dev}")
+    if points_world.dtype != torch.float32 or valid.dtype != torch.bool or valid.device != dev \
+            or tuple(valid.shape) != (n,):
+        raise ValueError(f"C1: points must be f32 and valid ({n},) bool on {dev}")
+    h, w = image_rgb.shape[0], image_rgb.shape[1]
+    _check_cuda("image", image_rgb, dev, torch.uint8, (h, w, 3))
+    if mask_image is not None:
+        _check_cuda("mask image", mask_image, dev, torch.int32, (h, w))
+    _check_cuda("R", pose.R, dev, torch.float32, (3, 3))
+    _check_cuda("t", pose.T.t, dev, torch.float32, (3,))
+    _check_cuda("intrinsic", camera.intrinsic, dev, torch.float32, (4,))
+    _check_cuda("distortion", camera.distortion, dev, torch.float32, (5,))
+    compat = reference_compat and state is not None
+    if compat:
+        _check_cuda("camera position", pose.position, dev, torch.float32, (3,))
+    a = _ColorizeArgs(
+        pts=points_world.data_ptr(), sp0=points_world.stride(0), sp1=points_world.stride(1),
+        valid=valid.data_ptr(), sv=valid.stride(0), n=n,
+        R=pose.R.data_ptr(), t=pose.T.t.data_ptr(), intr=camera.intrinsic.data_ptr(),
+        dist=camera.distortion.data_ptr(), pos=pose.position.data_ptr() if compat else None,
+        width=camera.width, height=camera.height,
+        image=image_rgb.data_ptr(), img_h=h, img_w=w, mask=_ptr(mask_image),
+        hsv=int(saturation_scale != 1.0 or brightness_scale != 1.0),
+        sat=saturation_scale, bri=brightness_scale, opt_dist=optimal_distance,
+        floor_=score_floor, one_minus_floor=1.0 - score_floor, highlight=highlight,
+    )
+    method = culling["culling_method"]
+    if method == "zbuffer":
+        gw, gh = zbuffer.grid(camera, culling["downsample_factor"])
+        keys = torch.empty((gw * gh,), dtype=torch.int32, device=dev)
+        a.keys, a.ds, a.eps = keys.data_ptr(), int(culling["downsample_factor"]), \
+            culling["depth_epsilon"]
+    elif method == "hpr":
+        # H2 (or H1) on the eager transform, then pass (b) with its mask.
+        x, y, z = se3.transform_xyz(pose.T, points_world[:, 0], points_world[:, 1],
+                                    points_world[:, 2])
+        u, v = cam.project_xyz(camera, x, y, z)
+        vis = _hpr_visible(camera, x, y, z, u, v, valid, culling["hpr_radius"],
+                           culling["hpr_tolerance"], culling["hpr_impl"],
+                           culling["hpr_dense_cutoff"])
+        a.vis_in = vis.data_ptr()
+    else:
+        raise ValueError(f"culling.method must be 'zbuffer' or 'hpr', got {method!r}")
+    if state is not None:
+        k = state.topk.scores.shape[0]
+        _check_cuda("top-K scores", state.topk.scores, dev, torch.float32, (k, n))
+        _check_cuda("top-K colors", state.topk.rgb, dev, torch.int32, (k, n))
+        _check_cuda("count", state.count, dev, torch.int32, (n,))
+        a.k, a.scores, a.rgb, a.count = k, state.topk.scores.data_ptr(), \
+            state.topk.rgb.data_ptr(), state.count.data_ptr()
+        if state.best_score is not None:
+            if mask_image is None:
+                raise ValueError("C1: a labelled fusion state needs the keyframe's mask image")
+            _check_cuda("best score", state.best_score, dev, torch.float32, (n,))
+            _check_cuda("best label", state.best_label, dev, torch.int32, (n,))
+            a.best_s, a.best_l = state.best_score.data_ptr(), state.best_label.data_ptr()
+    else:
+        pts_cam, rgb, label, vis_out = dumps
+        a.pts_cam, a.rgb_out, a.label_out, a.vis_out = (
+            pts_cam.data_ptr(), rgb.data_ptr(), label.data_ptr(), vis_out.data_ptr())
+    if n == 0:
+        return
+    err = _lib().colorize(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"colorize launch failed: CUDA error {err}")
+    if method == "zbuffer":
+        launch_counts["colorize_scatter"] += 1
+    launch_counts["colorize_update"] += 1
+
+
+def _culling(culling_method="zbuffer", downsample_factor=14, depth_epsilon=0.05,
+             hpr_radius=90000.0, hpr_tolerance=0.05, hpr_impl="auto", hpr_dense_cutoff=100_000):
+    return dict(culling_method=culling_method, downsample_factor=downsample_factor,
+                depth_epsilon=depth_epsilon, hpr_radius=hpr_radius, hpr_tolerance=hpr_tolerance,
+                hpr_impl=hpr_impl, hpr_dense_cutoff=hpr_dense_cutoff)
+
+
+# ---------------------------------------------------------------------------
+# The per-keyframe fusion step
+# ---------------------------------------------------------------------------
+
+
+class FuseState(NamedTuple):
+    """What the fusion carries from one keyframe to the next (updated in
+    place by :func:`fuse_keyframe`)."""
+
+    topk: fusion.TopKColors  # (K, N) scores (-inf when empty) and packed colors
+    count: torch.Tensor  # (N,) int32 visible observations
+    best_score: Optional[torch.Tensor]  # (N,) f32, with masks: the best visible score
+    best_label: Optional[torch.Tensor]  # (N,) int32, with masks: its label
+
+
+def init_fuse_state(n: int, device, top_k: int = 5, labelled: bool = False) -> FuseState:
+    return FuseState(
+        topk=fusion.init_topk(n, device, top_k),
+        count=torch.zeros((n,), dtype=torch.int32, device=device),
+        best_score=(torch.full((n,), -torch.inf, dtype=torch.float32, device=device)
+                    if labelled else None),
+        best_label=torch.zeros((n,), dtype=torch.int32, device=device) if labelled else None,
+    )
+
+
+def fuse_keyframe_plain(
+    state: FuseState,
+    camera: cam.PinholeCamera,
+    image_rgb: torch.Tensor,
+    pose: KeyframePose,
+    points_world: torch.Tensor,
+    valid: torch.Tensor,
+    mask_image: Optional[torch.Tensor] = None,
+    *,
+    optimal_distance: float = 2.0,
+    score_floor: float = 0.2,
+    saturation_scale: float = 1.0,
+    brightness_scale: float = 1.0,
+    reference_compat_orientation: bool = False,
+    **culling,
+) -> FuseState:
+    """The twin of C1 on any device: :func:`observe_keyframe`, then
+    ``fusion.update_topk``, the count and, with masks, the label of the
+    strictly better visible score, written into ``state``."""
+    obs = observe_keyframe(
+        camera, image_rgb, pose.T, points_world, valid, mask_image=mask_image,
+        camera_position_world=pose.position, optimal_distance=optimal_distance,
+        score_floor=score_floor, saturation_scale=saturation_scale,
+        brightness_scale=brightness_scale,
+        reference_compat_orientation=reference_compat_orientation, **_culling(**culling),
+    )
+    topk = fusion.update_topk(state.topk, obs.score, obs.rgb_packed, obs.visible)
+    state.topk.scores.copy_(topk.scores)
+    state.topk.rgb.copy_(topk.rgb)
+    if state.best_score is not None:
+        s = torch.where(obs.visible, obs.score, -torch.inf)
+        better = s > state.best_score
+        state.best_label.copy_(torch.where(better, obs.label, state.best_label))
+        state.best_score.copy_(torch.where(better, s, state.best_score))
+    state.count.copy_(state.count + obs.visible.to(torch.int32))
+    return state
+
+
+def fuse_keyframe(
+    state: FuseState,
+    camera: cam.PinholeCamera,
+    image_rgb: torch.Tensor,  # (H, W, 3) uint8
+    pose: KeyframePose,
+    points_world: torch.Tensor,  # (N, 3)
+    valid: torch.Tensor,  # (N,)
+    mask_image: Optional[torch.Tensor] = None,  # (H, W) int32, with a labelled state
+    *,
+    optimal_distance: float = 2.0,
+    score_floor: float = 0.2,
+    saturation_scale: float = 1.0,
+    brightness_scale: float = 1.0,
+    reference_compat_orientation: bool = False,
+    **culling,
+) -> FuseState:
+    """Fuse one keyframe into ``state`` in place and return it
+    (`PointCloudProcessor.cpp:495-591`): cull, sample, score, keep the top
+    K. ``culling`` holds ``culling_method``, ``downsample_factor``,
+    ``depth_epsilon`` and the ``hpr_*`` options of :func:`observe_keyframe`.
+    CPU tensors take :func:`fuse_keyframe_plain`, CUDA tensors C1 (a memset
+    and two launches, or H2 and one launch under HPR); any other device
+    raises."""
+    dev = points_world.device.type
+    scoring = dict(optimal_distance=optimal_distance, score_floor=score_floor,
+                   saturation_scale=saturation_scale, brightness_scale=brightness_scale)
+    if dev == "cpu":
+        return fuse_keyframe_plain(state, camera, image_rgb, pose, points_world, valid, mask_image,
+                                   reference_compat_orientation=reference_compat_orientation,
+                                   **scoring, **culling)
+    if dev == "cuda":
+        _colorize_cuda(camera, pose, points_world, valid, image_rgb, mask_image,
+                       _culling(**culling), state=state,
+                       reference_compat=reference_compat_orientation, **scoring)
+        return state
+    raise NotImplementedError(f"fuse_keyframe: no kernel for device {points_world.device}")
+
+
+@torch.no_grad()
+def keyframe_rgb_mask_plain(
+    camera: cam.PinholeCamera,
+    points_world: torch.Tensor,
+    valid: torch.Tensor,
+    image_rgb: torch.Tensor,
+    mask_image: torch.Tensor,
+    pose: KeyframePose,
+    *,
+    saturation_scale: float = 1.0,
+    brightness_scale: float = 1.0,
+    mask_highlight_value: int = 255,
+    **culling,
+):
+    """The twin of :func:`keyframe_rgb_mask`'s C1 on any device:
+    :func:`observe_keyframe`, the sampled colors unpacked and the highlight
+    label painted red."""
+    obs = observe_keyframe(
+        camera, image_rgb, pose.T, points_world, valid, mask_image=mask_image,
+        camera_position_world=pose.position, saturation_scale=saturation_scale,
+        brightness_scale=brightness_scale, **_culling(**culling),
+    )
+    rgb = fusion.unpack_rgb(obs.rgb_packed)
+    highlight = obs.label == mask_highlight_value
+    red = torch.tensor([255.0, 0.0, 0.0], dtype=rgb.dtype, device=rgb.device)
+    rgb = torch.where(highlight[:, None], red, rgb)
+    return obs.points_camera, rgb, obs.label, obs.visible
+
+
 @torch.no_grad()
 def keyframe_rgb_mask(
     camera: cam.PinholeCamera,
@@ -120,16 +442,10 @@ def keyframe_rgb_mask(
     kf_pose: se3.SE3,  # camera->world
     T_correction: se3.SE3,
     *,
-    downsample_factor: int = 14,
-    depth_epsilon: float = 0.05,
     saturation_scale: float = 1.0,
     brightness_scale: float = 1.0,
     mask_highlight_value: int = 255,
-    culling_method: str = "zbuffer",
-    hpr_radius: float = 90000.0,
-    hpr_tolerance: float = 0.05,
-    hpr_impl: str = "auto",
-    hpr_dense_cutoff: int = 100_000,
+    **culling,
 ):
     """One keyframe's colored + mask-labelled view for the artifact dumps.
 
@@ -139,31 +455,26 @@ def keyframe_rgb_mask(
     sampled rgb (label == ``mask_highlight_value`` painted red, :806-811),
     mask label. Returns ``(points_camera (N,3), rgb (N,3), label (N,),
     visible (N,))`` at full map capacity; the caller compacts with
-    ``visible``."""
-    T_c2w = se3.compose(kf_pose, T_correction)
-    obs = observe_keyframe(
-        camera,
-        image_rgb,
-        se3.inverse(T_c2w),
-        points_world,
-        valid,
-        mask_image=mask_image,
-        camera_position_world=kf_pose.t,
-        downsample_factor=downsample_factor,
-        depth_epsilon=depth_epsilon,
-        saturation_scale=saturation_scale,
-        brightness_scale=brightness_scale,
-        culling_method=culling_method,
-        hpr_radius=hpr_radius,
-        hpr_tolerance=hpr_tolerance,
-        hpr_impl=hpr_impl,
-        hpr_dense_cutoff=hpr_dense_cutoff,
-    )
-    rgb = fusion.unpack_rgb(obs.rgb_packed)
-    highlight = obs.label == mask_highlight_value
-    red = torch.tensor([255.0, 0.0, 0.0], dtype=rgb.dtype, device=rgb.device)
-    rgb = torch.where(highlight[:, None], red, rgb)
-    return obs.points_camera, rgb, obs.label, obs.visible
+    ``visible``. ``culling`` as for :func:`fuse_keyframe`. CPU tensors take
+    :func:`keyframe_rgb_mask_plain`, CUDA tensors C1 with its dump outputs
+    (a memset and two launches, or H2 and one launch under HPR)."""
+    pose = keyframe_pose(kf_pose, T_correction)
+    colors = dict(saturation_scale=saturation_scale, brightness_scale=brightness_scale)
+    dev = points_world.device
+    if dev.type == "cpu":
+        return keyframe_rgb_mask_plain(camera, points_world, valid, image_rgb, mask_image, pose,
+                                       mask_highlight_value=mask_highlight_value, **colors,
+                                       **culling)
+    if dev.type == "cuda":
+        n = points_world.shape[0]
+        dumps = (torch.empty((n, 3), dtype=torch.float32, device=dev),
+                 torch.empty((n, 3), dtype=torch.float32, device=dev),
+                 torch.empty((n,), dtype=torch.int32, device=dev),
+                 torch.empty((n,), dtype=torch.bool, device=dev))
+        _colorize_cuda(camera, pose, points_world, valid, image_rgb, mask_image,
+                       _culling(**culling), dumps=dumps, highlight=mask_highlight_value, **colors)
+        return dumps
+    raise NotImplementedError(f"keyframe_rgb_mask: no kernel for device {dev}")
 
 
 class FusionResult(NamedTuple):
@@ -184,18 +495,13 @@ def fuse(
     mask_images: Optional[torch.Tensor] = None,  # (K, H, W) int32
     *,
     top_k: int = 5,
-    downsample_factor: int = 14,
-    depth_epsilon: float = 0.05,
+    plain: bool = False,
     optimal_distance: float = 2.0,
     score_floor: float = 0.2,
     saturation_scale: float = 1.0,
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
-    culling_method: str = "zbuffer",
-    hpr_radius: float = 90000.0,
-    hpr_tolerance: float = 0.05,
-    hpr_impl: str = "auto",
-    hpr_dense_cutoff: int = 100_000,
+    **culling,
 ) -> FusionResult:
     """Colorize the map from all keyframes and blend the top-K observations.
 
@@ -203,48 +509,25 @@ def fuse(
     (`PointCloudProcessor.cpp:507,516`). ``images`` (and ``mask_images``)
     may live on the host: each keyframe's image is moved to the map's device
     as it is used. With masks, each point keeps the label of its visible
-    observation of strictly highest score (`best_label`)."""
-    n = points_world.shape[0]
+    observation of strictly highest score (`best_label`). Each keyframe is
+    one :func:`fuse_keyframe`, or with ``plain`` its twin
+    :func:`fuse_keyframe_plain` on any device (the eager path C1 replaces);
+    ``culling`` as for :func:`fuse_keyframe`."""
     device = points_world.device
     labelled = mask_images is not None
-    topk = fusion.init_topk(n, device, top_k)
-    count = torch.zeros((n,), dtype=torch.int32, device=device)
-    best_s = torch.full((n,), -torch.inf, dtype=torch.float32, device=device)
-    best_l = torch.zeros((n,), dtype=torch.int32, device=device)
+    state = init_fuse_state(points_world.shape[0], device, top_k, labelled)
+    views = keyframe_pose(kf_poses, T_correction)
+    step = fuse_keyframe_plain if plain else fuse_keyframe
     for j in range(images.shape[0]):
-        T_c2w = se3.compose(se3.SE3(kf_poses.q[j], kf_poses.t[j]), T_correction)
-        obs = observe_keyframe(
-            camera,
-            images[j].to(device),
-            se3.inverse(T_c2w),
-            points_world,
-            valid,
-            mask_image=mask_images[j].to(device) if labelled else None,
-            camera_position_world=kf_poses.t[j],
-            downsample_factor=downsample_factor,
-            depth_epsilon=depth_epsilon,
-            optimal_distance=optimal_distance,
-            score_floor=score_floor,
-            saturation_scale=saturation_scale,
-            brightness_scale=brightness_scale,
-            reference_compat_orientation=reference_compat_orientation,
-            culling_method=culling_method,
-            hpr_radius=hpr_radius,
-            hpr_tolerance=hpr_tolerance,
-            hpr_impl=hpr_impl,
-            hpr_dense_cutoff=hpr_dense_cutoff,
-        )
-        topk = fusion.update_topk(topk, obs.score, obs.rgb_packed, obs.visible)
-        if labelled:
-            s = torch.where(obs.visible, obs.score, -torch.inf)
-            better = s > best_s
-            best_s = torch.where(better, s, best_s)
-            best_l = torch.where(better, obs.label, best_l)
-        count = count + obs.visible.to(torch.int32)
-    rgb, colored = fusion.blend_topk(topk)
+        step(state, camera, images[j].to(device), views.at(j), points_world, valid,
+             mask_images[j].to(device) if labelled else None,
+             optimal_distance=optimal_distance, score_floor=score_floor,
+             saturation_scale=saturation_scale, brightness_scale=brightness_scale,
+             reference_compat_orientation=reference_compat_orientation, **culling)
+    rgb, colored = fusion.blend_topk(state.topk)
     return FusionResult(
         rgb=rgb,
         colored=colored & valid,
-        best_label=best_l if labelled else None,
-        observation_count=count,
+        best_label=state.best_label,
+        observation_count=state.count,
     )

@@ -1,10 +1,11 @@
 """Colorize / fusion cost anatomy on the card.
 
 Counterpart of `pointcloudprocessor_tpu/tools/colorize_anatomy.py`. It times
-nested prefixes of `pipeline/colorize.observe_keyframe` over the bench
-scene's keyframes (`tools/bench_scene.py`), each the median of ``--reps``
-CUDA-event timings of all K keyframes, taken in rounds that time every
-stage in turn:
+nested prefixes of the eager colorize (`pipeline/colorize.observe_keyframe`,
+the plain twin of C1) over the bench scene's keyframes
+(`tools/bench_scene.py`), and beside them the production path, each the
+median of ``--reps`` CUDA-event timings of all K keyframes, taken in rounds
+that time every stage in turn:
 
   project    : SE3 transform + projection + score (elementwise)
   cull       : + the z-buffer cull, production ``cull_mask_uv`` (the
@@ -14,9 +15,13 @@ stage in turn:
                ``cull_pallas`` pair, turned round: production is the kernel)
   pack       : cull + image pack to one int32 a pixel
   sample     : pack + the per-point color gather packed[flat]
-  fuse       : the pipeline's whole ``colorize.fuse`` (+ top-K update + blend)
+  fuse_plain : ``colorize.fuse(plain=True)``, every keyframe through the
+               twin (+ top-K update + blend): the eager path C1 replaced
+  fuse       : the pipeline's whole ``colorize.fuse``, production (on the
+               card C1, a memset and two launches a keyframe, + the blend)
 
-Successive differences attribute the cost, in ms per frame. A stage time
+Successive differences attribute the cost, in ms per frame; ``full`` is
+the production fuse a frame, ``full_plain`` the eager one. A stage time
 below its physical floor (half the time to move its least bytes once at the
 card's DRAM bandwidth) is printed as null and named under ``below_floor``,
 as is a difference under the floor of the bytes its stage adds (a negative
@@ -24,7 +29,8 @@ one included); a difference that needs a refused stage is null. The run
 ends with an exactness check
 on every keyframe: the kernel's mask, the twin's, and the mask of
 `zbuffer_probe.zmin_tiles` over the JAX tool's sink-cell and
-2048-padding construction (`colorize_anatomy.py:88-103`) are bit-equal.
+2048-padding construction (`colorize_anatomy.py:88-103`) are bit-equal,
+and so are the production and the eager fuse.
 
 Usage:
   python -m pointcloudprocessor_tpu_torch.tools.colorize_anatomy [--quick] [--device cuda]
@@ -51,12 +57,14 @@ from . import bench_scene
 from .zbuffer_probe import BLK, FILL, check_device, device_kind, floor_ms, refuse_below_floor, zmin_tiles
 
 DS, EPS = 14, 0.05
-STAGES = ("project", "cull", "cull_plain", "pack", "sample", "fuse")
+STAGES = ("project", "cull", "cull_plain", "pack", "sample", "fuse_plain", "fuse")
 # Least bytes each stage moves once: per point (xyz in; the cull's cell and
 # range; the sample's packed word; the top-K registers, 5 x (score, rgb)
-# read and written) and per pixel (3 B in, 4 B out for the pack).
-_POINT_BYTES = {"project": 12, "cull": 20, "cull_plain": 20, "pack": 20, "sample": 24, "fuse": 104}
-_PIXEL_BYTES = {"pack": 7, "sample": 7, "fuse": 7}
+# read and written) and per pixel (3 B in, 4 B out for the pack, which C1
+# does not make).
+_POINT_BYTES = {"project": 12, "cull": 20, "cull_plain": 20, "pack": 20, "sample": 24,
+                "fuse_plain": 104, "fuse": 104}
+_PIXEL_BYTES = {"pack": 7, "sample": 7, "fuse_plain": 7}
 
 
 def tiles_inputs(camera, u, v, z, rng, valid, ds: int = DS):
@@ -91,9 +99,9 @@ def run_stage(scene, stage: str) -> torch.Tensor:
     """One pass of ``stage`` over all keyframes; a scalar that consumes
     every output, so nothing is skipped."""
     camera = scene.camera
-    if stage == "fuse":
+    if stage in ("fuse", "fuse_plain"):
         fz = colorize.fuse(camera, scene.points, scene.valid, scene.images, scene.poses,
-                           se3.identity(scene.points.device))
+                           se3.identity(scene.points.device), plain=stage == "fuse_plain")
         return fz.rgb.sum() + fz.colored.sum()
     acc = torch.zeros((), dtype=torch.float32, device=scene.points.device)
     for j in range(scene.images.shape[0]):
@@ -125,6 +133,17 @@ def exact_masks(scene) -> bool:
                 and torch.equal(got, tiles_cull(*args))):
             return False
     return True
+
+
+def exact_fuse(scene) -> bool:
+    """The production fuse and the eager one bit-equal: colors, colored
+    mask and observation counts."""
+    args = (scene.camera, scene.points, scene.valid, scene.images, scene.poses,
+            se3.identity(scene.points.device))
+    got, want = colorize.fuse(*args), colorize.fuse(*args, plain=True)
+    return (torch.equal(got.rgb.view(torch.int32), want.rgb.view(torch.int32))
+            and torch.equal(got.colored, want.colored)
+            and torch.equal(got.observation_count, want.observation_count))
 
 
 def time_stages(scene, dev, reps: int) -> dict:
@@ -167,7 +186,7 @@ def main(argv: Optional[list] = None) -> dict:
         floors = {s: floor_ms(n_map * k, _POINT_BYTES[s])
                   + floor_ms(width * height * k, _PIXEL_BYTES.get(s, 0)) for s in STAGES}
         times, below = refuse_below_floor(times, floors)
-        exact = exact_masks(scene)
+        exact = exact_masks(scene) and exact_fuse(scene)
 
     def per_frame(name, a, b=None):
         """ms per frame of stage a, less stage b; None where either was
@@ -188,7 +207,8 @@ def main(argv: Optional[list] = None) -> dict:
         "zbuffer_scatter_plain": per_frame("zbuffer_scatter_plain", "cull_plain", "project"),
         "image_pack": per_frame("image_pack", "pack", "cull"),
         "sample_gather": per_frame("sample_gather", "sample", "pack"),
-        "topk_blend": per_frame("topk_blend", "fuse", "sample"),
+        "topk_blend": per_frame("topk_blend", "fuse_plain", "sample"),
+        "full_plain": per_frame("full_plain", "fuse_plain"),
         "full": per_frame("full", "fuse"),
     }
     out = {
@@ -203,7 +223,7 @@ def main(argv: Optional[list] = None) -> dict:
     }
     print(json.dumps(out))
     if not exact:
-        raise AssertionError("colorize_anatomy: kernel, twin and tile-form masks differ")
+        raise AssertionError("colorize_anatomy: the masks or the fuses differ")
     return out
 
 

@@ -322,7 +322,7 @@ def test_colorize_anatomy_refuses_a_negative_difference(monkeypatch):
     """A stage that timed faster than its prefix gives no number: the
     difference is null and named, the other parts stay."""
     fake = {"project": 8.0, "cull": 7.0, "cull_plain": 10.0, "pack": 11.0, "sample": 12.0,
-            "fuse": 20.0}
+            "fuse_plain": 20.0, "fuse": 20.0}
     monkeypatch.setattr(tanat, "time_stages", lambda scene, dev, reps: dict(fake))
     out = tanat.main(["--quick", "--device", CPU])
     assert out["zbuffer_scatter"] is None and out["below_floor"] == ["zbuffer_scatter"]
