@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for matmuls and cuDNN.
 2. Build: compiles the eight kernel libraries (csrc/nid_hist.cu: K1/K2,
-   csrc/tap_gather.cu: G1 tap_take and K3/K4, csrc/zbuffer.cu: K5 zmin and
+   csrc/tap_gather.cu: G1 tap_take, bin_pack and K3/K4, csrc/zbuffer.cu: K5 zmin and
    zbuffer_visible, csrc/colorize.cu: C1 colorize_scatter and
    colorize_update, csrc/hpr.cu: H1 hpr_support and H2 hpr_grid,
    csrc/smooth.cu: N1 smooth_local, csrc/mls.cu: M1 mls_moments,
@@ -42,16 +42,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite NID, colored points whose colors follow the rendered texture, K1/K2
    launches at both shapes (counted by points a keyframe), 8 launches each
    of zmin and zbuffer_visible (the NID culls) and of colorize_scatter and
-   colorize_update (C1, a colorize keyframe each), and one G1 tap_take a
-   direct take: each coarse evaluation, each frozen-tap gather and the final
-   exact evaluation (26 + 5 + 1 on the scene).
-5. G1 and K3/K4 (each one launch; K3/K4 plan and select) on the scene's own
-   8 x 4096x3000 row tables, the culled points raster-sorted at the start
-   pose. G1 bit-equal to its twin and to ``tap_rows[kf, anchor]`` on every
-   point at the start pose and at T0 and to its twin on edge knots (the
-   image's borders, negative, +-1e9, the int32 extremes); its device / call
-   / host times beside the twin, the eager take, ``index_select`` and the
-   bound. K3/K4 at that pose (clean groups; fast path) and at T0
+   colorize_update (C1, a colorize keyframe each), one bin_pack a solve (the
+   packed bin image; the solve's keyframes carry no tap table) and one G1
+   tap_take a direct take: each coarse evaluation at 8 x 16,384, each
+   frozen-tap gather and the final exact evaluation at 8 x 262,144 (26 + 5
+   + 1 on the scene); prints the solve's peak device memory. Then the same
+   run through the twins of C1, G1 and the packer: the same pose, NID,
+   counts and colored cloud, byte for byte.
+5. G1 and its packer (``phase_direct_take``) on the scene's keyframes in
+   map order, as the headline's solve takes them: ``bin_pack`` bit-equal
+   to its twin and timed; G1 bit-equal to its twin and to ``tap_rows[kf,
+   anchor]`` (the port's ``nid.build_tap_table``, held to the JAX package's
+   on the CPU by tests/test_torch_tap_take.py; built for this check alone) on every
+   point at the start pose and at T0, on the coarse subsample, at the sort
+   pose, on edge knots (the image's borders, negative, +-1e9, the int32
+   extremes), on a ragged n and on a 4095 x 2999 image (padded tiles); its
+   device times at both shapes on map-order knots at T0, warm and with L2
+   flushed, and at the sort pose, beside its twin and ``index_select`` of
+   the table rows, and the bound (16 B a point and each distinct pixel the
+   windows read at 4 bits; the whole-sector count of the 32-byte tiles
+   they touch printed beside it). Then K3/K4 (each one launch; plan and select) on the
+   scene's own 8 x 4096x3000 row tables, the culled points raster-sorted
+   at the start pose: at that pose (clean groups; fast path) and at T0
    (overflow; fallback), each bit-equal to its twin on every row, flag and
    count (also with a masked step and a ragged point count), equal to the
    direct take on the ok rows of clean groups, and the whole grouped take
@@ -94,11 +106,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    n and n = 0; the mask dumps (``keyframe_rgb_mask``) bit-equal to theirs;
    the twin's divisions on the card against the CPU's on all 2^24 colors and
    the scene's scores (``c1_division_check``, with a Python-number divisor
-   and with the twin's 0-dim tensor); at keyframe 0 the step's and each
-   pass's device time (``torch.profiler``, a memset and two launches a step
-   asserted, one launch of pass (b) under HPR) beside the bound counted
-   from the call's data, the twin's, and the whole ``fuse`` through C1 and
-   through the twin.
+   and with the twin's 0-dim tensor); each pass's mean device time over
+   the 8 keyframes from an empty state, as ``fuse`` runs them (the slots
+   fill, then replace), beside its bound counted from those steps' data
+   (the records' ``ms``); at keyframe 0 fused again onto its own state the
+   step's and each pass's device time (``torch.profiler``, a memset and two
+   launches a step asserted, one launch of pass (b) under HPR) beside that
+   call's bound and the twin's; the whole ``fuse`` through C1 and through
+   the twin.
 8. The HPR + smoothing path: ``runner.process`` under the headline
    schedule with ``culling.method="hpr"`` (``hpr_impl`` "auto": the grid at
    1M points) and ``fusion.local_smoothing_radius`` = ``SMOOTH_RADIUS``.
@@ -199,11 +214,21 @@ schedule (``run_sizes``), of the corner and ``scene_*`` of the map, and
 (``torch.profiler``: kernel launches a ``sor_stats`` / ``mls_smooth``
 call, asserted 1).
 C1's records (colorize_scatter, colorize_update) carry their pass's device
-time as ``ms`` (``torch.profiler``), the twin's as ``plain_ms`` (for pass
-(a) the transform, projection, gate, cell and scatter-min; for pass (b) the
-whole twin step), ``step_ms`` / ``call_ms`` of the step, ``fuse_call_ms``
-and ``fuse_twin_call_ms`` and the division check's counts. G1 carries its
-device time beside ``index_select`` (``library_ms``) and the eager take.
+time as ``ms`` (``torch.profiler``: the mean a launch over the 8 keyframes
+from an empty state, as ``fuse`` runs them, with ``bound_ms`` the mean of
+their bounds), the twin's as ``plain_ms`` (for pass (a) the transform,
+projection, gate, cell and scatter-min; for pass (b) the whole twin step),
+``step_ms`` (the memset and both passes over that sequence), ``call_ms`` of
+a step, ``refuse_kf0_ms`` / ``refuse_kf0_step_ms`` (keyframe 0 fused again
+onto the state it left: no slot replaced, a state the path never has;
+``refuse_kf0_bound_ms``), ``fuse_call_ms`` and ``fuse_twin_call_ms`` and
+the division check's counts. G1 carries
+its device time on map-order knots at the fine shape (``ms``,
+``map_order_ms``; ``cold_ms`` with L2 flushed), at the coarse shape
+(``coarse_ms``) and at the sort pose (``sort_pose_ms``), each beside
+``index_select`` of the table rows, its launches by shape
+(``launches_by_n``) and the headline solve's peak memory; ``bin_pack``
+its device time beside its twin.
 K5/Z1 carry their pass's device time as ``ms`` and its twin's (the gate,
 the cell and the scatter-min or the test, in plain torch on the same
 inputs) as ``plain_ms``, a whole cull's call as ``call_ms``, the mask's
@@ -724,17 +749,18 @@ def _reset_counts():
 
 
 def _read_counts():
+    from pointcloudprocessor_tpu_torch.kernels import build as kbuild
     from pointcloudprocessor_tpu_torch.ops import hpr, knn, mls, nid_hist, tap_gather, zbuffer
     from pointcloudprocessor_tpu_torch.pipeline import colorize
 
-    by_n = {name: {} for name in nid_hist.launch_counts}
-    for (name, n), c in sorted(nid_hist.launch_shapes.items()):
+    by_n = {name: {} for name in (*nid_hist.launch_counts, "tap_take")}
+    for (name, n), c in sorted(kbuild.launch_shapes.items()):
         by_n[name][str(n)] = c
     return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
             **{f"{k}_fallbacks": v for k, v in tap_gather.fallback_counts.items()},
             **zbuffer.launch_counts, **colorize.launch_counts, **hpr.launch_counts,
             **knn.launch_counts,
-            **mls.launch_counts, "nid_hist_by_n": by_n}
+            **mls.launch_counts, "launches_by_n": by_n}
 
 
 def _pose_error(T, T0):
@@ -756,35 +782,68 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     zbuffer_visible) a NID keyframe; one of each C1 pass (colorize_scatter
     and colorize_update) a colorize keyframe and, with masks, a dump; with
     ``hpr`` H2 hpr_grid for all of those culls and C1's pass (b) alone, and
-    one N1 smooth_local launch; one G1 tap_take a direct take; with ``mls``
+    one N1 smooth_local launch; one G1 tap_take a direct take (by points a
+    keyframe: each coarse evaluation at the coarse shape, each frozen
+    gather and the final evaluation at the fine one) and one bin_pack a
+    solve, whose keyframes carry no tap table; with ``mls``
     one M1 mls_moments and two S1 knn_select launches (the two SOR passes),
-    and the MLS stage's split. With ``eager`` (no masks) C1 and G1 give way
-    to their twins (``fuse_keyframe_plain``, ``direct_take_plain``): the
-    eager path they replaced, whose colorize culls take the z-buffer
-    kernels. Returns (launches, summary): the pose, NID, evaluations,
-    gathers, colored points, the colored cloud's SHA-256 and the
-    ``colorize_fuse`` stage's seconds."""
+    and the MLS stage's split. With ``eager`` (no masks) C1, G1 and the
+    packer give way to their twins (``fuse_keyframe_plain``,
+    ``direct_take_plain``, ``pack_bins_plain``): the eager path they
+    replaced, whose colorize culls take the z-buffer kernels. Prints the
+    solve's peak device memory above what was held at its entry. Returns
+    (launches, summary): the pose, NID, evaluations, gathers, colored
+    points, the colored cloud's SHA-256, the ``colorize_fuse`` stage's
+    seconds and the solve's peak memory (MiB; None off the card)."""
     import hashlib
+
+    import torch
 
     from pointcloudprocessor_tpu_torch.io import pcd
     from pointcloudprocessor_tpu_torch.ops import tap_gather
+    from pointcloudprocessor_tpu_torch.opt import nid as nid_mod
+    from pointcloudprocessor_tpu_torch.opt import refine
     from pointcloudprocessor_tpu_torch.pipeline import colorize, runner
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
     cfg = _config(root, nid, masks, hpr, mls)
     shutil.rmtree(cfg.output_path, ignore_errors=True)
-    kernels = (colorize.fuse_keyframe, tap_gather.direct_take)
+    kernels = (colorize.fuse_keyframe, tap_gather.direct_take, tap_gather.pack_bins)
+    wrapped = (nid_mod.prepare_keyframes, refine.refine_pose)
     if eager:
         assert not masks
         colorize.fuse_keyframe = colorize.fuse_keyframe_plain
         tap_gather.direct_take = tap_gather.direct_take_plain
+        tap_gather.pack_bins = tap_gather.pack_bins_plain
+    tables, peaks = [], []
+
+    def prepare(*args, **kw):  # what the solve's keyframes carry
+        out = wrapped[0](*args, **kw)
+        tables.append(out.tap_rows is not None)
+        return out
+
+    def solve(*args, **kw):  # the solve's peak memory above its entry's
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        out = wrapped[1](*args, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - held) / 2**20)
+        return out
+
+    nid_mod.prepare_keyframes, refine.refine_pose = prepare, solve
     _reset_counts()
     t0 = time.perf_counter()
     try:
         res = runner.process(cfg, device)
     finally:
-        colorize.fuse_keyframe, tap_gather.direct_take = kernels
+        colorize.fuse_keyframe, tap_gather.direct_take, tap_gather.pack_bins = kernels
+        nid_mod.prepare_keyframes, refine.refine_pose = wrapped
     wall = time.perf_counter() - t0
+    assert tables and not any(tables), f"the solve's keyframes carried a tap table: {tables}"
+    assert len(peaks) == (1 if device == "cuda" else 0), peaks
     launches = _read_counts()
     with open(os.path.join(cfg.output_path, "metrics.jsonl")) as f:
         refined = [json.loads(line) for line in f if '"nid_refined"' in line][-1]
@@ -795,7 +854,8 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     print(f"{label}: pose error vs planted T0: {err_cm:.4f} cm / {err_deg:.4f} deg; NID "
           f"{res.nid_value:.6f}; evaluations {res.nid_evaluations}; gathers "
           f"{refined['gathers']}; outer {res.nid_outer_iterations}; keyframes "
-          f"{res.num_keyframes}; colored {res.num_colored_points}; launches {launches}")
+          f"{res.num_keyframes}; colored {res.num_colored_points}; solve peak device memory "
+          f"{f'{peaks[0]:.1f} MiB' if peaks else 'not measured'}; launches {launches}")
     assert res.num_keyframes == K, res.num_keyframes
     assert np.isfinite(res.nid_value), res.nid_value
     assert err_cm < 1.0 and err_deg < 1.0, "refine did not recover the planted error"
@@ -805,15 +865,17 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
                    "nid": res.nid_value, "evaluations": res.nid_evaluations,
                    "gathers": refined["gathers"], "colored": res.num_colored_points,
                    "colored_pcd_sha256": hashlib.sha256(f.read()).hexdigest(),
-                   "colorize_fuse_s": res.timings["colorize_fuse"]}
+                   "colorize_fuse_s": res.timings["colorize_fuse"],
+                   "solve_peak_mib": peaks[0] if peaks else None}
     if device == "cuda":
         assert launches["nid_hist_fwd"] > 0 and launches["nid_hist_bwd"] > 0, launches
-        for name, by_n in launches["nid_hist_by_n"].items():
+        for name, by_n in launches["launches_by_n"].items():
             assert sum(by_n.values()) == launches[name], launches
         if nid.coarse_outer_iterations:  # both shapes of the coarse-to-fine solve
-            assert len(launches["nid_hist_by_n"]["nid_hist_fwd"]) == 2, launches
+            assert len(launches["launches_by_n"]["nid_hist_fwd"]) == 2, launches
     if device == "cuda" and eager:  # the NID and colorize culls on the z-buffer kernels
         assert launches["tap_take"] == launches["colorize_scatter"] == 0, launches
+        assert launches["bin_pack"] == 0, launches
         assert launches["colorize_update"] == 0, launches
         assert launches["zmin"] == launches["zbuffer_visible"] == 2 * K, launches
     elif device == "cuda":
@@ -837,12 +899,16 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         # with frozen taps so does each refresh of the cache, the first
         # included, and the final exact evaluation.
         if nid.frozen_taps:
-            coarse = sum(c for n, c in launches["nid_hist_by_n"]["nid_hist_fwd"].items()
+            coarse = sum(c for n, c in launches["launches_by_n"]["nid_hist_fwd"].items()
                          if int(n) < N_CULL)
             takes = coarse + refined["gathers"] + 1
+            by_n = launches["launches_by_n"]["tap_take"]
+            assert by_n.get(str(N_CULL), 0) == refined["gathers"] + 1, launches
+            assert by_n.get(str(N_CULL // nid.coarse_stride), 0) == coarse, launches
         else:
             takes = launches["nid_hist_fwd"]
         assert launches["tap_take"] == takes, (takes, launches)
+        assert launches["bin_pack"] == 1, launches  # one a solve
         assert launches["mls_moments"] == (1 if mls else 0), launches
         assert launches["knn_select"] == (2 if mls else 0), launches
     if mls:
@@ -951,6 +1017,246 @@ def scene_keyframes(root, device="cuda"):
     return camera, runner.build_nid_keyframes(camera, cloud, frames, kf_idx, cfg)
 
 
+def _window_pixels(knot, w, h):
+    """Distinct pixels of the clipped 4x4 windows that the knots read,
+    summed over the keyframes (each reads its own image): rows and columns
+    -1..2 around the clipped anchor, each clamped into the image."""
+    import torch
+
+    u = torch.clamp(knot[..., 0].long(), 0, w - 1)
+    v = torch.clamp(knot[..., 1].long(), 0, h - 1)
+    d = torch.arange(-1, 3, device=knot.device)
+    total = 0
+    for j in range(knot.shape[0]):
+        cols = torch.clamp(u[j, :, None] + d, 0, w - 1)
+        rows = torch.clamp(v[j, :, None] + d, 0, h - 1)
+        seen = torch.zeros(h * w, dtype=torch.bool, device=knot.device)
+        seen[(rows[:, :, None] * w + cols[:, None, :]).reshape(-1)] = True
+        total += int(seen.sum())
+    return total
+
+
+def _tiles_touched(knot, w, h):
+    """Distinct 32-byte tiles of the packed bin image that the knots read,
+    over all keyframes: each clipped 4x4 window lies in one tile
+    (``tap_gather.bin_tile_shape``)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
+
+    k = knot.shape[0]
+    th, tw = tg.bin_tile_shape(h, w)
+    u = torch.clamp(knot[..., 0].long(), 0, w - 1)
+    v = torch.clamp(knot[..., 1].long(), 0, h - 1)
+    kf = torch.arange(k, device=knot.device)[:, None]
+    ty = torch.clamp(v - 1, min=0) // tg.STRIDE
+    tx = torch.clamp(u - 1, min=0) // tg.STRIDE
+    return int(torch.unique((kf * th + ty) * tw + tx).numel())
+
+
+def _cold_ms(fn, device="cuda", reps=20):
+    """Device time of ``fn()`` with L2 flushed before each call (a 384 MB
+    fill queued ahead of the start event, behind the host-hiding sleep), as
+    a caller finds it after other work; None off the card."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.utils import profiling
+
+    if device != "cuda":
+        fn()
+        return None
+    flush = torch.empty(96 * 2**20, dtype=torch.int32, device=device)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(profiling._HIDE_CYCLES)
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        hidden = not a.query()
+        b.synchronize()
+        if hidden:
+            times.append(a.elapsed_time(b))
+    return float(np.median(times)) if 2 * len(times) >= reps else None
+
+
+def phase_direct_take(card, camera, kfs, T0, device="cuda"):
+    """G1 (``tap_take``) and its packer (``bin_pack``) on the scene's 8
+    keyframes of 4096x3000, as the headline's solve runs them: the points
+    in map order (no raster sort on the direct path). The packer bit-equal
+    to its twin; G1 bit-equal to its twin and to ``tap_rows[kf, anchor]``
+    (the port's ``nid.build_tap_table``, which tests/test_torch_tap_take.py
+    holds to the JAX package's on the CPU; built here for this comparison
+    only) on every point: map order at the start pose and at T0, the coarse subsample
+    (every 16th point), the sort pose, the edge knots, an odd-size image
+    (4095 x 2999, padded tiles) and a ragged n. Times at both shapes on
+    map-order knots at T0 beside ``index_select`` of the table rows, warm
+    and with L2 flushed, at the sort pose, and inside a value+grad
+    evaluation of the objective at each shape. Returns the G1 and bin_pack
+    records."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
+    from pointcloudprocessor_tpu_torch.opt import nid, refine
+
+    w, h = camera.width, camera.height
+    _reset_counts()
+    kp = nid.prepare_keyframes(kfs)
+    assert kp.tap_rows is None, "the direct path built a tap table"
+    assert device != "cuda" or _read_counts()["bin_pack"] == 1
+    k = kp.bin_image.shape[0]
+    # The packer against its twin, and timed.
+    twin_tiles = tg.pack_bins_plain(kp.bin_image)
+    assert torch.equal(kp.bin_tiles, twin_tiles), "bin_pack != its twin"
+    tiles = kp.bin_tiles
+    pack_dev = _device_ms(lambda: tg.pack_bins(kp.bin_image), device)
+    pack_call = _median_ms(lambda: tg.pack_bins(kp.bin_image), device)
+    pack_twin = _median_ms(lambda: tg.pack_bins_plain(kp.bin_image), device)
+    pack_bytes = _nbytes(kp.bin_image, tiles)
+    pack_bound, pack_by = _bound(pack_bytes)
+    print(f"[{card}] bin_pack {tuple(kp.bin_image.shape)} -> {tuple(tiles.shape)} "
+          f"({_nbytes(tiles) / 2**20:.1f} MiB): bit-equal to its twin; device {_ms(pack_dev)} "
+          f"ms, a call {_ms(pack_call)}, twin {_ms(pack_twin)}; bound {pack_bound * 1e3:.1f} us "
+          f"({pack_by}: {pack_bytes} B)")
+    # The port's tap table, for the comparison alone.
+    table = torch.stack([nid.build_tap_table(b) for b in kp.bin_image])
+    rows = table.reshape(-1, 2)
+    r = table.shape[1]
+    kf_off = torch.arange(k, dtype=torch.int32, device=device)[:, None] * r
+    rec = {"name": "tap_take", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
+           "replaces": "pointcloudprocessor_tpu/opt/nid.py:514", "max_abs_err": 0.0}
+
+    def check(label, knot, tl=tiles, tab=table, width=w, height=h):
+        _reset_counts()
+        got = tg.direct_take(tl, knot, width, height)
+        launched = _read_counts()["tap_take"]
+        twin = tg.direct_take_plain(tl, knot, width, height)
+        anchor = tg.anchors(knot, width, height)
+        want = tab[torch.arange(knot.shape[0], device=device)[:, None], anchor.long()]
+        err = float((got.long() - twin.long()).abs().max()) if got.numel() else 0.0
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        assert torch.equal(got, twin), f"G1 != its twin, {label}"
+        assert torch.equal(got, want), f"G1 != tap_rows[kf, anchor], {label}"
+        assert device != "cuda" or launched == (1 if knot.shape[1] else 0), launched
+        print(f"G1 tap_take, {label}: {tuple(knot.shape[:2])} knots bit-equal to its twin and to "
+              "tap_rows[kf, anchor] on every point")
+
+    coarse = refine._subsample_keyframes(kp, HEADLINE["coarse_stride"])
+    srt = nid.sort_by_raster(camera, se3.identity(device), kp)
+    knots = {}
+    for label, kk, T in (("map order, start pose", kp, se3.identity(device)),
+                         ("map order, T0", kp, T0.to(device)),
+                         ("coarse map order, T0", coarse, T0.to(device)),
+                         ("sort pose", srt, se3.identity(device))):
+        knots[label] = nid._project_all(camera, T, kk)[1]
+        check(label, knots[label])
+    del srt, coarse
+    # Edge knots: each keyframe's corners and edges, one past them, negative,
+    # +-1e9 (behind the camera) and the int32 extremes, crossed, then 3,001
+    # knots drawn in [-1e9, 1e9] (a ragged count).
+    ends = np.asarray([0, 1, w - 1, w, w + 1, -1, -7, 10**9, -10**9, 2**31 - 1, -2**31], np.int64)
+    uu, vv = np.meshgrid(ends, np.concatenate([ends[:2], [h - 1, h, h + 1], ends[5:]]))
+    rs = np.random.default_rng(SEED)
+    edge = np.concatenate([np.stack([uu.ravel(), vv.ravel()], -1),
+                           rs.integers(-10**9, 10**9, (3001, 2))]).astype(np.int32)
+    edge = torch.from_numpy(np.stack([np.roll(edge, j, axis=0) for j in range(k)])).to(device)
+    check("edge knots", edge)
+    fine = knots["map order, T0"]
+    n = fine.shape[1]
+    check(f"ragged n = {n - 77}", fine[:, : n - 77].contiguous())
+    # An odd-size image: its last tile row and column padded.
+    ow, oh = w - 1, h - 1
+    odd_bins = kp.bin_image[:, :oh, :ow].contiguous()
+    odd_tiles = tg.pack_bins(odd_bins)
+    assert torch.equal(odd_tiles, tg.pack_bins_plain(odd_bins)), "bin_pack != twin, odd size"
+    odd_table = torch.stack([nid.build_tap_table(b) for b in odd_bins])
+    check(f"{ow} x {oh} image", fine, odd_tiles, odd_table, ow, oh)
+    check(f"{ow} x {oh} image, edge knots", edge, odd_tiles, odd_table, ow, oh)
+    del odd_bins, odd_tiles, odd_table
+
+    # Times: both shapes on map-order knots at T0, and the sort pose.
+    times = {}
+    for label in ("map order, T0", "coarse map order, T0", "sort pose"):
+        knot = knots[label]
+        flat = (tg.anchors(knot, w, h) + kf_off).reshape(-1)
+        fns = {"kernel": lambda knot=knot: tg.direct_take(tiles, knot, w, h),
+               "index_select": lambda flat=flat: torch.index_select(rows, 0, flat),
+               "twin": lambda knot=knot: tg.direct_take_plain(tiles, knot, w, h)}
+        t = {f"{key} device": _device_ms(fn, device) for key, fn in fns.items()}
+        t["kernel device again"] = _device_ms(fns["kernel"], device)
+        for key in ("kernel", "index_select"):
+            t[f"{key} cold"] = _cold_ms(fns[key], device)
+        for key in fns:
+            t[f"{key} call"] = _median_ms(fns[key], device)
+        t["kernel host us"] = _host_us(fns["kernel"], device)
+        # The bound: each knot read and each row written once (16 B a
+        # point), and each distinct pixel of the windows read once at 4 bits.
+        # The whole 32-byte tiles the windows touch (a tile holds 64 pixels,
+        # 25 of them its own, and a window reads 16) are printed beside it,
+        # a floor of this layout, not of the function.
+        pixels = _window_pixels(knot, w, h)
+        nbytes = 2 * _nbytes(knot) + pixels / 2
+        t["bound"], t["bound_by"] = _bound(nbytes)
+        tiles_n = _tiles_touched(knot, w, h)
+        t["sector bound"] = _bound(2 * _nbytes(knot) + 32 * tiles_n)[0]
+        times[label] = t
+        share = (f"{t['bound'] / t['kernel device']:.2f}" if t["kernel device"]
+                 else "not measured")
+        print(f"[{card}] G1 tap_take, {label} {tuple(knot.shape[:2])}: device ms "
+              + ", ".join(f"{key} {_ms(v)}" for key, v in t.items()
+                          if key not in ("bound", "bound_by", "sector bound", "kernel host us"))
+              + f"; host us {_ms(t['kernel host us'])}; bound {t['bound'] * 1e3:.2f} us "
+              f"({t['bound_by']}: {nbytes:.0f} B, {pixels} distinct window pixels), kernel at "
+              f"{share} of it; whole-sector floor {t['sector bound'] * 1e3:.2f} us ({tiles_n} "
+              "tiles of 32 B)")
+    # G1 as an evaluation finds it: one value+grad of the objective at T0 on
+    # each shape (projection, G1, K1, entropies, K2), G1's device time from
+    # torch.profiler; the coarse shape's windows stay in L2 from one
+    # evaluation to the next.
+    in_eval = {}
+    for label, kk in (("fine", kp), ("coarse", refine._subsample_keyframes(
+            kp, HEADLINE["coarse_stride"]))):
+        def evaluation(kk=kk):
+            xi = torch.zeros(6, device=device, requires_grad=True)
+            nid.multi_nid_loss(camera, se3.compose(T0.to(device), se3.exp(xi)), kk).backward()
+
+        prof = _kernel_profile(evaluation, device)
+        in_eval[label] = prof["tap_take_kernel"][1] * 1e-3 if prof else None
+        if prof:
+            assert prof["tap_take_kernel"][0] == 1, prof
+            print(f"[{card}] G1 in a value+grad evaluation at T0, {label} shape: "
+                  f"{_ms(in_eval[label])} ms of device time; the evaluation's kernels (launches, "
+                  "mean us): " + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+    main_t, coarse_t, sort_t = (times[x] for x in ("map order, T0", "coarse map order, T0",
+                                                   "sort pose"))
+    # The twin's host side can outlast the hidden host time (its device time
+    # is then not measured): its call time stands in.
+    rec.update(ms=main_t["kernel device"], ms_again=main_t["kernel device again"],
+               plain_ms=main_t["twin device"] or main_t["twin call"], bound_ms=main_t["bound"],
+               bound_by=main_t["bound_by"], library_ms=main_t["index_select device"],
+               call_ms=main_t["kernel call"], library_call_ms=main_t["index_select call"],
+               cold_ms=main_t["kernel cold"], library_cold_ms=main_t["index_select cold"],
+               host_us=main_t["kernel host us"], map_order_ms=main_t["kernel device"],
+               coarse_ms=coarse_t["kernel device"], coarse_cold_ms=coarse_t["kernel cold"],
+               coarse_bound_ms=coarse_t["bound"], sector_bound_ms=main_t["sector bound"],
+               coarse_sector_bound_ms=coarse_t["sector bound"],
+               coarse_library_ms=coarse_t["index_select device"],
+               sort_pose_ms=sort_t["kernel device"],
+               sort_pose_library_ms=sort_t["index_select device"],
+               in_eval_ms=in_eval["fine"], coarse_in_eval_ms=in_eval["coarse"])
+    del table, rows
+    pack = {"name": "bin_pack", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
+            "replaces": "pointcloudprocessor_tpu/opt/nid.py:120", "max_abs_err": 0.0,
+            "ms": pack_dev, "call_ms": pack_call, "plain_ms": pack_twin,
+            "bound_ms": pack_bound, "bound_by": pack_by, "library_ms": None}
+    return [rec, pack]
+
+
 def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
     """K3/K4 on the scene's 8 x 4096x3000 row tables, the culled points
     raster-sorted at the start pose (identity): at that pose (clean groups,
@@ -977,22 +1283,6 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
     takes = {"tap_select": ("grouped_take_slabbed", tg.grouped_take_slabbed, True),
              "tap_streamed": ("grouped_take_streamed", tg.grouped_take_streamed, "streamed")}
     records = {name: {"max_abs_err": 0.0} for name in kernels}
-    g1_rec = {"name": "tap_take", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
-              "replaces": "pointcloudprocessor_tpu/opt/nid.py:514", "max_abs_err": 0.0}
-    # G1 on the edge knots: each keyframe's corners and edges, one past them,
-    # negative, +-1e9 (behind the camera) and the int32 extremes, crossed,
-    # then 3,001 knots drawn in [-1e9, 1e9] (a ragged count).
-    w, h = camera.width, camera.height
-    ends = np.asarray([0, 1, w - 1, w, w + 1, -1, -7, 10**9, -10**9, 2**31 - 1, -2**31], np.int64)
-    uu, vv = np.meshgrid(ends, np.concatenate([ends[:2], [h - 1, h, h + 1], ends[5:]]))
-    rs = np.random.default_rng(SEED)
-    edge = np.concatenate([np.stack([uu.ravel(), vv.ravel()], -1),
-                           rs.integers(-10**9, 10**9, (3001, 2))]).astype(np.int32)
-    edge = torch.from_numpy(np.stack([np.roll(edge, j, axis=0) for j in range(k)])).to(device)
-    e_got = tg.direct_take(kfs.tap_rows, edge, w, h)
-    e_want = tg.direct_take_plain(kfs.tap_rows, edge, w, h)
-    assert torch.equal(e_got, e_want), "G1 != its twin on the edge knots"
-    print(f"G1 tap_take on {k} x {edge.shape[1]} edge knots: bit-equal to its twin")
     for pose_label, T in (("sort pose", se3.identity(device)), ("planted T0", T0.to(device))):
         _, knot, inl = nid._project_all(camera, T, kfs)
         anchor = tg.anchors(knot, camera.width, camera.height)
@@ -1001,21 +1291,6 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
         n = flat.shape[0]
         flat64 = flat.long()
         direct = rows[flat64]
-        # G1, the direct take as _gather_taps runs it: one launch, bit-equal
-        # to its twin and to tap_rows[kf, anchor] on every point.
-        _reset_counts()
-        g1 = tg.direct_take(kfs.tap_rows, knot, camera.width, camera.height)
-        g1_launches = _read_counts()["tap_take"]
-        g1_twin = tg.direct_take_plain(kfs.tap_rows, knot, camera.width, camera.height)
-        assert torch.equal(g1, g1_twin), f"G1 != its twin at the {pose_label}"
-        assert torch.equal(g1.reshape(-1, 2), direct), f"G1 != tap_rows[kf, anchor] at the {pose_label}"
-        assert device != "cuda" or g1_launches == 1, g1_launches
-        g1_rec["max_abs_err"] = max(g1_rec["max_abs_err"],
-                                    float((g1.long() - g1_twin.long()).abs().max()))
-        print(f"G1 tap_take at the {pose_label}: {k} x {n // k} knots ({int(ok.sum())} gated in) "
-              "bit-equal to its twin and to tap_rows[kf, anchor] on every point")
-        if pose_label == "sort pose":
-            g1_rec.update(_g1_times(card, camera, kfs, knot, flat, kf_idx, anchor, device))
         for name, kernel in kernels.items():
             take_name, take, use_grouped = takes[name]
             got = kernel(rows, flat, ok, slab=slab)
@@ -1079,16 +1354,16 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
             def direct64():
                 return rows[flat64]
 
-            def direct_as_gather_taps():
+            def eager_take():
                 return kfs.tap_rows[kf_idx, anchor.long()]
 
             dev_t = {key: _device_ms(fn, device) for key, fn in (
                 ("kernel", run), ("twin", run_twin), ("index_select", library),
                 ("direct take, int64 index", direct64),
-                ("direct take as _gather_taps", direct_as_gather_taps), ("kernel again", run))}
+                ("eager table take", eager_take), ("kernel again", run))}
             call_t = {key: _median_ms(fn, device) for key, fn in (
                 ("kernel", run), ("index_select", library),
-                ("direct take as _gather_taps", direct_as_gather_taps),
+                ("eager table take", eager_take),
                 ("grouped take", lambda: take(rows, flat, ok, slab=slab)),
                 ("_gather_taps direct",
                  lambda: nid._gather_taps(camera, kfs, knot, inl, use_grouped=False)),
@@ -1096,7 +1371,7 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
                  lambda: nid._gather_taps(camera, kfs, knot, inl, use_grouped=use_grouped)))}
             host_t = {key: _host_us(fn, device) for key, fn in (
                 ("kernel", run), ("index_select", library),
-                ("direct take as _gather_taps", direct_as_gather_taps))}
+                ("eager table take", eager_take))}
             print(f"[{card}] {name} {k}x{n // k} points, slab {slab}: device ms: "
                   + ", ".join(f"{key} {_ms(v)}" for key, v in dev_t.items()))
             print(f"[{card}] {name}: ms a call (host included): "
@@ -1110,59 +1385,18 @@ def phase_tap_gather(card, camera, kfs, T0, device="cuda"):
             records[name].update(
                 ms=dev_t["kernel"], plain_ms=dev_t["twin"], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=dev_t["index_select"],
-                direct_take_ms=dev_t["direct take as _gather_taps"], call_ms=call_t["kernel"],
-                direct_take_call_ms=call_t["direct take as _gather_taps"],
+                eager_take_ms=dev_t["eager table take"], call_ms=call_t["kernel"],
+                eager_take_call_ms=call_t["eager table take"],
                 take_ms=call_t["grouped take"])
     for name, rec in records.items():
         print(f"[{card}] {name}: whole grouped take {_ms(rec['take_ms'])} ms at the sort pose, "
               f"{_ms(rec['fallback_take_ms'])} ms at T0")
     return [
-        g1_rec,
         {"name": "tap_select", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
          "replaces": "pointcloudprocessor_tpu/ops/tap_gather.py:95", **records["tap_select"]},
         {"name": "tap_streamed", "route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu",
          "replaces": "pointcloudprocessor_tpu/ops/tap_gather.py:343", **records["tap_streamed"]},
     ]
-
-
-def _g1_times(card, camera, kfs, knot, flat, kf_idx, anchor, device):
-    """G1's device / call / host times at the scene's shape beside its twin,
-    the eager take (``tap_rows[kf, anchor]`` with the anchors given, as
-    ``_gather_taps`` took it before G1), ``index_select`` on the flat index
-    and the bound: each knot read once, each distinct row its points clip
-    to read once (8 B), the taps written once."""
-    import torch
-
-    from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
-
-    w, h = camera.width, camera.height
-    rows = kfs.tap_rows.reshape(-1, 2)
-    fns = {
-        "kernel": lambda: tg.direct_take(kfs.tap_rows, knot, w, h),
-        "twin": lambda: tg.direct_take_plain(kfs.tap_rows, knot, w, h),
-        "eager take": lambda: kfs.tap_rows[kf_idx, anchor.long()],
-        "index_select": lambda: torch.index_select(rows, 0, flat),
-    }
-    dev_t = {key: _device_ms(fn, device) for key, fn in fns.items()}
-    dev_t["kernel again"] = _device_ms(fns["kernel"], device)
-    call_t = {key: _median_ms(fn, device) for key, fn in fns.items()}
-    host_t = {key: _host_us(fns[key], device) for key in ("kernel", "index_select")}
-    n_rows = int(torch.unique(flat).numel())
-    nbytes = 2 * _nbytes(knot) + 8 * n_rows
-    bound_ms, bound_by = _bound(nbytes)
-    print(f"[{card}] G1 tap_take {tuple(knot.shape[:2])}: device ms: "
-          + ", ".join(f"{key} {_ms(v)}" for key, v in dev_t.items()))
-    print(f"[{card}] G1: ms a call (host included): "
-          + ", ".join(f"{key} {_ms(v)}" for key, v in call_t.items()))
-    print(f"[{card}] G1: host us a call: " + ", ".join(f"{key} {_ms(v)}" for key, v in host_t.items()))
-    share = f"{bound_ms / dev_t['kernel']:.2f}" if dev_t["kernel"] else "not measured"
-    print(f"G1 bound {bound_ms * 1e3:.1f} us ({bound_by}: {nbytes} B, {n_rows} distinct rows), "
-          f"kernel at {share} of it")
-    return {"ms": dev_t["kernel"], "ms_again": dev_t["kernel again"], "plain_ms": dev_t["twin"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": dev_t["index_select"],
-            "eager_take_ms": dev_t["eager take"], "call_ms": call_t["kernel"],
-            "plain_call_ms": call_t["twin"], "library_call_ms": call_t["index_select"],
-            "host_us": host_t["kernel"], "library_host_us": host_t["index_select"]}
 
 
 def phase_grouped(card, camera, kfs, T0, device="cuda"):
@@ -1594,10 +1828,12 @@ def phase_colorize(card, root, T0, device="cuda"):
     of the camera; on a ragged n and n = 0. The dumps (``keyframe_rgb_mask``)
     bit-equal to theirs. The twin's divisions on the card against the
     CPU's at HSV (0.7, 1.2) and optimal distance 3.0
-    (``c1_division_check``). At keyframe 0: device and call times of the
-    step, each pass (``torch.profiler``: a memset and two launches a step,
-    asserted) and the twin beside the bound, and of the whole ``fuse``
-    through C1 and through the twin. Returns the C1a / C1b records."""
+    (``c1_division_check``). Each pass's device time (``torch.profiler``: a
+    memset and two launches a step, asserted) over the 8 keyframes from an
+    empty state, as ``fuse`` runs them, beside its bound over the same
+    steps; at keyframe 0 fused again onto its own state, device and call
+    times of the step, each pass and the twin; the whole ``fuse`` through C1
+    and through the twin. Returns the C1a / C1b records."""
     import torch
 
     from pointcloudprocessor_tpu_torch.core import se3
@@ -1680,7 +1916,8 @@ def phase_colorize(card, root, T0, device="cuda"):
           f"{div['scores'][1]}")
     assert div["colors"][1] == div["scores"][1] == 0, div
 
-    # Times at keyframe 0, the state saturated by the warm-up (no masks).
+    # Times at keyframe 0 fused again and again onto the state it left (no
+    # masks), then over the 8 keyframes from an empty state (the path's).
     view, img = views[0], images[0]
     st = colorize.init_fuse_state(n, device, top_k)
     tw = colorize.init_fuse_state(n, device, top_k)
@@ -1703,11 +1940,16 @@ def phase_colorize(card, root, T0, device="cuda"):
         return colorize.fuse(camera, pts, val, images, poses, T_corr, top_k=top_k, plain=plain,
                              **culling)
 
+    def sequence():  # a fresh state through the 8 keyframes, as fuse runs them
+        s = colorize.init_fuse_state(n, device, top_k)
+        for j, vw in enumerate(views):
+            colorize.fuse_keyframe(s, camera, images[j], vw, pts, val, **culling)
+
     dev_t = {k: _device_ms(fn, device) for k, fn in (
         ("step", step), ("twin step", twin), ("twin of pass (a)", twin_scatter), ("step again", step))}
     call_t = {k: _median_ms(fn, device) for k, fn in (
-        ("step", step), ("twin step", twin), ("fuse", lambda: fuse(False)),
-        ("fuse, twin", lambda: fuse(True)))}
+        ("step", step), ("twin step", twin), ("twin of pass (a)", twin_scatter),
+        ("fuse", lambda: fuse(False)), ("fuse, twin", lambda: fuse(True)))}
     prof = _kernel_profile(step, device)
     passes = {"colorize_scatter": None, "colorize_update": None}
     if device == "cuda":
@@ -1721,50 +1963,84 @@ def phase_colorize(card, root, T0, device="cuda"):
         print(f"[{card}] C1 step under HPR: " + json.dumps(
             {k: [c, round(us, 2)] for k, (c, us) in prof_hpr.items()}))
         assert prof_hpr["colorize_update"][0] == 1 and "colorize_scatter" not in prof_hpr, prof_hpr
-    print(f"[{card}] C1 at keyframe 0, {n} points: device ms: "
+        # The 8 keyframes from an empty state: the first K fill the slots (every
+        # visible sample is kept), the rest replace where they beat the minimum.
+        seq = _kernel_profile(sequence, device, reps=5)
+        print(f"[{card}] C1 over the 8 keyframes from an empty state: " + json.dumps(
+            {k: [c, round(us, 2)] for k, (c, us) in seq.items() if k in passes}))
+        assert all(seq[k][0] == len(views) for k in passes), seq
+        sequence_ms = {k: seq[k][1] * 1e-3 for k in passes}
+    else:
+        sequence_ms = {k: None for k in passes}
+    print(f"[{card}] C1 at keyframe 0 fused again, {n} points: device ms: "
           + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items()))
     print(f"[{card}] C1: ms a call (host included): "
           + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items()))
 
     # The bound, from this call's data: pass (a) reads xyz and valid (13 B a
     # point) and writes the key buffer once; pass (b) reads them again and the
-    # keys, each distinct pixel a visible point samples (3 B), a visible
-    # point's K scores and its count (read and written), and writes the slots
-    # a call replaces (8 B each).
-    before = _clone_state(st)
-    obs = colorize.observe_keyframe(camera, img, view.T, pts, val, camera_position_world=view.position,
-                                    **culling)
-    step()
-    n_vis = int(obs.visible.sum())
-    ui = torch.clamp(obs.pixels[:, 0][obs.visible].to(torch.int64), 0, WIDTH - 1)
-    vi = torch.clamp(obs.pixels[:, 1][obs.visible].to(torch.int64), 0, HEIGHT - 1)
-    n_pix = int(torch.unique(vi * WIDTH + ui).numel())
-    replaced = _bits_differ(st.topk.scores, before.topk.scores)
+    # keys, a visible point's K scores and its count (read and written), each
+    # distinct pixel whose sample a slot takes (3 B), and writes the slots a
+    # call replaces (8 B each). Counted for each keyframe of the sequence
+    # from an empty state (the passes' ``ms``; their mean) and for keyframe 0
+    # fused again onto the state it left (``refuse_kf0_*``).
     gw, gh = zb.grid(camera, cfg.culling.downsample_factor)
     keys = 4 * gw * gh
     a_bytes = 13 * n + keys
-    b_bytes = 13 * n + keys + 3 * n_pix + n_vis * (4 * top_k + 8) + 8 * replaced
-    bound_a, bound_b = _bound(a_bytes), _bound(b_bytes)
-    for name, (b_ms, by), nb in (("colorize_scatter", bound_a, a_bytes),
-                                 ("colorize_update", bound_b, b_bytes)):
-        t = passes[name]
+
+    def update_bytes(state, j):  # fuses keyframe j into ``state``
+        before = _clone_state(state)
+        obs = colorize.observe_keyframe(camera, images[j], views[j].T, pts, val,
+                                        camera_position_world=views[j].position, **culling)
+        colorize.fuse_keyframe(state, camera, images[j], views[j], pts, val, **culling)
+        n_vis = int(obs.visible.sum())
+        took = (state.topk.scores.view(torch.int32)
+                != before.topk.scores.view(torch.int32)).any(0)
+        ui = torch.clamp(obs.pixels[:, 0][took].to(torch.int64), 0, WIDTH - 1)
+        vi = torch.clamp(obs.pixels[:, 1][took].to(torch.int64), 0, HEIGHT - 1)
+        n_pix = int(torch.unique(vi * WIDTH + ui).numel())
+        replaced = _bits_differ(state.topk.scores, before.topk.scores)
+        nb = 13 * n + keys + 3 * n_pix + n_vis * (4 * top_k + 8) + 8 * replaced
+        return nb, n_vis, replaced, n_pix
+
+    kf0 = update_bytes(st, 0)
+    seq_state = colorize.init_fuse_state(n, device, top_k)
+    seq_b = [update_bytes(seq_state, j) for j in range(len(views))]
+    b_bytes = sum(b[0] for b in seq_b) / len(seq_b)
+    bound_a, bound_b, bound_kf0 = _bound(a_bytes), _bound(b_bytes), _bound(kf0[0])
+    for name, (b_ms, by), nb, t, what in (
+            ("colorize_scatter", bound_a, a_bytes, sequence_ms["colorize_scatter"],
+             "a keyframe"),
+            ("colorize_update", bound_b, b_bytes, sequence_ms["colorize_update"],
+             "the mean of the 8 keyframes from an empty state; by keyframe (visible, slots "
+             "replaced, pixels sampled) " + json.dumps([b[1:] for b in seq_b])),
+            ("colorize_update, keyframe 0 fused again", bound_kf0, kf0[0],
+             passes["colorize_update"], f"{kf0[1]} visible, {kf0[2]} slots replaced, "
+             f"{kf0[3]} pixels sampled")):
         share = "not measured" if t is None else f"{b_ms / t:.2f}"
-        print(f"{name}: device {_ms(t)} ms, bound {b_ms * 1e3:.2f} us ({by}: {nb} B; {n_vis} "
-              f"visible, {n_pix} pixels, {replaced} slots replaced), at {share} of it")
+        print(f"{name}: device {_ms(t)} ms, bound {b_ms * 1e3:.2f} us ({by}: {nb:.0f} B, "
+              f"{what}), at {share} of it")
+    step_seq = (None if sequence_ms["colorize_update"] is None else
+                prof["Memset"][1] * 1e-3 + sum(sequence_ms.values()))
+    print(f"[{card}] C1 step over the 8 keyframes from an empty state (the memset and both "
+          f"passes' means): {_ms(step_seq)} ms of device time")
     common = {"route": "cuda", "source": f"{PKG}/csrc/colorize.cu", "max_abs_err": 0.0,
               "mismatches": tally["mismatches"], "call_ms": call_t["step"],
-              "step_ms": dev_t["step"], "twin_step_ms": dev_t["twin step"],
+              "step_ms": step_seq, "refuse_kf0_step_ms": dev_t["step"],
+              "twin_step_ms": dev_t["twin step"],
               "twin_step_call_ms": call_t["twin step"], "fuse_call_ms": call_t["fuse"],
               "fuse_twin_call_ms": call_t["fuse, twin"], "library_ms": None,
               "division_diffs": {k: div[k] for k in ("colors", "scores")}}
     return [
         {"name": "colorize_scatter", "replaces": "pointcloudprocessor_tpu/pipeline/colorize.py:49",
-         "ms": passes["colorize_scatter"], "plain_ms": dev_t["twin of pass (a)"],
+         "ms": sequence_ms["colorize_scatter"], "refuse_kf0_ms": passes["colorize_scatter"],
+         "plain_ms": dev_t["twin of pass (a)"] or call_t["twin of pass (a)"],
          "bound_ms": bound_a[0], "bound_by": bound_a[1], **common},
-        # The twin step's host side outlasts the hidden host time (its device
-        # time is then not measured): its call time stands in.
+        # Where a twin's host side outlasts the hidden host time (its device
+        # time is then not measured), its call time stands in, as for pass (a).
         {"name": "colorize_update", "replaces": "pointcloudprocessor_tpu/ops/fusion.py:72",
-         "ms": passes["colorize_update"],
+         "ms": sequence_ms["colorize_update"], "refuse_kf0_ms": passes["colorize_update"],
+         "refuse_kf0_bound_ms": bound_kf0[0],
          "plain_ms": dev_t["twin step"] if dev_t["twin step"] else call_t["twin step"],
          "bound_ms": bound_b[0], "bound_by": bound_b[1], **common},
     ]
@@ -2829,16 +3105,20 @@ def main() -> int:
         # Main path: the headline schedule (bench.py:797-805).
         launches, headline = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
                                           "headline schedule")
-        # The same run through the twins of C1 and G1, the eager path they
-        # replaced: the same pose, NID, counts and colored cloud, byte for byte.
+        # The same run through the twins of C1, G1 and the packer, the eager
+        # path they replaced: the same pose, NID, counts and colored cloud,
+        # byte for byte.
         _, eager = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
                                 "headline schedule, eager C1 / G1", eager=True)
-        same = {k: headline[k] == eager[k] for k in headline if k != "colorize_fuse_s"}
+        timed = ("colorize_fuse_s", "solve_peak_mib")
+        same = {k: headline[k] == eager[k] for k in headline if k not in timed}
         print(f"[{card}] headline with C1 / G1 vs their twins: {same}; colorize_fuse "
-              f"{headline['colorize_fuse_s']:.3f} s vs {eager['colorize_fuse_s']:.3f} s")
+              f"{headline['colorize_fuse_s']:.3f} s vs {eager['colorize_fuse_s']:.3f} s; solve "
+              f"peak memory {headline['solve_peak_mib']} vs {eager['solve_peak_mib']} MiB")
         assert all(same.values()), (headline, eager)
         camera, kfs = scene_keyframes(root)
         scene = phase_kernels_scene(card, camera, kfs)
+        kernels += phase_direct_take(card, camera, kfs, T0)
         kernels += phase_tap_gather(card, camera, kfs, T0)
         grouped = phase_grouped(card, camera, kfs, T0)
         del kfs
@@ -2877,8 +3157,12 @@ def main() -> int:
         for path, counts in paths.items():
             if path != mine:
                 k[f"launches_{path}"] = counts.get(k["name"], 0)
+    for k in kernels:
+        if k["name"] == "tap_take":
+            k["launches_by_n"] = launches["launches_by_n"]["tap_take"]
+            k["solve_peak_mib"] = headline["solve_peak_mib"]
     for k, key in zip(kernels[:2], ("fwd", "bwd")):
-        k["launches_by_n"] = launches["nid_hist_by_n"][k["name"]]
+        k["launches_by_n"] = launches["launches_by_n"][k["name"]]
         for shape, res in scene.items():
             r = res[key]
             k.update({f"scene_{shape}_{f}": r[f] for f in (

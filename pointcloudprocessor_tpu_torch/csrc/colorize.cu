@@ -15,14 +15,16 @@
 //            zbuffer.cuh, then atomicMin(keys[cell], key(rng)) if gated in
 //   pass (b) colorize_update   per point: the same p_cam, rng, u and v
 //            (recomputed, never written), vis = gated in && rng <=
-//            min(decode(keys[cell]), FLT_MAX) + eps; then the nearest pixel
-//            (clamp(to_int32(u), 0, W - 1), the same for v), its 3 bytes
-//            read from the (H, W, 3) uint8 image (no packed image), the HSV
-//            map where a scale is not 1, the score (orientation and
-//            distance, with the reference_compat branch), the replace-first-
-//            min update of the (K, N) slot-major top-K registers, count +=
-//            vis and, with a mask image, its label and the strictly better
-//            best score and label.
+//            min(decode(keys[cell]), FLT_MAX) + eps; for a visible point
+//            the score (orientation and distance, with the reference_compat
+//            branch), the replace-first-min update of the (K, N) slot-major
+//            top-K registers, count += 1 and, with a mask image, the
+//            strictly better best score and its label. The nearest pixel
+//            (clamp(to_int32(u), 0, W - 1), the same for v) is read only
+//            where it is kept: its 3 bytes from the (H, W, 3) uint8 image
+//            (no packed image), with the HSV map where a scale is not 1,
+//            where the score replaces a slot; its label where the best
+//            score is beaten.
 // The HPR branch runs H2 on the eager transform and pass (b) alone, with
 // H2's mask in place of the depth test. The mask dumps (keyframe_rgb_mask)
 // run the same passes with the fusion state null and the dump outputs set:
@@ -43,16 +45,26 @@
 //
 // What bounds it on the H100: the bytes. Pass (a) reads 13 B a point (xyz,
 // valid) and scatters into the 250 KB key buffer, which lives in L2. Pass (b)
-// reads those 13 B again and the cell's key, and for a visible point the
-// 3-byte sample, the K scores (20 B at K = 5) and the count, and writes at
-// most one slot (8 B) and the count; with masks the label and the best score
-// and label. About 69 B a point a keyframe without masks at most: ~21 us for
-// 1M points at the 3.35 TB/s of an NVIDIA H100 80GB HBM3 at 700 W (its data
-// sheet). The arithmetic (~100 f32 operations a point) is far below that. One point a thread: a warp's loads of xyz and of the
-// slot-major registers are coalesced; the key and pixel reads are gathers.
-// The keyframe's pose and camera (24 floats) come from device pointers, so
-// nothing is read back to the host, and each block stages them once in shared
-// memory.
+// reads those 13 B again and the cell's key, and for a visible point the K
+// scores (20 B at K = 5) and the count, and writes the count; for a slot it
+// replaces, the 3-byte sample and 8 B of slot; with masks the best score,
+// and where it is beaten the label, the best score and label. About 69 B a
+// point a keyframe without masks at most: ~21 us for 1M points at the 3.35
+// TB/s of an NVIDIA H100 80GB HBM3 at 700 W (its data sheet). In whole
+// sectors more: the slot-major registers of the visible points are ~half
+// of every sector, so every sector of the (K, N) scores and of the count is
+// read, and each sample is a random 32-byte sector of the 37 MB image. The
+// arithmetic (~100 f32 operations a point, six IEEE divisions and one or
+// two square roots among them) is below the bytes but not far. One point a
+// thread: a warp's loads of xyz and of the registers are coalesced; the key
+// and pixel reads are gathers. Reading the sample last, and only where a
+// slot takes it, saves its random sector on every visible point whose
+// score does not enter the top K (after K keyframes, most of them).
+// Measured and dropped (PERF.md §6): the view from kernel arguments, the
+// slots loaded early, the pixel in aligned words, 2-4 points a thread. The
+// keyframe's pose and camera (24 floats) come from device pointers, so
+// nothing is read back to the host, and each block stages them once in
+// shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -226,6 +238,12 @@ __global__ void __launch_bounds__(kThreads) colorize_scatter(ColorizeArgs a, Gri
   if (gate_cell(q.u, q.v, q.z, point_valid(a, i), g, cell)) atomicMin(a.keys + cell, range_key(q.rng));
 }
 
+// Pixel `flat` of the (h, w, 3) uint8 image, packed as (R << 16) | (G << 8) | B.
+__device__ __forceinline__ int load_pixel(const unsigned char* image, long long flat) {
+  const unsigned char* px = image + 3 * flat;
+  return (int(__ldg(px)) << 16) | (int(__ldg(px + 1)) << 8) | int(__ldg(px + 2));
+}
+
 __global__ void __launch_bounds__(kThreads) colorize_update(ColorizeArgs a, Grid g) {
   __shared__ float view[kView];
   stage_view(a, view);
@@ -240,20 +258,17 @@ __global__ void __launch_bounds__(kThreads) colorize_update(ColorizeArgs a, Grid
   } else {
     vis = __ldg(a.vis_in + i) != 0;
   }
-  const bool dump = a.vis_out != nullptr;
-  // The nearest pixel (colorize.py:86-88) and what it holds; on the fusion
-  // path only a visible point's sample can reach the registers.
-  int packed = 0, label = 0;
-  if (vis || dump) {
-    const int ui = min(max(to_int32(q.u), 0), a.img_w - 1);
-    const int vi = min(max(to_int32(q.v), 0), a.img_h - 1);
-    const long long flat = static_cast<long long>(vi) * a.img_w + ui;
-    const unsigned char* px = a.image + 3 * flat;
-    packed = (int(__ldg(px)) << 16) | (int(__ldg(px + 1)) << 8) | int(__ldg(px + 2));
+  // The nearest pixel (colorize.py:86-88), read where its sample is kept:
+  // for every point in the dump mode; on the fusion path only for a
+  // visible point whose score replaces a slot (its colour) or beats its
+  // best score (its label).
+  const int ui = min(max(to_int32(q.u), 0), a.img_w - 1);
+  const int vi = min(max(to_int32(q.v), 0), a.img_h - 1);
+  const long long flat = static_cast<long long>(vi) * a.img_w + ui;
+  if (a.vis_out) {
+    int packed = load_pixel(a.image, flat);
     if (a.hsv) packed = hsv_adjust(packed, a.sat, a.bri);
-    if (a.mask) label = __ldg(a.mask + flat);
-  }
-  if (dump) {
+    const int label = a.mask ? __ldg(a.mask + flat) : 0;
     a.pts_cam[3 * i] = q.x;
     a.pts_cam[3 * i + 1] = q.y;
     a.pts_cam[3 * i + 2] = q.z;
@@ -283,13 +298,15 @@ __global__ void __launch_bounds__(kThreads) colorize_update(ColorizeArgs a, Grid
     }
   }
   if (!nan && score > m) {
+    int packed = load_pixel(a.image, flat);
+    if (a.hsv) packed = hsv_adjust(packed, a.sat, a.bri);
     a.scores[slot * n + i] = score;
     a.rgb[slot * n + i] = packed;
   }
   a.count[i] += 1;
   if (a.best_s && score > a.best_s[i]) {
     a.best_s[i] = score;
-    a.best_l[i] = label;
+    a.best_l[i] = a.mask ? __ldg(a.mask + flat) : 0;
   }
 }
 

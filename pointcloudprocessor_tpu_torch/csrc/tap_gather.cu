@@ -1,18 +1,42 @@
-// Tap-row gathers for Hopper (sm_90a): the direct take (G1) and the grouped
-// gathers, each variant ONE kernel that plans its groups' windows and selects
-// every point's tap row.
+// Tap-row gathers for Hopper (sm_90a): the direct take (G1) with the packer
+// of the bin image it reads, and the grouped gathers, each variant ONE
+// kernel that plans its groups' windows and selects every point's tap row.
 //
 // G1 tap_take replaces the main path's direct take, which the JAX package
 // leaves to XLA (no Pallas source): pointcloudprocessor_tpu/opt/nid.py:490-516,
 // the anchor clip(v, 0, H-1) * W + clip(u, 0, W-1) of each (K, N) knot and a
-// vmap'd jnp.take of its (2,) int32 row from the keyframe's (H*W, 2) table.
-// One thread a point (a block row a keyframe): the knot in one 8-byte load,
-// the clamps, the row in one 8-byte load at the 64-bit address kf*H*W +
-// anchor (K*H*W passes 2^31 at 175 keyframes of 4096x3000), the row out in
-// one 8-byte store. Every point reads its clipped row, whatever its gate, as
-// the plain version (ops/tap_gather.direct_take_plain) does. What bounds it:
-// the bytes, 8 B of knot, 8 B of row and 8 B out a point (the rows scattered
-// over the table, each a 32-byte sector of its own unless neighbours share).
+// vmap'd jnp.take of its (2,) int32 row from the keyframe's (H*W, 2) tap
+// table, whose row holds the 16 bins of the anchor's 4x4 window (dy, dx in
+// -1..2, rows and columns clamped into the image), nibble t = 4 (dy + 1) +
+// (dx + 1) of word t / 8 at bit 4 (t % 8). Here the table is never built: a
+// row is a function of the bin image, so G1 reads the image, packed by
+// bin_pack at 4 bits a pixel in 8x8-pixel tiles of 32 bytes (one sector),
+// one tile every 5 pixels each way (word r of tile (ty, tx) = row 5 ty + r,
+// nibble c = column 5 tx + c; 0 past the image). The tiles overlap by 3
+// pixels, so every 4x4 window lies in one tile: tile (max(v - 1, 0) / 5,
+// max(u - 1, 0) / 5), whose rows and columns hold the window's clamped ones.
+// A 4096x3000 keyframe is 15.7 MB packed (the table 98 MB).
+// One thread a point, a block row a keyframe (blockIdx.y): the knot in one
+// 8-byte load, the clamps, the tile's 4 row words of the window (one
+// sector; the first load misses, the other three hit in L1), the 4 nibbles
+// of each row cut out (one shift inside the image, nibble by nibble at its
+// edges), the row out in one 8-byte store. Every point reads its clipped
+// window, whatever its gate, as the plain version (ops/tap_gather.
+// direct_take_plain) does. What bounds it: the bytes, 8 B of knot and 8 B
+// out a point and each distinct pixel the windows read, once, at 4 bits
+// (the whole 32-byte tiles they touch are this layout's floor, not the
+// function's). In practice the scattered sector requests hold it, one a
+// point as the table's take makes them, but to a 126 MB image of which the
+// keyframe in flight (15.7 MB) stays in L2 instead of a 786 MB table that
+// misses to DRAM. Measured and
+// dropped (PERF.md §6): 8x8 tiles without overlap (1.89 sectors a
+// point), 16-byte half-tile loads, an L2 prefetch of each keyframe's image
+// and two points a thread.
+//
+// bin_pack: (K, H, W) int32 bins -> (K, TH, TW, 8) int32 tiles, one thread a
+// tile word: 8 bins of one image row, each bin's low 4 bits (consecutive
+// threads on consecutive tiles of a row read overlapping 32-byte runs).
+// Bound: the bytes, 4 B a pixel read and 32 B a tile written.
 //
 // Replaces the two Pallas TPU kernels of pointcloudprocessor_tpu/ops/tap_gather.py
 // together with the XLA index arithmetic (the plan) around each of them:
@@ -238,18 +262,71 @@ tap_streamed_kernel(const int* __restrict__ idx, const unsigned char* __restrict
   count_groups(n_ovf, c);
 }
 
+constexpr int kStride = 5;  // pixels between bin-image tiles (ops/tap_gather.STRIDE)
+
 __global__ void __launch_bounds__(kThreads)
-tap_take_kernel(const int2* __restrict__ rows, const int2* __restrict__ knot,
-                int2* __restrict__ out, int n, long long n_rows, int width, int height) {
+tap_take_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ knot,
+                int2* __restrict__ out, int n, int width, int height, int tw, long long plane) {
+  const long long kf = blockIdx.y;
+  const unsigned* __restrict__ img = tiles + kf * plane;
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= n) return;
-  const long long kf = blockIdx.y;
   const long long p = kf * n + j;
   const int2 kn = __ldcs(knot + p);  // (u, v)
   const int u = min(max(kn.x, 0), width - 1);
   const int v = min(max(kn.y, 0), height - 1);
-  __stcs(out + p, load_row(rows + (kf * n_rows + (static_cast<long long>(v) * width + u))));
+  // The one tile that holds the window: its rows and columns clamped into
+  // the image lie in 5 ty .. 5 ty + 7 and 5 tx .. 5 tx + 7. Its 4 row words
+  // share the tile's sector: one sector a point, the other words L1 hits.
+  const int ty = max(v - 1, 0) / kStride, tx = max(u - 1, 0) / kStride;
+  const unsigned* __restrict__ tile =
+      img + ((static_cast<long long>(ty) * tw + tx) << 3) - kStride * ty;
+  unsigned w[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) w[r] = __ldg(tile + min(max(v - 1 + r, 0), height - 1));
+  unsigned word[2] = {0u, 0u};
+  const int x0 = kStride * tx;
+  if (u >= 1 && u + 2 < width) {
+    // Inside the image: the 4 columns are 4 consecutive nibbles of a word.
+    const unsigned sh = 4u * (u - 1 - x0);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) word[r >> 1] |= ((w[r] >> sh) & 0xffffu) << (16 * (r & 1));
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned sh = 4u * (min(max(u - 1 + c, 0), width - 1) - x0);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) word[r >> 1] |= ((w[r] >> sh) & 0xfu) << (16 * (r & 1) + 4 * c);
+    }
+  }
+  __stcs(out + p, make_int2(static_cast<int>(word[0]), static_cast<int>(word[1])));
 }
+
+__global__ void __launch_bounds__(kThreads)
+bin_pack_kernel(const int* __restrict__ bins, unsigned* __restrict__ tiles, int height,
+                int width, int th, int tw) {
+  // Thread g of keyframe blockIdx.y: word r of tile (ty, tx), consecutive
+  // threads along tx (overlapping 32-byte runs of one image row).
+  const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long words = static_cast<long long>(th) * tw * 8;
+  if (g >= words) return;
+  const long long kf = blockIdx.y;
+  const int tx = static_cast<int>(g % tw);
+  const long long rest = g / tw;
+  const int r = static_cast<int>(rest & 7), ty = static_cast<int>(rest >> 3);
+  const int y = kStride * ty + r, x0 = kStride * tx;
+  unsigned w = 0;
+  if (y < height) {
+    const int* row = bins + (kf * height + y) * static_cast<long long>(width) + x0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (x0 + c < width) w |= (static_cast<unsigned>(__ldg(row + c)) & 0xfu) << (4 * c);
+  }
+  tiles[kf * words + ((static_cast<long long>(ty) * tw + tx) << 3) + r] = w;
+}
+
+// Tiles along an image side of `size` pixels (ops/tap_gather.bin_tile_shape).
+inline int tiles_along(int size) { return (size > 2 ? size - 2 : 0) / kStride + 1; }
 
 bool table_ok(int n_slabs, int slab) {
   return n_slabs >= 2 && slab >= 1 && static_cast<long long>(n_slabs) * slab < 0x7fffffffLL;
@@ -298,18 +375,34 @@ int tap_streamed(const void* idx, const void* ok, const void* rows, void* taps, 
   return cudaGetLastError();
 }
 
-// G1: taps (k, n, 2) int32 = rows[kf, clip(v) * width + clip(u)] for the
-// knots (k, n, 2) int32 (u, v) and the rows (k, width * height, 2) int32;
-// all 8-byte aligned, k <= 65,535. One launch on `stream`, none for n = 0.
-// Returns cudaGetLastError().
-int tap_take(const void* rows, const void* knot, void* taps, int k, int n, int width,
+// G1: taps (k, n, 2) int32, the nibble-packed 4x4 window rows of the knots
+// (k, n, 2) int32 (u, v) clipped into the image, from the packed bin tiles
+// (k, th, tw, 8) int32 of bin_pack (th = (height - 2) / 5 + 1, tw = (width
+// - 2) / 5 + 1, at least 1); knots and taps 8-byte aligned, k <= 65,535.
+// One launch on `stream`, none for n = 0. Returns cudaGetLastError().
+int tap_take(const void* tiles, const void* knot, void* taps, int k, int n, int width,
              int height, void* stream) {
   if (k < 1 || k > 65535 || n < 0 || width < 1 || height < 1) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
+  const int tw = tiles_along(width);
+  const long long plane = static_cast<long long>(tiles_along(height)) * tw * 8;
   const dim3 grid((n + kThreads - 1) / kThreads, k);
   tap_take_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int2*>(rows), static_cast<const int2*>(knot), static_cast<int2*>(taps),
-      n, static_cast<long long>(width) * height, width, height);
+      static_cast<const unsigned*>(tiles), static_cast<const int2*>(knot),
+      static_cast<int2*>(taps), n, width, height, tw, plane);
+  return cudaGetLastError();
+}
+
+// bin_pack: tiles (k, th, tw, 8) int32 (as tap_take takes them) from the
+// bins (k, height, width) int32, the low 4 bits of each; k <= 65,535. One
+// launch on `stream`. Returns cudaGetLastError().
+int bin_pack(const void* bins, void* tiles, int k, int height, int width, void* stream) {
+  if (k < 1 || k > 65535 || height < 1 || width < 1) return cudaErrorInvalidValue;
+  const int th = tiles_along(height), tw = tiles_along(width);
+  const long long words = static_cast<long long>(th) * tw * 8;
+  const dim3 grid(static_cast<unsigned>((words + kThreads - 1) / kThreads), k);
+  bin_pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bins), static_cast<unsigned*>(tiles), height, width, th, tw);
   return cudaGetLastError();
 }
 

@@ -25,6 +25,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import Counter
 from dataclasses import dataclass
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,6 +52,17 @@ class Build:
 _locks_guard = threading.Lock()
 _locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, tuple[Build, ctypes.CDLL]] = {}
+
+# Launches of the kernels that take a (K, N) batch of keyframes, keyed by
+# (kernel, N), N the points a keyframe, so that a run splits its launches by
+# shape: K1/K2 (ops/nid_hist) and G1 (ops/tap_gather) record here.
+launch_shapes: Counter = Counter()
+
+
+def reset_launch_shapes(names) -> None:
+    """Drop the entries of the kernels ``names``."""
+    for key in [key for key in launch_shapes if key[0] in names]:
+        del launch_shapes[key]
 
 
 def nvcc_path() -> str:

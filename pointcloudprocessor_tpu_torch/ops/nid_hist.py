@@ -17,16 +17,15 @@ Dispatch (:func:`joint_histogram`) goes by the tensors' device: on the CPU
 the plain twin (:func:`joint_histogram_plain`, the JAX package's XLA branch
 `opt/nid.py:335-360`) runs under autograd; on CUDA the hand-written kernels
 in `csrc/nid_hist.cu` run through :class:`JointHistogram`, or the call
-raises. ``launch_counts`` counts each kernel's launches, ``launch_shapes``
-the same by points a keyframe. K1 is one launch a call: its scratch
-(partials and arrival counters) is allocated once per shape and stream, so
-a call allocates only its histogram.
+raises. ``launch_counts`` counts each kernel's launches,
+``kernels.build.launch_shapes`` the same by points a keyframe. K1 is one
+launch a call: its scratch (partials and arrival counters) is allocated
+once per shape and stream, so a call allocates only its histogram.
 """
 
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import torch
 
@@ -34,15 +33,12 @@ from ..kernels import build as kbuild
 
 # Launches of each CUDA kernel in this process (see reset_launch_counts).
 launch_counts = {"nid_hist_fwd": 0, "nid_hist_bwd": 0}
-# The same launches keyed by (kernel, N): the points per keyframe of each
-# launch, so that a run splits its launches by shape.
-launch_shapes: Counter = Counter()
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
-    launch_shapes.clear()
+    kbuild.reset_launch_shapes(launch_counts)
 
 
 # The C launchers of csrc/nid_hist.cu: pointers and the stream as c_void_p
@@ -227,7 +223,7 @@ def hist_fwd_cuda(taps, s, bin_pts, inlier, bins: int = 16) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"nid_hist_fwd launch failed: CUDA error {err}")
     launch_counts["nid_hist_fwd"] += 1
-    launch_shapes["nid_hist_fwd", n] += 1
+    kbuild.launch_shapes["nid_hist_fwd", n] += 1
     return hist
 
 
@@ -250,7 +246,7 @@ def hist_bwd_cuda(g, taps, s, bin_pts, inlier, bins: int = 16) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"nid_hist_bwd launch failed: CUDA error {err}")
     launch_counts["nid_hist_bwd"] += 1
-    launch_shapes["nid_hist_bwd", n] += 1
+    kbuild.launch_shapes["nid_hist_bwd", n] += 1
     return ds
 
 

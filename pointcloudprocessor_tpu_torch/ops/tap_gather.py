@@ -3,9 +3,14 @@ takes) with their plain torch twins.
 
 :func:`direct_take` is the main path's gather (`opt/nid._gather_taps`, the
 JAX package's `nid.py:490-516`): each (u, v) knot clipped into the image,
-its keyframe's row read. On CUDA tensors it is one launch of G1
-``tap_take``; its twin :func:`direct_take_plain` is the anchor arithmetic
-and torch's advanced-index take.
+the nibble-packed row of its 4x4 window. It reads no tap table: its source
+is each keyframe's bin image packed at 4 bits a pixel in 8x8-pixel tiles of
+32 bytes, one every 5 pixels each way, so that every 4x4 window lies in one
+tile (:func:`pack_bins`, kernel ``bin_pack``; 15.7 MB a 4096x3000 keyframe
+against the table's 98 MB), and it assembles the row from the window's 16
+nibbles. On CUDA tensors it is one launch of G1 ``tap_take``;
+its twin :func:`direct_take_plain` is the same arithmetic in torch ops,
+equal to ``build_tap_table(bins)[anchor]`` bit for bit.
 
 Port of `pointcloudprocessor_tpu/ops/tap_gather.py`: an exact
 ``take(rows, idx)`` for every ``ok`` row (rows with ``~ok`` hold
@@ -44,9 +49,10 @@ Dispatch goes by device: CPU tensors take the plain twin
 the JAX package's index arithmetic in :func:`plan_slabbed` /
 :func:`plan_streamed`, then :func:`select_slabbed_plain` /
 :func:`select_streamed_plain`), CUDA tensors take the kernels in
-`csrc/tap_gather.cu` or raise. ``launch_counts`` counts kernel launches,
-``call_counts`` grouped takes (any device) and ``fallback_counts`` the takes
-that fell back to the per-row lookup; on the card every grouped take
+`csrc/tap_gather.cu` or raise. ``launch_counts`` counts kernel launches
+(``kernels.build.launch_shapes`` G1's by points a keyframe),
+``call_counts`` grouped takes (any device) and ``fallback_counts`` the
+takes that fell back to the per-row lookup; on the card every grouped take
 launches its kernel once, fallbacks included.
 """
 
@@ -60,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build as kbuild
+from ..utils.numeric import bits_to_int32
 
 _GBLK = 16  # groups per grid step of the TPU's K3 (sets the index padding)
 _SPG = 32  # groups per step of the streamed variant
@@ -71,7 +78,7 @@ _KERNEL_GROUP = {"tap_select": 16, "tap_streamed": 32}  # the groups the kernels
 # Launches of each CUDA kernel, grouped takes (any device) and the takes
 # that fell back to the per-row lookup, in this process (see
 # reset_launch_counts).
-launch_counts = {"tap_take": 0, "tap_select": 0, "tap_streamed": 0}
+launch_counts = {"tap_take": 0, "bin_pack": 0, "tap_select": 0, "tap_streamed": 0}
 call_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
 fallback_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
 
@@ -80,6 +87,7 @@ def reset_launch_counts() -> None:
     for counts in (launch_counts, call_counts, fallback_counts):
         for name in counts:
             counts[name] = 0
+    kbuild.reset_launch_shapes(launch_counts)
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
@@ -88,8 +96,10 @@ _SIGNATURES = {
     "tap_select": ([_PTR] * 6 + [_I32] * 4 + [_PTR], _I32),
     # idx, ok, rows, taps, ovf, n_ovf, n, n_steps, n_slabs, n_blocks, slab, stream
     "tap_streamed": ([_PTR] * 6 + [_I32] * 5 + [_PTR], _I32),
-    # rows, knot, taps, k, n, width, height, stream
+    # tiles, knot, taps, k, n, width, height, stream
     "tap_take": ([_PTR] * 3 + [_I32] * 4 + [_PTR], _I32),
+    # bins, tiles, k, height, width, stream
+    "bin_pack": ([_PTR] * 2 + [_I32] * 3 + [_PTR], _I32),
 }
 
 
@@ -148,8 +158,71 @@ def _lookup(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# G1: the direct take
+# G1: the direct take, and the packed bin image it reads
 # ---------------------------------------------------------------------------
+
+TILE = 8  # pixels a side of a bin-image tile: 8 rows of 8 nibbles, 32 bytes
+STRIDE = 5  # pixels between tiles: any 4 consecutive rows (columns) lie in one tile
+
+
+def bin_tile_shape(height: int, width: int) -> tuple[int, int]:
+    """(tile rows, tile columns) of the packed image: tile (ty, tx) covers
+    rows 5 ty .. 5 ty + 7 and columns 5 tx .. 5 tx + 7, and the window of
+    an anchor (u, v) in the image lies in tile (max(v - 1, 0) // 5,
+    max(u - 1, 0) // 5)."""
+    return max(height - 2, 0) // STRIDE + 1, max(width - 2, 0) // STRIDE + 1
+
+
+def pack_bins_plain(bin_image: torch.Tensor) -> torch.Tensor:
+    """The twin of ``bin_pack``: (K, H, W) int32 bins in [0, 16) -> (K, TH,
+    TW, 8) int32 tiles. Word r of tile (ty, tx) holds, in nibble c, the bin
+    at pixel (5 ty + r, 5 tx + c) (its low 4 bits); pixels past the image
+    hold 0. The tiles overlap by 3 pixels, so every 4x4 window lies in one."""
+    k, h, w = bin_image.shape
+    th, tw = bin_tile_shape(h, w)
+    dev = bin_image.device
+    step = torch.arange(TILE, device=dev)
+    rows = (STRIDE * torch.arange(th, device=dev)[:, None] + step).reshape(-1)
+    cols = (STRIDE * torch.arange(tw, device=dev)[:, None] + step).reshape(-1)
+    b = bin_image.to(torch.int64) & 0xF
+    b = b[:, torch.clamp(rows, max=h - 1)][:, :, torch.clamp(cols, max=w - 1)]
+    b = b * ((rows < h)[:, None] & (cols < w)[None, :])
+    b = b.reshape(k, th, TILE, tw, TILE).permute(0, 1, 3, 2, 4)  # (K, TH, TW, row, col)
+    return bits_to_int32(torch.sum(b << (4 * step), dim=-1))  # distinct nibbles: sum = OR
+
+
+def pack_bins_cuda(bin_image: torch.Tensor) -> torch.Tensor:
+    """``bin_pack`` on the card: one launch, the same contract as
+    :func:`pack_bins_plain`, bit for bit."""
+    dev = bin_image.device
+    if not (dev.type == "cuda" and bin_image.dtype == torch.int32 and bin_image.dim() == 3
+            and 1 <= bin_image.shape[0] <= 65_535 and bin_image.is_contiguous()
+            and bin_image.shape[1] * bin_image.shape[2] < 2**31):
+        raise ValueError(
+            f"bin_pack: takes a contiguous (K, H, W) int32 CUDA tensor, 1 <= K <= 65,535, "
+            f"H*W < 2^31; got {tuple(bin_image.shape)} {bin_image.dtype} on {dev}")
+    k, h, w = bin_image.shape
+    th, tw = bin_tile_shape(h, w)
+    tiles = torch.empty((k, th, tw, TILE), dtype=torch.int32, device=dev)
+    if h == 0 or w == 0:
+        return tiles
+    err = _kernel("bin_pack")(bin_image.data_ptr(), tiles.data_ptr(), k, h, w,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bin_pack launch failed: CUDA error {err}")
+    launch_counts["bin_pack"] += 1
+    return tiles
+
+
+def pack_bins(bin_image: torch.Tensor) -> torch.Tensor:
+    """(K, TH, TW, 8) int32 packed bin tiles of (K, H, W) int32 bin images:
+    the twin on CPU tensors, ``bin_pack`` on CUDA ones."""
+    dev = bin_image.device.type
+    if dev == "cpu":
+        return pack_bins_plain(bin_image)
+    if dev == "cuda":
+        return pack_bins_cuda(bin_image)
+    raise NotImplementedError(f"pack_bins: no kernel for device {bin_image.device}")
 
 
 def anchors(knot: torch.Tensor, width: int, height: int) -> torch.Tensor:
@@ -159,53 +232,81 @@ def anchors(knot: torch.Tensor, width: int, height: int) -> torch.Tensor:
             + torch.clamp(knot[..., 0], 0, width - 1))
 
 
-def direct_take_plain(rows: torch.Tensor, knot: torch.Tensor, width: int,
+def _check_tiles(tiles: torch.Tensor, width: int, height: int) -> None:
+    if tiles.dim() != 4 or tuple(tiles.shape[1:]) != (*bin_tile_shape(height, width), TILE) \
+            or tiles.dtype != torch.int32:
+        raise ValueError(
+            f"bin tiles of a {width}x{height} image must be (K, "
+            f"{', '.join(map(str, bin_tile_shape(height, width)))}, {TILE}) int32, got "
+            f"{tuple(tiles.shape)} {tiles.dtype}")
+
+
+def direct_take_plain(tiles: torch.Tensor, knot: torch.Tensor, width: int,
                       height: int) -> torch.Tensor:
-    """The twin of G1: ``rows[kf, anchor]`` for every (K, N) knot."""
-    kf_idx = torch.arange(rows.shape[0], device=rows.device)[:, None]
-    return rows[kf_idx, anchors(knot, width, height).long()]
+    """The twin of G1: for every (K, N) knot, the nibble-packed row of its
+    clipped anchor's 4x4 window (``build_tap_table(bins)[anchor]``), read
+    from the one packed tile that holds the window: tap t = 4 (dy + 1) +
+    (dx + 1), dy and dx in -1..2, is the bin at the row and column clamped
+    into the image, nibble t % 8 of word t // 8."""
+    _check_tiles(tiles, width, height)
+    k, _, tw, _ = tiles.shape
+    flat = tiles.reshape(k, -1).to(torch.int64) & 0xFFFFFFFF
+    u = torch.clamp(knot[..., 0].to(torch.int64), 0, width - 1)
+    v = torch.clamp(knot[..., 1].to(torch.int64), 0, height - 1)
+    ty, tx = torch.clamp(v - 1, min=0) // STRIDE, torch.clamp(u - 1, min=0) // STRIDE
+    base = (ty * tw + tx) * TILE
+    kf = torch.arange(k, device=tiles.device)[:, None]
+    words = [torch.zeros_like(u), torch.zeros_like(u)]
+    for dy in range(-1, 3):
+        row = flat[kf, base + torch.clamp(v + dy, 0, height - 1) - STRIDE * ty]
+        for dx in range(-1, 3):
+            x = torch.clamp(u + dx, 0, width - 1)
+            nib = (row >> (4 * (x - STRIDE * tx))) & 0xF
+            t = 4 * (dy + 1) + (dx + 1)
+            words[t // 8] = words[t // 8] | (nib << (4 * (t % 8)))
+    return torch.stack([bits_to_int32(words[0]), bits_to_int32(words[1])], dim=-1)
 
 
-def direct_take_cuda(rows: torch.Tensor, knot: torch.Tensor, width: int,
+def direct_take_cuda(tiles: torch.Tensor, knot: torch.Tensor, width: int,
                      height: int) -> torch.Tensor:
     """G1 on the card: one launch of ``tap_take``, the same contract as
     :func:`direct_take_plain`, bit for bit."""
-    dev = rows.device
-    k = rows.shape[0]
-    if not (dev.type == "cuda" and knot.device == dev and rows.dtype == torch.int32
-            and knot.dtype == torch.int32 and rows.dim() == 3 and knot.dim() == 3
-            and rows.shape[2] == 2 and rows.shape[1] == width * height
-            and knot.shape[0] == k and knot.shape[2] == 2 and 1 <= k <= 65_535
-            and knot.shape[1] < 2**31 and width * height < 2**31
-            and rows.is_contiguous() and knot.is_contiguous()
-            and rows.data_ptr() % 8 == 0 and knot.data_ptr() % 8 == 0):
+    dev = tiles.device
+    k = tiles.shape[0]
+    if not (dev.type == "cuda" and knot.device == dev and tiles.dtype == torch.int32
+            and knot.dtype == torch.int32 and knot.dim() == 3 and knot.shape[0] == k
+            and knot.shape[2] == 2 and 1 <= k <= 65_535 and knot.shape[1] < 2**31
+            and tiles.numel() // max(k, 1) < 2**31
+            and tiles.is_contiguous() and knot.is_contiguous() and knot.data_ptr() % 8 == 0):
         raise ValueError(
-            f"tap_take: takes contiguous 8-byte aligned int32 CUDA tensors on one device, "
-            f"rows (K, {width}*{height}, 2) and knots (K, N, 2), 1 <= K <= 65,535; got rows "
-            f"{tuple(rows.shape)} {rows.dtype} on {dev}, knots {tuple(knot.shape)} "
+            f"tap_take: takes contiguous int32 CUDA tensors on one device, bin tiles (K, TH, "
+            f"TW, 8) and 8-byte aligned knots (K, N, 2), 1 <= K <= 65,535; got tiles "
+            f"{tuple(tiles.shape)} {tiles.dtype} on {dev}, knots {tuple(knot.shape)} "
             f"{knot.dtype} on {knot.device}")
+    _check_tiles(tiles, width, height)
     n = knot.shape[1]
     taps = torch.empty((k, n, 2), dtype=torch.int32, device=dev)
     if n == 0:
         return taps
-    err = _kernel("tap_take")(rows.data_ptr(), knot.data_ptr(), taps.data_ptr(), k, n, width,
+    err = _kernel("tap_take")(tiles.data_ptr(), knot.data_ptr(), taps.data_ptr(), k, n, width,
                               height, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tap_take launch failed: CUDA error {err}")
     launch_counts["tap_take"] += 1
+    kbuild.launch_shapes["tap_take", n] += 1
     return taps
 
 
-def direct_take(rows: torch.Tensor, knot: torch.Tensor, width: int, height: int) -> torch.Tensor:
-    """(K, N, 2) int32 tap rows of the (K, width*height, 2) tables at the
-    (K, N, 2) int32 knots, clipped into the image: the twin on CPU tensors,
-    G1 on CUDA ones."""
-    dev = rows.device.type
+def direct_take(tiles: torch.Tensor, knot: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(K, N, 2) int32 tap rows at the (K, N, 2) int32 knots, clipped into
+    the image, from the (K, TH, TW, 8) packed bin tiles of
+    :func:`pack_bins`: the twin on CPU tensors, G1 on CUDA ones."""
+    dev = tiles.device.type
     if dev == "cpu":
-        return direct_take_plain(rows, knot, width, height)
+        return direct_take_plain(tiles, knot, width, height)
     if dev == "cuda":
-        return direct_take_cuda(rows, knot, width, height)
-    raise NotImplementedError(f"direct_take: no kernel for device {rows.device}")
+        return direct_take_cuda(tiles, knot, width, height)
+    raise NotImplementedError(f"direct_take: no kernel for device {tiles.device}")
 
 
 class GroupedSelect(NamedTuple):

@@ -5,7 +5,9 @@ Port of `pointcloudprocessor_tpu/opt/nid.py`, a differentiable rebuild of
 the reference's NID cost (`include/vlcal/costs/nid_cost.hpp:24-126`) summed
 over keyframes (`visual_camera_calibration.cpp:86-129`). Per evaluation:
 project every keyframe's points, gather each point's 4x4 window of image
-bins as ONE nibble-packed row of a per-pixel tap table, build the joint
+bins as ONE nibble-packed row (the JAX package takes it from a per-pixel
+tap table; the direct take here assembles it from the bin image packed at
+4 bits a pixel, `ops/tap_gather` G1), build the joint
 histogram from cubic B-spline weights (`ops/nid_hist`: CUDA kernels K1/K2
 on the card, the plain twin on the CPU), then entropies -> NID.
 
@@ -35,7 +37,7 @@ from ..core import se3
 from ..models import camera as cam
 from ..ops import nid_hist, tap_gather
 from ..ops.nid_hist import spline_weights, unpack_tap_nibbles  # noqa: F401 (API)
-from ..utils.numeric import to_int32
+from ..utils.numeric import bits_to_int32, to_int32
 
 
 def quantize_image(image_gray01: torch.Tensor, bins: int = 16) -> torch.Tensor:
@@ -50,27 +52,36 @@ class NIDKeyframe:
     keyframe axis K on every field.
 
     points/intensity/valid are fixed-capacity (padded); intensities are
-    normalized to [0, 1] (`visual_lidar_data.cpp:87-96`). ``tap_rows`` is the
-    (K, H*W, 2) int32 table of :func:`build_tap_table`, which every gather
-    reads, and ``slab_width`` the slab S of the grouped gathers (H*W a
-    multiple of S); ``tap_slabs`` is the JAX package's plane-concat slab
-    layout (:func:`build_tap_slabs`), built only on request. All are
-    attached once per solve by :func:`prepare_keyframes`.
+    normalized to [0, 1] (`visual_lidar_data.cpp:87-96`). ``bin_tiles`` is
+    the bin image packed at 4 bits a pixel in 8x8-pixel tiles placed every 5
+    pixels (``tap_gather.pack_bins``: (K, (H-2)//5+1, (W-2)//5+1, 8) int32,
+    120 MiB for 8 keyframes of 4096x3000), which the direct take reads:
+    each gather reads 8 B of knot and writes 8 B of row a point, and reads
+    the one 32-byte tile that holds each point's window (its bound counts
+    16 B a point and each distinct window pixel at 4 bits). ``tap_rows`` is the
+    (K, H*W, 2) int32 table of :func:`build_tap_table` (750 MiB at that
+    size), which only the grouped gathers read, and ``slab_width`` their
+    slab S (H*W a multiple of S); ``tap_slabs`` is the JAX package's
+    plane-concat slab layout (:func:`build_tap_slabs`), built only on
+    request. All are attached once per solve by :func:`prepare_keyframes`.
     """
 
     points: torch.Tensor  # (K, N, 3) in the keyframe CAMERA frame (pre-correction)
     intensity: torch.Tensor  # (K, N)
     valid: torch.Tensor  # (K, N) bool
     bin_image: torch.Tensor  # (K, H, W) int32
-    tap_rows: Optional[torch.Tensor] = None  # (K, H*W, 2) int32 packed nibbles
+    bin_tiles: Optional[torch.Tensor] = None  # (K, TH, TW, 8) int32 nibbles (pack_bins)
+    tap_rows: Optional[torch.Tensor] = None  # (K, H*W, 2) int32 packed nibbles (grouped)
     tap_slabs: Optional[torch.Tensor] = None  # (K, H*W/S, 2S) int32
     slab_width: Optional[int] = None  # S; None: no grouped gather
 
 
-def _to_int32_bits(w: torch.Tensor) -> torch.Tensor:
-    """int64 holding a uint32 bit pattern -> the int32 with the same bits."""
-    w = w & 0xFFFFFFFF
-    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+def check_bins(bins: int) -> None:
+    """A tap holds a bin in 4 bits: ``bins`` must be in [1, 16]. The JAX
+    package's table ORs a bin of 16 or more into the next nibble
+    (`nid.py:98-100`, "Requires bins <= 16"), so the port refuses it."""
+    if not 1 <= bins <= 16:
+        raise ValueError(f"bins must be in [1, 16] (4-bit taps), got {bins}")
 
 
 def pack_tap_nibbles(taps: torch.Tensor) -> torch.Tensor:
@@ -82,7 +93,7 @@ def pack_tap_nibbles(taps: torch.Tensor) -> torch.Tensor:
         w = torch.zeros(taps.shape[0], dtype=torch.int64, device=taps.device)
         for j in range(8):
             w = w | (t[:, c * 8 + j] << (4 * j))
-        words.append(_to_int32_bits(w))
+        words.append(bits_to_int32(w))
     return torch.stack(words, dim=-1)
 
 
@@ -100,7 +111,7 @@ def _tap_word_planes(bin_image: torch.Tensor):
         dy, dx = t // 4 - 1, t % 4 - 1
         tap = p[1 + dy: 1 + dy + h, 1 + dx: 1 + dx + w]
         words[t // 8] = words[t // 8] | (tap << (4 * (t % 8)))
-    return _to_int32_bits(words[0]), _to_int32_bits(words[1])
+    return bits_to_int32(words[0]), bits_to_int32(words[1])
 
 
 def build_tap_table(bin_image: torch.Tensor) -> torch.Tensor:
@@ -121,31 +132,24 @@ def build_tap_slabs(bin_image: torch.Tensor, slab: int) -> torch.Tensor:
     return torch.cat([w0.reshape(r // slab, slab), w1.reshape(r // slab, slab)], dim=1)
 
 
-def _use_grouped_default() -> bool:
-    """The gather default: the direct per-point take (`nid.py:456-487`).
-    The grouped gathers win only while points stay raster-sorted at the
-    evaluation pose; after a solve's few-centimetre motion most groups
-    overflow into the fallback."""
-    return False
-
-
-def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool | None = None,
+def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool = False,
                       grouped: bool = False) -> NIDKeyframe:
-    """Attach the pose-independent tap tables (one per keyframe) and the
-    slab width of the grouped gathers where the shapes allow one
-    (`nid.py:187-237`); when ``build_slabs`` (None =
-    :func:`_use_grouped_default`), also the JAX package's plane-concat slab
-    table, which the port's gathers do not read. A grouped-gather request
-    (``grouped`` or ``build_slabs``) that no slab width can serve warns.
-    Idempotent; called by the optimizer at solve entry."""
-    if kfs.tap_rows is None:
-        kfs = replace(kfs, tap_rows=torch.stack([build_tap_table(b) for b in kfs.bin_image]))
-    _, r, _ = kfs.tap_rows.shape
+    """Attach the pose-independent gather sources (`nid.py:187-237`): the
+    packed bin tiles of the direct take (``tap_gather.pack_bins``, one
+    ``bin_pack`` launch for all keyframes on the card) and the slab width of
+    the grouped gathers where the shapes allow one. A grouped-gather request
+    (``grouped`` or ``build_slabs``) also builds the (K, H*W, 2) tap-row
+    table that K3/K4 read, and ``build_slabs`` the JAX package's
+    plane-concat slab table, which the port's gathers do not read. A grouped-gather request
+    that no slab width can serve warns. Idempotent; called by the optimizer
+    at solve entry."""
+    if kfs.bin_tiles is None:
+        kfs = replace(kfs, bin_tiles=tap_gather.pack_bins(kfs.bin_image))
+    _, h, w = kfs.bin_image.shape
+    r = h * w
     slab = tap_gather.default_slab(r, kfs.points.shape[1], 16)
     if kfs.slab_width is None and r % slab == 0 and r // slab >= 2:
         kfs = replace(kfs, slab_width=slab)
-    if build_slabs is None:
-        build_slabs = _use_grouped_default()
     if (build_slabs or grouped) and kfs.slab_width is None:
         # An explicit grouped-gather request that cannot be honored must
         # not degrade silently to the direct take.
@@ -155,7 +159,10 @@ def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool | None = None,
             "direct per-point take",
             stacklevel=2,
         )
-    elif build_slabs and kfs.tap_slabs is None:
+        return kfs
+    if (build_slabs or grouped) and kfs.tap_rows is None:
+        kfs = replace(kfs, tap_rows=torch.stack([build_tap_table(b) for b in kfs.bin_image]))
+    if build_slabs and kfs.tap_slabs is None:
         kfs = replace(kfs, tap_slabs=torch.stack(
             [build_tap_slabs(b, kfs.slab_width) for b in kfs.bin_image]))
     return kfs
@@ -204,17 +211,22 @@ def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor
                  inlier: torch.Tensor, use_grouped=None):
     """(K, N, 2) knots -> (K, N, 2) packed tap rows (`nid.py:490-560`).
 
-    The direct per-point row take by default (:func:`tap_gather.direct_take`,
-    G1 on the card). ``use_grouped`` True takes the slabbed grouped gather
-    (K3), "streamed" the streamed one (K4), wherever the keyframes carry a
-    slab width: all keyframes flatten into one call over the stacked row
-    tables (flat index kf*H*W + anchor). Rows whose ``inlier`` is False hold
-    unspecified data under the grouped gathers; the histogram gate zeroes
-    them."""
-    if use_grouped is None:
-        use_grouped = _use_grouped_default()
+    The direct per-point row take by default, ``use_grouped`` None or False
+    (:func:`tap_gather.direct_take` over the packed bin tiles, G1 on the
+    card; `nid.py:456-487`): the grouped gathers win only while points stay
+    raster-sorted at the evaluation pose, and after a solve's few-centimetre
+    motion most groups overflow into the fallback. ``use_grouped`` True takes
+    the slabbed grouped gather (K3), "streamed" the streamed one (K4),
+    wherever the keyframes carry a slab width: all keyframes flatten into
+    one call over the stacked row tables (flat index kf*H*W + anchor), which
+    :func:`prepare_keyframes` builds on a grouped request. Rows whose
+    ``inlier`` is False hold unspecified data under the grouped gathers; the
+    histogram gate zeroes them."""
     if not use_grouped or kfs.slab_width is None:
-        return tap_gather.direct_take(kfs.tap_rows, knot, camera.width, camera.height)
+        return tap_gather.direct_take(kfs.bin_tiles, knot, camera.width, camera.height)
+    if kfs.tap_rows is None:
+        raise ValueError("a grouped gather reads the tap-row table: call "
+                         "prepare_keyframes(kfs, grouped=True) first")
     anchor = tap_gather.anchors(knot, camera.width, camera.height)
     k, r, c = kfs.tap_rows.shape
     n = anchor.shape[1]
@@ -279,7 +291,8 @@ def multi_nid_loss(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     """Sum of per-keyframe NIDs — `MultiNIDCost::operator()`
     (`visual_camera_calibration.cpp:94-123`), `nid.py:922-960`.
     ``use_grouped`` selects the tap gather (see :func:`_gather_taps`)."""
-    kfs = prepare_keyframes(kfs)
+    check_bins(bins)
+    kfs = prepare_keyframes(kfs, grouped=bool(use_grouped))
     proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
     s = proj - knot.to(proj.dtype)
     with torch.no_grad():
@@ -320,7 +333,8 @@ def _unported_cache_options(partial_frac: float = 0.0, margin: int = 0) -> None:
 def make_tap_cache(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
                    kfs: NIDKeyframe, use_grouped=None) -> TapCache:
     """A fresh gather at ``T_camera_lidar`` (`nid.py:699-721`; kfs must
-    carry tap_rows, see :func:`prepare_keyframes`)."""
+    carry the packed bin tiles, and for a grouped gather the tap-row table:
+    see :func:`prepare_keyframes`)."""
     with torch.no_grad():
         proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
         taps = _gather_taps(camera, kfs, knot, inl, use_grouped)
@@ -346,7 +360,8 @@ def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     ``allow_refresh`` False suppresses the refresh (the caller will discard
     the value). The refresh decision is a host branch: one device sync."""
     _unported_cache_options(partial_frac)
-    if kfs.tap_rows is None:
+    check_bins(bins)
+    if kfs.bin_tiles is None:
         raise ValueError("call prepare_keyframes first")
     proj, knot_true, inl_true = _project_all(camera, T_camera_lidar, kfs)
 

@@ -134,14 +134,11 @@ def refine_pose(
     ``ftol`` is the inner solves' relative function-decrease exit (0
     disables)."""
     _nid._unported_cache_options(frozen_partial_frac, frozen_margin)
-    grouped = (
-        use_grouped_gather if use_grouped_gather is not None else _nid._use_grouped_default()
-    )
     if sort_points is None:
         # The raster sort makes the grouped gathers' rows near-monotone;
         # without them it is a sort per solve and a summation-order change.
-        sort_points = bool(grouped)
-    kfs = _nid.prepare_keyframes(kfs, grouped=bool(grouped))
+        sort_points = bool(use_grouped_gather)
+    kfs = _nid.prepare_keyframes(kfs, grouped=bool(use_grouped_gather))
     if sort_points:
         kfs = _nid.sort_by_raster(camera, T_init, kfs)
     dtype, device = T_init.t.dtype, T_init.t.device

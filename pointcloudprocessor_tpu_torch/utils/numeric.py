@@ -21,3 +21,10 @@ def to_int32(x: torch.Tensor) -> torch.Tensor:
     above = x >= 2147483648.0
     out = torch.clamp(x, -2147483648.0, _F32_BELOW_2_31).to(torch.int32)
     return torch.where(above, _INT32_MAX, out)
+
+
+def bits_to_int32(w: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 bit pattern (its low 32 bits) -> the int32
+    with the same bits, as XLA's uint32 -> int32 convert gives them."""
+    w = w & 0xFFFFFFFF
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
