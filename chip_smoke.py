@@ -41,17 +41,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    Asserts the recovered correction is within 1 cm / 1 degree of T0, a
    finite NID, colored points whose colors follow the rendered texture, K1/K2
    launches at both shapes (counted by points a keyframe), 8 launches each
-   of zmin and zbuffer_visible (the NID culls) and of colorize_scatter and
-   colorize_update (C1, a colorize keyframe each), one bin_pack a solve (the
+   of zmin and zbuffer_visible (the NID culls), one of colorize_scatter
+   (C1's pass (a) for the 8 colorize keyframes) and 8 of colorize_update
+   (its pass (b), a keyframe each), one bin_pack a solve (the
    packed bin image; the solve's keyframes carry no tap table) and one G1
    tap_take a direct take: each coarse evaluation at 8 x 16,384, each
    frozen-tap gather and the final exact evaluation at 8 x 262,144 (26 + 5
    + 1 on the scene); prints the solve's peak device memory. Then the same
-   run through the twins of C1, G1 and the packer: the same pose, NID,
-   counts and colored cloud, byte for byte.
+   run through the twins of C1 (``fuse(plain=True)``), G1 and the packer:
+   the same pose, NID, counts and colored cloud, byte for byte.
 5. G1 and its packer (``phase_direct_take``) on the scene's keyframes in
    map order, as the headline's solve takes them: ``bin_pack`` bit-equal
-   to its twin and timed; G1 bit-equal to its twin and to ``tap_rows[kf,
+   to its twin (also at 4095x2999, 1x1, 9x8, 13x21 and 97x401 and on an
+   image 4 bytes off 16-byte alignment) and timed beside its bound; G1
+   bit-equal to its twin and to ``tap_rows[kf,
    anchor]`` (the port's ``nid.build_tap_table``, held to the JAX package's
    on the CPU by tests/test_torch_tap_take.py; built for this check alone) on every
    point at the start pose and at T0, on the coarse subsample, at the sort
@@ -96,24 +99,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    a cull, and the same for step 0 (the eager gate, then ``zmin`` and
    ``zbuffer_visible`` with cells given), the cells-given twins and
    ``scatter_reduce_``.
-7b. C1 (``phase_colorize``): ``colorize.fuse_keyframe`` (a memset, then
-   ``colorize_scatter`` and ``colorize_update``) bit-equal to its twin run
-   on the card, every field of the fusion state after every keyframe, over
-   the scene's 8 keyframes twice in a row at T0: without and with masks
+7b. C1 (``phase_colorize``): ``colorize.fuse_keyframe`` bit-equal to its
+   twin run on the card, every field of the fusion state after every
+   keyframe, over the scene's 8 keyframes twice in a row at T0, both as
+   ``fuse`` runs it (``depth_keys``: a memset and one ``colorize_scatter``
+   for all the keyframes, then one ``colorize_update`` a keyframe against
+   its keys) and a keyframe alone (a memset and both launches), the
+   batched keys equal to each keyframe's own launch and, read as cell
+   minima, to the twin's on every cell: without and with masks
    (labels from the seed), with HSV (0.7, 1.2), reference_compat and optimal
    distance 3.0, under HPR (H2, then pass (b) alone), on the edge set of
    ``bench_scene.cull_edge_points`` put in front of the camera, on a ragged
    n and n = 0; the mask dumps (``keyframe_rgb_mask``) bit-equal to theirs;
    the twin's divisions on the card against the CPU's on all 2^24 colors and
    the scene's scores (``c1_division_check``, with a Python-number divisor
-   and with the twin's 0-dim tensor); each pass's mean device time over
-   the 8 keyframes from an empty state, as ``fuse`` runs them (the slots
-   fill, then replace), beside its bound counted from those steps' data
-   (the records' ``ms``); at keyframe 0 fused again onto its own state the
-   step's and each pass's device time (``torch.profiler``, a memset and two
-   launches a step asserted, one launch of pass (b) under HPR) beside that
-   call's bound and the twin's; the whole ``fuse`` through C1 and through
-   the twin.
+   and with the twin's 0-dim tensor); over the 8 keyframes from an empty
+   state, as ``fuse`` runs them (the slots fill, then replace; one memset,
+   one pass (a) and 8 pass (b) launches asserted), pass (a)'s one launch
+   and pass (b)'s mean device time beside their bounds counted from those
+   steps' data (the records' ``ms``; pass (a)'s in f32 operations), and
+   pass (a) one keyframe at a time; at keyframe 0 fused again onto its own
+   state the step's and each pass's device time (``torch.profiler``, a
+   memset and two launches a lone step asserted, one launch of pass (b)
+   under HPR) beside that call's bound and the twin's; the whole ``fuse``
+   through C1 and through the twin.
 8. The HPR + smoothing path: ``runner.process`` under the headline
    schedule with ``culling.method="hpr"`` (``hpr_impl`` "auto": the grid at
    1M points) and ``fusion.local_smoothing_radius`` = ``SMOOTH_RADIUS``.
@@ -139,8 +148,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    mask folder set. Asserts what tests/test_pipeline_e2e.py's
    test_e2e_with_masks asserts (labels follow the mask, highlighted points
    are red, one dump per keyframe, the accumulated cloud is the sum of the
-   dumps), 8 launches each of zmin and zbuffer_visible and 16 of each C1
-   pass (+8 dumps).
+   dumps), 8 launches each of zmin and zbuffer_visible, 1 + 8 of C1's pass
+   (a) (the fuse's, then one a dump) and 16 of its pass (b).
 13. The earlier path: ``runner.process`` under the plain objective (2 outer
    x 20 inner), as in phase 4 otherwise, with one G1 launch an evaluation.
 14. The MLS path: ``runner.process`` with bench.py's e2e MLS config
@@ -214,12 +223,14 @@ schedule (``run_sizes``), of the corner and ``scene_*`` of the map, and
 (``torch.profiler``: kernel launches a ``sor_stats`` / ``mls_smooth``
 call, asserted 1).
 C1's records (colorize_scatter, colorize_update) carry their pass's device
-time as ``ms`` (``torch.profiler``: the mean a launch over the 8 keyframes
-from an empty state, as ``fuse`` runs them, with ``bound_ms`` the mean of
-their bounds), the twin's as ``plain_ms`` (for pass (a) the transform,
-projection, gate, cell and scatter-min; for pass (b) the whole twin step),
-``step_ms`` (the memset and both passes over that sequence), ``call_ms`` of
-a step, ``refuse_kf0_ms`` / ``refuse_kf0_step_ms`` (keyframe 0 fused again
+time as ``ms`` (``torch.profiler`` over the 8 keyframes from an empty
+state, as ``fuse`` runs them: pass (a)'s one launch for the 8, pass (b)'s
+mean a launch, with ``bound_ms`` the mean of its bounds), the twin's as
+``plain_ms`` (for pass (a) ``depth_keys_plain`` of the 8; for pass (b) the
+whole twin step), ``sequence_ms`` (the memset and every launch over that
+sequence) and ``step_ms`` (its eighth), pass (a)'s ``memset_us`` and
+``one_at_a_time_ms`` (8 memsets and K = 1 launches), ``call_ms`` of a lone
+step, ``refuse_kf0_ms`` / ``refuse_kf0_step_ms`` (keyframe 0 fused again
 onto the state it left: no slot replaced, a state the path never has;
 ``refuse_kf0_bound_ms``), ``fuse_call_ms`` and ``fuse_twin_call_ms`` and
 the division check's counts. G1 carries
@@ -228,7 +239,7 @@ its device time on map-order knots at the fine shape (``ms``,
 (``coarse_ms``) and at the sort pose (``sort_pose_ms``), each beside
 ``index_select`` of the table rows, its launches by shape
 (``launches_by_n``) and the headline solve's peak memory; ``bin_pack``
-its device time beside its twin.
+its device time beside its twin and its bound.
 K5/Z1 carry their pass's device time as ``ms`` and its twin's (the gate,
 the cell and the scatter-min or the test, in plain torch on the same
 inputs) as ``plain_ms``, a whole cull's call as ``call_ms``, the mask's
@@ -779,22 +790,26 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     to 1 cm / 1 deg, a finite NID, colored points whose colors follow the
     rendered texture, the mask outputs (:func:`check_mask_outputs`), and on
     the card K1/K2 launches; one launch of each z-buffer kernel (zmin and
-    zbuffer_visible) a NID keyframe; one of each C1 pass (colorize_scatter
-    and colorize_update) a colorize keyframe and, with masks, a dump; with
-    ``hpr`` H2 hpr_grid for all of those culls and C1's pass (b) alone, and
+    zbuffer_visible) a NID keyframe; one launch of C1's pass (a)
+    (colorize_scatter) for all the colorize keyframes and one more a mask
+    dump, one of its pass (b) (colorize_update) a colorize keyframe and a
+    dump; with ``hpr`` H2 hpr_grid for all of those culls and C1's pass (b)
+    alone, and
     one N1 smooth_local launch; one G1 tap_take a direct take (by points a
     keyframe: each coarse evaluation at the coarse shape, each frozen
     gather and the final evaluation at the fine one) and one bin_pack a
     solve, whose keyframes carry no tap table; with ``mls``
     one M1 mls_moments and two S1 knn_select launches (the two SOR passes),
     and the MLS stage's split. With ``eager`` (no masks) C1, G1 and the
-    packer give way to their twins (``fuse_keyframe_plain``,
-    ``direct_take_plain``, ``pack_bins_plain``): the eager path they
+    packer give way to their twins (``fuse(plain=True)``: each keyframe
+    through ``fuse_keyframe_plain`` with its own cull; ``direct_take_plain``,
+    ``pack_bins_plain``): the eager path they
     replaced, whose colorize culls take the z-buffer kernels. Prints the
     solve's peak device memory above what was held at its entry. Returns
     (launches, summary): the pose, NID, evaluations, gathers, colored
     points, the colored cloud's SHA-256, the ``colorize_fuse`` stage's
     seconds and the solve's peak memory (MiB; None off the card)."""
+    import functools
     import hashlib
 
     import torch
@@ -808,11 +823,11 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
 
     cfg = _config(root, nid, masks, hpr, mls)
     shutil.rmtree(cfg.output_path, ignore_errors=True)
-    kernels = (colorize.fuse_keyframe, tap_gather.direct_take, tap_gather.pack_bins)
+    kernels = (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins)
     wrapped = (nid_mod.prepare_keyframes, refine.refine_pose)
     if eager:
         assert not masks
-        colorize.fuse_keyframe = colorize.fuse_keyframe_plain
+        colorize.fuse = functools.partial(colorize.fuse, plain=True)
         tap_gather.direct_take = tap_gather.direct_take_plain
         tap_gather.pack_bins = tap_gather.pack_bins_plain
     tables, peaks = [], []
@@ -839,7 +854,7 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     try:
         res = runner.process(cfg, device)
     finally:
-        colorize.fuse_keyframe, tap_gather.direct_take, tap_gather.pack_bins = kernels
+        colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins = kernels
         nid_mod.prepare_keyframes, refine.refine_pose = wrapped
     wall = time.perf_counter() - t0
     assert tables and not any(tables), f"the solve's keyframes carried a tap table: {tables}"
@@ -880,8 +895,9 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         assert launches["zmin"] == launches["zbuffer_visible"] == 2 * K, launches
     elif device == "cuda":
         # The NID culls take the z-buffer kernels (or H2) once a keyframe;
-        # colorize and, with masks, the dumps take C1 once a keyframe each
-        # (a memset and both passes, or under HPR H2 and pass (b)).
+        # colorize takes C1's pass (a) once for all its keyframes and pass
+        # (b) once a keyframe, each mask dump both passes (under HPR, H2 and
+        # pass (b) a keyframe and a dump).
         steps = (2 if masks else 1) * K
         if hpr:
             assert launches["hpr_grid"] == K + steps and launches["hpr_support"] == 0, launches
@@ -891,8 +907,8 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
             assert launches["smooth_local"] == 1, launches
         else:
             assert launches["zmin"] == launches["zbuffer_visible"] == K, launches
-            assert launches["colorize_scatter"] == launches["colorize_update"] == steps, (
-                steps, launches)
+            assert launches["colorize_scatter"] == 1 + (K if masks else 0), launches
+            assert launches["colorize_update"] == steps, (steps, launches)
             assert launches["hpr_grid"] == launches["smooth_local"] == 0, launches
         # G1: one launch a direct take. Every evaluation of the plain
         # objective gathers (the coarse phase's, all of the plain schedule's);
@@ -1119,10 +1135,23 @@ def phase_direct_take(card, camera, kfs, T0, device="cuda"):
     pack_twin = _median_ms(lambda: tg.pack_bins_plain(kp.bin_image), device)
     pack_bytes = _nbytes(kp.bin_image, tiles)
     pack_bound, pack_by = _bound(pack_bytes)
+    share = "not measured" if pack_dev is None else f"{pack_bound / pack_dev:.2f}"
     print(f"[{card}] bin_pack {tuple(kp.bin_image.shape)} -> {tuple(tiles.shape)} "
           f"({_nbytes(tiles) / 2**20:.1f} MiB): bit-equal to its twin; device {_ms(pack_dev)} "
           f"ms, a call {_ms(pack_call)}, twin {_ms(pack_twin)}; bound {pack_bound * 1e3:.1f} us "
-          f"({pack_by}: {pack_bytes} B)")
+          f"({pack_by}: {pack_bytes} B), at {share} of it")
+    # Small and ragged images (random bins, negatives included: the low 4
+    # bits count), and a bin image 4 bytes off 16-byte alignment (the
+    # packer's scalar loads): bit-equal to the twin.
+    rs = np.random.default_rng(SEED)
+    for shape in ((1, 1, 1), (2, 9, 8), (3, 13, 21), (2, 97, 401)):
+        b = torch.from_numpy(rs.integers(-40, 40, shape).astype(np.int32)).to(device)
+        assert torch.equal(tg.pack_bins(b), tg.pack_bins_plain(b)), f"bin_pack != twin, {shape}"
+    flat = torch.from_numpy(rs.integers(0, 16, 2 * 300 * 400 + 1).astype(np.int32)).to(device)
+    b = flat[1:].view(2, 300, 400)
+    assert torch.equal(tg.pack_bins(b), tg.pack_bins_plain(b)), "bin_pack != twin, unaligned"
+    print("bin_pack bit-equal to its twin at 1x1, 9x8, 13x21 and 97x401 (random bins) and on a "
+          "2 x 300x400 image 4 bytes off 16-byte alignment")
     # The port's tap table, for the comparison alone.
     table = torch.stack([nid.build_tap_table(b) for b in kp.bin_image])
     rows = table.reshape(-1, 2)
@@ -1817,6 +1846,19 @@ def c1_division_check(camera, views, points, valid, images, culling, sat=0.7, br
             "n_colors": DIVISION_COLORS, "n_scores": len(cams) * points.shape[0]}
 
 
+def _stack_views(views):
+    """The batch of the keyframe views ``views`` (copies, the same bits)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.pipeline import colorize
+
+    return colorize.KeyframePose(se3.SE3(torch.stack([v.T.q for v in views]),
+                                         torch.stack([v.T.t for v in views])),
+                                 torch.stack([v.R for v in views]),
+                                 torch.stack([v.position for v in views]))
+
+
 def phase_colorize(card, root, T0, device="cuda"):
     """C1: ``fuse_keyframe`` (a memset and ``colorize_scatter`` +
     ``colorize_update``) bit-equal to its twin run on the card, field by
@@ -1848,26 +1890,53 @@ def phase_colorize(card, root, T0, device="cuda"):
     top_k = cfg.fusion.top_k
     hsv = dict(saturation_scale=0.7, brightness_scale=1.2, reference_compat_orientation=True,
                optimal_distance=3.0)
-    tally = {"steps": 0, "mismatches": 0}
+    tally = {"steps": 0, "mismatches": 0, "keys": 0}
+
+    def check_keys(label, keys, p, v, batch, ds):
+        """Pass (a) for the batch: equal to each keyframe's own launch (K =
+        1) on every key, and read as cell minima to the twin's on every
+        cell."""
+        twin = colorize.depth_keys_plain(camera, batch, p, v, ds)
+        got = colorize.cell_minima(keys) if device == "cuda" else keys
+        assert _bits_differ(got, twin) == 0, f"C1 {label}: batched keys != the twin's"
+        for j in range(keys.shape[0]):
+            one = colorize.depth_keys(camera, batch.at(j).batch(), p, v, ds)[0]
+            assert _bits_differ(keys[j], one) == 0, f"C1 {label}, keyframe {j}: batched != K = 1"
+        tally["keys"] += keys.numel()
 
     def check(label, p, v, views_, imgs, msk, rounds=2, **opts):
+        """Over ``rounds`` x the keyframes: the batched path as ``fuse`` runs
+        it (pass (a) once for all, then pass (b) a keyframe against its
+        keys) and each keyframe alone (memset, both passes), each state
+        bit-equal to the twin's after every keyframe."""
         kw = {**culling, **opts}
-        ks = colorize.init_fuse_state(p.shape[0], device, top_k, msk is not None)
-        ts = colorize.init_fuse_state(p.shape[0], device, top_k, msk is not None)
+        zbuf = kw["culling_method"] == "zbuffer"
+        batch = _stack_views(views_)
+        labelled = msk is not None
+        batched, alone, ts = (colorize.init_fuse_state(p.shape[0], device, top_k, labelled)
+                       for _ in range(3))
         for _ in range(rounds):
+            keys = None
+            if zbuf:
+                keys = colorize.depth_keys(camera, batch, p, v, kw["downsample_factor"])
+                check_keys(label, keys, p, v, batch, kw["downsample_factor"])
             for j, view in enumerate(views_):
                 m = None if msk is None else msk[j]
-                colorize.fuse_keyframe(ks, camera, imgs[j], view, p, v, m, **kw)
+                colorize.fuse_keyframe(batched, camera, imgs[j], view, p, v, m,
+                                       keys=None if keys is None else keys[j], **kw)
+                colorize.fuse_keyframe(alone, camera, imgs[j], view, p, v, m, **kw)
                 colorize.fuse_keyframe_plain(ts, camera, imgs[j], view, p, v, m, **kw)
-                d = _state_diffs(ks, ts)
-                tally["steps"] += 1
-                tally["mismatches"] += sum(d.values())
-                assert not any(d.values()), f"C1 {label}, keyframe {j}: kernel != twin {d}"
-        filled = int(torch.isfinite(ks.topk.scores).sum())
+                for path, ks in (("batched", batched), ("K = 1", alone)):
+                    d = _state_diffs(ks, ts)
+                    tally["steps"] += 1
+                    tally["mismatches"] += sum(d.values())
+                    assert not any(d.values()), f"C1 {label} {path}, keyframe {j}: != twin {d}"
+        filled = int(torch.isfinite(batched.topk.scores).sum())
         print(f"C1 {label}: {rounds} x {len(views_)} keyframes of {p.shape[0]} points, every "
-              f"state bit-equal to the twin's; observations {int(ks.count.sum())}, filled "
-              f"slots {filled}, points colored {int(torch.isfinite(ks.topk.scores[0]).sum())}")
-        return ks
+              f"state bit-equal to the twin's (batched keys and K = 1); observations "
+              f"{int(batched.count.sum())}, filled slots {filled}, points colored "
+              f"{int(torch.isfinite(batched.topk.scores[0]).sum())}")
+        return batched
 
     check("default", pts, val, views, images, None)
     check("masks", pts, val, views, images, masks)
@@ -1928,13 +1997,11 @@ def phase_colorize(card, root, T0, device="cuda"):
     def twin():
         return colorize.fuse_keyframe_plain(tw, camera, img, view, pts, val, **culling)
 
-    def twin_scatter():  # the twin of pass (a): transform, projection, gate, cell, scatter-min
-        x, y, z = se3.transform_xyz(view.T, pts[:, 0], pts[:, 1], pts[:, 2])
-        r = torch.sqrt(x * x + y * y + z * z)
-        u, v = cam.project_xyz(camera, x, y, z)
-        ok, c, nc = zb.cells(camera, u, v, z, val, cfg.culling.downsample_factor)
-        big = torch.finfo(torch.float32).max
-        return zb.zmin_plain(c, torch.where(ok, r, big), big, nc + 1)
+    ds = cfg.culling.downsample_factor
+    batch = colorize.keyframe_pose(poses, T_corr)  # the views as fuse forms them
+
+    def twin_scatter():  # the twin of the batched pass (a), as the CPU runs it
+        return colorize.depth_keys_plain(camera, batch, pts, val, ds)
 
     def fuse(plain):
         return colorize.fuse(camera, pts, val, images, poses, T_corr, top_k=top_k, plain=plain,
@@ -1942,8 +2009,13 @@ def phase_colorize(card, root, T0, device="cuda"):
 
     def sequence():  # a fresh state through the 8 keyframes, as fuse runs them
         s = colorize.init_fuse_state(n, device, top_k)
+        keys = colorize.depth_keys(camera, batch, pts, val, ds)
         for j, vw in enumerate(views):
-            colorize.fuse_keyframe(s, camera, images[j], vw, pts, val, **culling)
+            colorize.fuse_keyframe(s, camera, images[j], vw, pts, val, keys=keys[j], **culling)
+
+    def per_keyframe():  # pass (a) for the 8 keyframes one at a time (K = 1)
+        for j in range(len(views)):
+            colorize.depth_keys(camera, batch.at(j).batch(), pts, val, ds)
 
     dev_t = {k: _device_ms(fn, device) for k, fn in (
         ("step", step), ("twin step", twin), ("twin of pass (a)", twin_scatter), ("step again", step))}
@@ -1952,8 +2024,9 @@ def phase_colorize(card, root, T0, device="cuda"):
         ("fuse", lambda: fuse(False)), ("fuse, twin", lambda: fuse(True)))}
     prof = _kernel_profile(step, device)
     passes = {"colorize_scatter": None, "colorize_update": None}
+    one_at_a_time = memset_us = None
     if device == "cuda":
-        print(f"[{card}] C1 step: device work a call (launches, mean us): "
+        print(f"[{card}] C1 step (K = 1): device work a call (launches, mean us): "
               + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
         assert sorted(prof) == sorted([*passes, "Memset"]), prof
         assert _kernel_launches(prof) == 2 and prof["Memset"][0] == 1, prof
@@ -1963,13 +2036,23 @@ def phase_colorize(card, root, T0, device="cuda"):
         print(f"[{card}] C1 step under HPR: " + json.dumps(
             {k: [c, round(us, 2)] for k, (c, us) in prof_hpr.items()}))
         assert prof_hpr["colorize_update"][0] == 1 and "colorize_scatter" not in prof_hpr, prof_hpr
-        # The 8 keyframes from an empty state: the first K fill the slots (every
-        # visible sample is kept), the rest replace where they beat the minimum.
+        # The 8 keyframes from an empty state: one memset and one pass (a)
+        # for all, then pass (b) a keyframe; the first K fill the slots
+        # (every visible sample is kept), the rest replace where they beat
+        # the minimum.
         seq = _kernel_profile(sequence, device, reps=5)
         print(f"[{card}] C1 over the 8 keyframes from an empty state: " + json.dumps(
-            {k: [c, round(us, 2)] for k, (c, us) in seq.items() if k in passes}))
-        assert all(seq[k][0] == len(views) for k in passes), seq
+            {k: [c, round(us, 2)] for k, (c, us) in seq.items() if k in (*passes, "Memset")}))
+        assert seq["colorize_scatter"][0] == seq["Memset"][0] == 1, seq
+        assert seq["colorize_update"][0] == len(views), seq
         sequence_ms = {k: seq[k][1] * 1e-3 for k in passes}
+        memset_us = seq["Memset"][1]
+        # Pass (a) one keyframe at a time, as each keyframe alone runs it.
+        per = _kernel_profile(per_keyframe, device, reps=5)
+        print(f"[{card}] C1 pass (a) one keyframe at a time (K = 1): " + json.dumps(
+            {k: [c, round(us, 2)] for k, (c, us) in per.items()}))
+        assert per["colorize_scatter"][0] == per["Memset"][0] == len(views), per
+        one_at_a_time = len(views) * (per["colorize_scatter"][1] + per["Memset"][1]) * 1e-3
     else:
         sequence_ms = {k: None for k in passes}
     print(f"[{card}] C1 at keyframe 0 fused again, {n} points: device ms: "
@@ -1977,16 +2060,32 @@ def phase_colorize(card, root, T0, device="cuda"):
     print(f"[{card}] C1: ms a call (host included): "
           + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items()))
 
-    # The bound, from this call's data: pass (a) reads xyz and valid (13 B a
-    # point) and writes the key buffer once; pass (b) reads them again and the
-    # keys, a visible point's K scores and its count (read and written), each
+    # Pass (a)'s bound, from this call's data: bytes, xyz and valid read once
+    # (13 B a point) and the 8 key buffers written once; f32 operations,
+    # counted from csrc/colorize.cu: for each valid point and view the
+    # transform (9 products, 9 sums); at z > 0 the projection (2 divisions
+    # and 32 products and sums) and the gate and cell (2 floors, 2
+    # divisions); for each point gated in, its range (3 products, 2 sums, a
+    # square root). A division and a square root count as one operation
+    # each, a least count (nvcc expands both into an approximation on the
+    # special-function unit and a few FMAs).
+    n_front = n_gated = 0
+    for j in range(len(views)):
+        x, y, z = se3.transform_xyz(batch.at(j).T, pts[:, 0], pts[:, 1], pts[:, 2])
+        u, v = cam.project_xyz(camera, x, y, z)
+        n_front += int((val & (z > 0)).sum())
+        n_gated += int(zb.cells(camera, u, v, z, val, ds)[0].sum())
+    a_ops = 18 * int(val.sum()) * len(views) + 38 * n_front + 6 * n_gated
+
+    # Pass (b)'s bound, from this call's data: xyz and valid (13 B a point)
+    # and the keys, a visible point's K scores and its count (read and written), each
     # distinct pixel whose sample a slot takes (3 B), and writes the slots a
     # call replaces (8 B each). Counted for each keyframe of the sequence
     # from an empty state (the passes' ``ms``; their mean) and for keyframe 0
     # fused again onto the state it left (``refuse_kf0_*``).
-    gw, gh = zb.grid(camera, cfg.culling.downsample_factor)
+    gw, gh = zb.grid(camera, ds)
     keys = 4 * gw * gh
-    a_bytes = 13 * n + keys
+    a_bytes = 13 * n + len(views) * keys
 
     def update_bytes(state, j):  # fuses keyframe j into ``state``
         before = _clone_state(state)
@@ -2007,10 +2106,12 @@ def phase_colorize(card, root, T0, device="cuda"):
     seq_state = colorize.init_fuse_state(n, device, top_k)
     seq_b = [update_bytes(seq_state, j) for j in range(len(views))]
     b_bytes = sum(b[0] for b in seq_b) / len(seq_b)
-    bound_a, bound_b, bound_kf0 = _bound(a_bytes), _bound(b_bytes), _bound(kf0[0])
+    bound_a, bound_b, bound_kf0 = _bound(a_bytes, a_ops), _bound(b_bytes), _bound(kf0[0])
     for name, (b_ms, by), nb, t, what in (
             ("colorize_scatter", bound_a, a_bytes, sequence_ms["colorize_scatter"],
-             "a keyframe"),
+             f"one launch for the {len(views)} keyframes; {a_ops} f32 operations: {n_front} point-views "
+             f"in front of the camera, {n_gated} gated in; {_bound(a_bytes)[0] * 1e3:.2f} us "
+             "of bytes"),
             ("colorize_update", bound_b, b_bytes, sequence_ms["colorize_update"],
              "the mean of the 8 keyframes from an empty state; by keyframe (visible, slots "
              "replaced, pixels sampled) " + json.dumps([b[1:] for b in seq_b])),
@@ -2020,13 +2121,17 @@ def phase_colorize(card, root, T0, device="cuda"):
         share = "not measured" if t is None else f"{b_ms / t:.2f}"
         print(f"{name}: device {_ms(t)} ms, bound {b_ms * 1e3:.2f} us ({by}: {nb:.0f} B, "
               f"{what}), at {share} of it")
-    step_seq = (None if sequence_ms["colorize_update"] is None else
-                prof["Memset"][1] * 1e-3 + sum(sequence_ms.values()))
-    print(f"[{card}] C1 step over the 8 keyframes from an empty state (the memset and both "
-          f"passes' means): {_ms(step_seq)} ms of device time")
+    seq_ms = (None if memset_us is None else memset_us * 1e-3 + sequence_ms["colorize_scatter"]
+              + len(views) * sequence_ms["colorize_update"])
+    print(f"[{card}] C1 over the 8 keyframes from an empty state: {_ms(seq_ms)} ms of device "
+          f"time (one memset {_ms(memset_us)} us, pass (a) once, pass (b) 8 times); pass (a) one "
+          f"keyframe at a time {_ms(one_at_a_time)} ms (8 memsets and launches) against "
+          f"{_ms(None if memset_us is None else memset_us * 1e-3 + sequence_ms['colorize_scatter'])}"
+          f" batched; {tally['keys']} keys checked")
     common = {"route": "cuda", "source": f"{PKG}/csrc/colorize.cu", "max_abs_err": 0.0,
               "mismatches": tally["mismatches"], "call_ms": call_t["step"],
-              "step_ms": step_seq, "refuse_kf0_step_ms": dev_t["step"],
+              "sequence_ms": seq_ms, "step_ms": None if seq_ms is None else seq_ms / len(views),
+              "refuse_kf0_step_ms": dev_t["step"],
               "twin_step_ms": dev_t["twin step"],
               "twin_step_call_ms": call_t["twin step"], "fuse_call_ms": call_t["fuse"],
               "fuse_twin_call_ms": call_t["fuse, twin"], "library_ms": None,
@@ -2034,6 +2139,7 @@ def phase_colorize(card, root, T0, device="cuda"):
     return [
         {"name": "colorize_scatter", "replaces": "pointcloudprocessor_tpu/pipeline/colorize.py:49",
          "ms": sequence_ms["colorize_scatter"], "refuse_kf0_ms": passes["colorize_scatter"],
+         "memset_us": memset_us, "one_at_a_time_ms": one_at_a_time,
          "plain_ms": dev_t["twin of pass (a)"] or call_t["twin of pass (a)"],
          "bound_ms": bound_a[0], "bound_by": bound_a[1], **common},
         # Where a twin's host side outlasts the hidden host time (its device

@@ -1,37 +1,42 @@
-// Colorize and fuse one keyframe for Hopper (sm_90a): C1, two passes.
+// Colorize and fuse for Hopper (sm_90a): C1, two passes.
 //
 // Replaces what the JAX package leaves to XLA on the main path's colorize
 // (no Pallas source): pointcloudprocessor_tpu/pipeline/colorize.py:49-140
 // (observe_keyframe: the transform, the projection, the z-buffer cull, the
 // nearest-pixel sample, the HSV map and the score) with ops/fusion.py:53-81
 // (pack_image_rgb, update_topk) and the label and count updates of the
-// `lax.scan` body at colorize.py:332. The port's plain version is
-// pipeline/colorize.fuse_keyframe_plain.
+// `lax.scan` body at colorize.py:332. The port's plain versions are
+// pipeline/colorize.depth_keys_plain (pass (a)) and fuse_keyframe_plain.
 //
-// On the card, a z-buffer keyframe is one memset and two launches:
-//   memset                    the (gw * gh,) u32 key buffer to all ones
-//   pass (a) colorize_scatter  per point: p_cam = R p + t, rng = |p_cam|,
-//            (u, v) = project(p_cam), the gate and the cell of
-//            zbuffer.cuh, then atomicMin(keys[cell], key(rng)) if gated in
-//   pass (b) colorize_update   per point: the same p_cam, rng, u and v
-//            (recomputed, never written), vis = gated in && rng <=
-//            min(decode(keys[cell]), FLT_MAX) + eps; for a visible point
-//            the score (orientation and distance, with the reference_compat
-//            branch), the replace-first-min update of the (K, N) slot-major
-//            top-K registers, count += 1 and, with a mask image, the
-//            strictly better best score and its label. The nearest pixel
-//            (clamp(to_int32(u), 0, W - 1), the same for v) is read only
-//            where it is kept: its 3 bytes from the (H, W, 3) uint8 image
-//            (no packed image), with the HSV map where a scale is not 1,
-//            where the score replaces a slot; its label where the best
-//            score is beaten.
-// The HPR branch runs H2 on the eager transform and pass (b) alone, with
-// H2's mask in place of the depth test. The mask dumps (keyframe_rgb_mask)
-// run the same passes with the fusion state null and the dump outputs set:
-// camera-frame points, the sampled colour (the highlight label painted red),
-// the label and vis, for every point.
+// On the card, the z-buffer colorize of a fuse is one memset and one launch
+// of pass (a) for all its keyframes, then one launch of pass (b) a keyframe:
+//   memset                    the (views, gw * gh) u32 key buffers to all ones
+//   pass (a) colorize_scatter  per point, read once, for each of the views
+//            (at most kMaxViews, 12 floats each, staged in shared memory):
+//            p_cam = R p + t, (u, v) = project(p_cam), the gate and the
+//            cell of zbuffer.cuh, then atomicMin(keys_j[cell],
+//            key(|p_cam|)) if gated in. It reads nothing of the fusion
+//            state, so one launch stands for all the keyframes.
+//   pass (b) colorize_update   per point, for one keyframe: the same p_cam,
+//            rng, u and v (recomputed, never written), vis = gated in &&
+//            rng <= min(decode(keys[cell]), FLT_MAX) + eps; for a visible
+//            point the score (orientation and distance, with the
+//            reference_compat branch), the replace-first-min update of the
+//            (K, N) slot-major top-K registers, count += 1 and, with a mask
+//            image, the strictly better best score and its label. The
+//            nearest pixel (clamp(to_int32(u), 0, W - 1), the same for v) is
+//            read only where it is kept: its 3 bytes from the (H, W, 3)
+//            uint8 image (no packed image), with the HSV map where a scale
+//            is not 1, where the score replaces a slot; its label where the
+//            best score is beaten.
+// A keyframe alone (fuse_keyframe without keys, and the mask dumps,
+// keyframe_rgb_mask) is a memset and both passes at one view. The HPR branch
+// runs H2 on the eager transform and pass (b) alone, with H2's mask in place
+// of the depth test. The dumps run pass (b) with the fusion state null and
+// the dump outputs set: camera-frame points, the sampled colour (the
+// highlight label painted red), the label and vis, for every point.
 //
-// Exactness. Pass (b) equals the plain version bit for bit. The plain
+// Exactness. Both passes equal the plain versions bit for bit. The plain
 // version rounds every product and sum apart (torch's eager ops), and nvcc
 // would contract a*b + c into an FMA, so every step is written with
 // __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn in torch's
@@ -43,11 +48,22 @@
 // helpers below do. Divisions are IEEE (the plain version divides by 0-dim
 // tensors, which torch on the card divides exactly).
 //
-// What bounds it on the H100: the bytes. Pass (a) reads 13 B a point (xyz,
-// valid) and scatters into the 250 KB key buffer, which lives in L2. Pass (b)
-// reads those 13 B again and the cell's key, and for a visible point the K
-// scores (20 B at K = 5) and the count, and writes the count; for a slot it
-// replaces, the 3-byte sample and 8 B of slot; with masks the best score,
+// What bounds pass (a) on the H100: its f32 operations, ~60 a point and view
+// (the transform, the projection with 4 IEEE divisions, the range's square
+// root), above its bytes (13 B a point, once, and the key buffers, 250 KB a
+// view at 4096x3000 / 14, which stay in L2); in practice the divisions and
+// the L2's rate of random atomics. On the main path's 8 views one launch took
+// 0.063-0.066 ms against 8 x (0.0145 + a 1.1 us memset) one view at a time
+// (PERF.md §6): xyz and valid are read once, not 8 times, 7 launches and
+// memsets go, and a point that is invalid or at z <= 0 in a view skips its
+// divisions. Measured and dropped: a grid over the views (a view a thread,
+// xyz re-read from L2), 0.076 ms. Tried on K5's pass (a), the same gate and
+// atomic (zbuffer.cu), and not again: a read of the key before the atomic,
+// warp combining, private copies of the buffer, 4 points a thread.
+//
+// What bounds pass (b): the bytes. It reads xyz and valid (13 B a point)
+// and the cell's key, and for a visible point the K scores (20 B at K = 5)
+// and the count, and writes the count; for a slot it replaces, the 3-byte sample and 8 B of slot; with masks the best score,
 // and where it is beaten the label, the best score and label. About 69 B a
 // point a keyframe without masks at most: ~21 us for 1M points at the 3.35
 // TB/s of an NVIDIA H100 80GB HBM3 at 700 W (its data sheet). In whole
@@ -80,16 +96,18 @@ struct ColorizeArgs {
   const unsigned char* valid;
   long long sv;
   int n;
-  // The keyframe: T_camera_world as R (3x3 row-major) and t, the camera's
-  // intrinsics (fx, fy, cx, cy) and distortion (k1, k2, p1, p2, k3), and its
-  // position in the world (reference_compat; null: the camera-frame score).
+  // The keyframe: T_camera_world as R (3x3 row-major) and t (pass (a): the
+  // views' (views, 3, 3) and (views, 3)), the camera's intrinsics (fx, fy,
+  // cx, cy) and distortion (k1, k2, p1, p2, k3), and its position in the
+  // world (reference_compat; null: the camera-frame score).
   const float* R;
   const float* t;
   const float* intr;
   const float* dist;
   const float* pos;
   // The cull: the image size and cell, the depth epsilon, and either the
-  // (gw * gh,) key buffer (z-buffer) or a given (n,) bool mask (HPR).
+  // (gw * gh,) key buffer (z-buffer; pass (a): (views, gw * gh)) or a given
+  // (n,) bool mask (HPR).
   int width, height, ds;
   float eps;
   unsigned* keys;
@@ -126,6 +144,7 @@ using namespace zbuf;
 
 constexpr int kThreads = 256;
 constexpr int kView = 24;  // R 9, t 3, fx fy cx cy, k1 k2 p1 p2 k3, camera position 3
+constexpr int kMaxViews = 32;  // keyframes a pass (a) launch takes (pipeline/colorize.SCATTER_VIEWS)
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -160,26 +179,51 @@ struct Projected {
   float u, v;     // pixel (models/camera.project_xyz)
 };
 
-// Point i transformed and projected as the plain version rounds it.
-__device__ __forceinline__ Projected project(const ColorizeArgs& a, const float* s, long long i) {
-  const float* p = a.pts + i * a.sp0;
-  const float px = __ldg(p), py = __ldg(p + a.sp1), pz = __ldg(p + 2 * a.sp1);
-  Projected q;
-  q.x = add(add(add(mul(s[0], px), mul(s[1], py)), mul(s[2], pz)), s[9]);
-  q.y = add(add(add(mul(s[3], px), mul(s[4], py)), mul(s[5], pz)), s[10]);
-  q.z = add(add(add(mul(s[6], px), mul(s[7], py)), mul(s[8], pz)), s[11]);
-  q.rng = __fsqrt_rn(add(add(mul(q.x, q.x), mul(q.y, q.y)), mul(q.z, q.z)));
+// p_cam = R p + t, R row-major at pose[0..8], t at pose[9..11].
+__device__ __forceinline__ void transform(const float* pose, float px, float py, float pz,
+                                          float& x, float& y, float& z) {
+  x = add(add(add(mul(pose[0], px), mul(pose[1], py)), mul(pose[2], pz)), pose[9]);
+  y = add(add(add(mul(pose[3], px), mul(pose[4], py)), mul(pose[5], pz)), pose[10]);
+  z = add(add(add(mul(pose[6], px), mul(pose[7], py)), mul(pose[8], pz)), pose[11]);
+}
+
+__device__ __forceinline__ float range(float x, float y, float z) {
+  return __fsqrt_rn(add(add(mul(x, x), mul(y, y)), mul(z, z)));
+}
+
+// The pixel of a camera-frame point; c = fx, fy, cx, cy, k1, k2, p1, p2, k3.
+__device__ __forceinline__ void pixel(const float* c, float px, float py, float pz, float& u,
+                                      float& v) {
   const float tiny = static_cast<float>(1e-9);
-  const float safe_z = fabsf(q.z) < tiny ? (q.z < 0.0f ? -tiny : tiny) : q.z;
-  const float x = dvd(q.x, safe_z), y = dvd(q.y, safe_z);
+  const float safe_z = fabsf(pz) < tiny ? (pz < 0.0f ? -tiny : tiny) : pz;
+  const float x = dvd(px, safe_z), y = dvd(py, safe_z);
   const float x2 = mul(x, x), y2 = mul(y, y), xy = mul(x, y);
   const float r2 = add(x2, y2), r4 = mul(r2, r2), r6 = mul(r2, r4);
-  const float k1 = s[16], k2 = s[17], p1 = s[18], p2 = s[19], k3 = s[20];
+  const float k1 = c[4], k2 = c[5], p1 = c[6], p2 = c[7], k3 = c[8];
   const float rc = add(add(add(1.0f, mul(k1, r2)), mul(k2, r4)), mul(k3, r6));
   const float xd = add(add(mul(rc, x), mul(p1, mul(2.0f, xy))), mul(p2, add(r2, mul(2.0f, x2))));
   const float yd = add(add(mul(rc, y), mul(p1, add(r2, mul(2.0f, y2)))), mul(p2, mul(2.0f, xy)));
-  q.u = add(mul(s[12], xd), s[14]);
-  q.v = add(mul(s[13], yd), s[15]);
+  u = add(mul(c[0], xd), c[2]);
+  v = add(mul(c[1], yd), c[3]);
+}
+
+__device__ __forceinline__ void load_point(const ColorizeArgs& a, long long i, float& px,
+                                           float& py, float& pz) {
+  const float* p = a.pts + i * a.sp0;
+  px = __ldg(p);
+  py = __ldg(p + a.sp1);
+  pz = __ldg(p + 2 * a.sp1);
+}
+
+// Point i transformed and projected as the plain version rounds it, in the
+// view s (stage_view's layout).
+__device__ __forceinline__ Projected project(const ColorizeArgs& a, const float* s, long long i) {
+  float px, py, pz;
+  load_point(a, i, px, py, pz);
+  Projected q;
+  transform(s, px, py, pz, q.x, q.y, q.z);
+  q.rng = range(q.x, q.y, q.z);
+  pixel(s + 12, q.x, q.y, q.z, q.u, q.v);
   return q;
 }
 
@@ -228,14 +272,35 @@ __device__ __forceinline__ float final_score(const ColorizeArgs& a, const float*
   return mul(0.5f, add(o, d));
 }
 
-__global__ void __launch_bounds__(kThreads) colorize_scatter(ColorizeArgs a, Grid g) {
-  __shared__ float view[kView];
-  stage_view(a, view);
+// Pass (a) for `views` keyframes at once: a point's xyz and valid are read
+// once, then for each view staged in shared memory its transform,
+// projection, gate and cell and, if gated in, an atomicMin of its range key
+// into that view's key buffer (keys + j * gw * gh). An invalid point, or one
+// at z <= 0 (or NaN) in a view, is dropped before the divisions: the gate
+// drops it anyway, so no key changes.
+__global__ void __launch_bounds__(kThreads) colorize_scatter(ColorizeArgs a, Grid g, int views) {
+  __shared__ float cam[9];
+  __shared__ float pose[kMaxViews * 12];
+  for (int i = threadIdx.x; i < views * 12; i += kThreads) {
+    const int j = i / 12, e = i - 12 * j;
+    pose[i] = e < 9 ? a.R[9 * j + e] : a.t[3 * j + e - 9];
+  }
+  if (threadIdx.x < 4) cam[threadIdx.x] = a.intr[threadIdx.x];
+  else if (threadIdx.x < 9) cam[threadIdx.x] = a.dist[threadIdx.x - 4];
+  __syncthreads();
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= a.n) return;
-  const Projected q = project(a, view, i);
-  int cell;
-  if (gate_cell(q.u, q.v, q.z, point_valid(a, i), g, cell)) atomicMin(a.keys + cell, range_key(q.rng));
+  if (i >= a.n || !point_valid(a, i)) return;
+  float px, py, pz;
+  load_point(a, i, px, py, pz);
+  const long long cells = static_cast<long long>(g.gw) * g.gh;
+  for (int j = 0; j < views; ++j) {
+    float x, y, z, u, v;
+    transform(pose + 12 * j, px, py, pz, x, y, z);
+    if (!(z > 0.0f)) continue;
+    pixel(cam, x, y, z, u, v);
+    int cell;
+    if (gate_cell(u, v, z, true, g, cell)) atomicMin(a.keys + j * cells + cell, range_key(range(x, y, z)));
+  }
 }
 
 // Pixel `flat` of the (h, w, 3) uint8 image, packed as (R << 16) | (G << 8) | B.
@@ -316,8 +381,26 @@ inline unsigned blocks(long long threads) { return unsigned((threads + kThreads 
 
 extern "C" {
 
-// C1 for one keyframe: with a key buffer, a memset of it, pass (a) and pass
-// (b); with a given mask (vis_in), pass (b) alone. Nothing for n = 0.
+// C1's pass (a) for `views` keyframes, 1 <= views <= kMaxViews: the (views,
+// gw * gh) u32 key buffer memset to all ones, then one launch of
+// colorize_scatter (none for n = 0); R (views, 3, 3) and t (views, 3) the
+// keyframes' poses. Returns the first CUDA error.
+int colorize_keys(const ColorizeArgs* args, int views, void* stream) {
+  const ColorizeArgs& a = *args;
+  if (a.n < 0 || !a.keys || views < 1 || views > kMaxViews || a.ds < 1)
+    return cudaErrorInvalidValue;
+  const Grid g = make_grid(a.width, a.height, a.ds);
+  if (g.gw < 1 || g.gh < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(a.keys, 0xff, size_t(views) * g.gw * g.gh * sizeof(unsigned), st);
+  if (err != cudaSuccess || a.n == 0) return err;
+  colorize_scatter<<<blocks(a.n), kThreads, 0, st>>>(a, g, views);
+  return cudaGetLastError();
+}
+
+// C1's pass (b) for one keyframe: against its (gw * gh) keys from
+// colorize_keys (z-buffer) or a given mask (vis_in, HPR). Nothing for n = 0.
 // Returns the first CUDA error.
 int colorize(const ColorizeArgs* args, void* stream) {
   const ColorizeArgs& a = *args;
@@ -325,18 +408,11 @@ int colorize(const ColorizeArgs* args, void* stream) {
   const bool fuse_ok = !a.scores || (a.k >= 1 && a.rgb && a.count && (!a.best_s || a.best_l));
   if (a.n < 0 || (!a.keys == !a.vis_in) || !dump_ok || !fuse_ok || a.img_h < 1 || a.img_w < 1)
     return cudaErrorInvalidValue;
-  if (a.n == 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.keys && a.ds < 1) return cudaErrorInvalidValue;
   const Grid g = a.keys ? make_grid(a.width, a.height, a.ds) : Grid{};
-  if (a.keys) {
-    if (a.ds < 1 || g.gw < 1 || g.gh < 1) return cudaErrorInvalidValue;
-    cudaError_t err = cudaMemsetAsync(a.keys, 0xff, size_t(g.gw) * g.gh * sizeof(unsigned), st);
-    if (err != cudaSuccess) return err;
-    colorize_scatter<<<blocks(a.n), kThreads, 0, st>>>(a, g);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  colorize_update<<<blocks(a.n), kThreads, 0, st>>>(a, g);
+  if (a.keys && (g.gw < 1 || g.gh < 1)) return cudaErrorInvalidValue;
+  if (a.n == 0) return cudaSuccess;
+  colorize_update<<<blocks(a.n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, g);
   return cudaGetLastError();
 }
 

@@ -33,10 +33,22 @@
 // point), 16-byte half-tile loads, an L2 prefetch of each keyframe's image
 // and two points a thread.
 //
-// bin_pack: (K, H, W) int32 bins -> (K, TH, TW, 8) int32 tiles, one thread a
-// tile word: 8 bins of one image row, each bin's low 4 bits (consecutive
-// threads on consecutive tiles of a row read overlapping 32-byte runs).
-// Bound: the bytes, 4 B a pixel read and 32 B a tile written.
+// bin_pack (B1) replaces the tap table's stencil that the JAX package leaves
+// to XLA (no Pallas source; opt/nid.py:118-146, _tap_word_planes and
+// build_tap_table) on the direct path: (K, H, W) int32 bins -> (K, TH, TW,
+// 8) int32 tiles, each bin's low 4 bits. Bound: the bytes, 4 B a pixel read
+// and 32 B a tile written (519 MB, 0.155 ms at 8 x 4096x3000). A block owns
+// a band of 8 tile rows by a span of 32 tiles: it stages the band's 43
+// image rows of 163 columns in shared memory at a byte a pixel, read with
+// 16-byte loads where the width is a multiple of 4 pixels and the image
+// 16-byte aligned (a pixel a load otherwise), so each image row is read by
+// one block but for the 3-row seam between bands and the 3 columns between
+// spans; then it builds each word from 8 staged bytes, word r of a tile
+// fastest, so a warp writes 4 whole tiles, 128 contiguous bytes. Measured
+// (PERF.md §6): 0.177 ms against 0.374 for the first design (a thread a
+// word, 8 scalar loads at a 20-byte lane stride, each store instruction 32
+// sectors an eighth written); bands of 2, 4, 8 and 16 tile rows by spans of
+// 16, 32, 64 and 128 tiles tried, 0.177-0.229 ms.
 //
 // Replaces the two Pallas TPU kernels of pointcloudprocessor_tpu/ops/tap_gather.py
 // together with the XLA index arithmetic (the plan) around each of them:
@@ -302,27 +314,71 @@ tap_take_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ kno
   __stcs(out + p, make_int2(static_cast<int>(word[0]), static_cast<int>(word[1])));
 }
 
+// bin_pack's block (sizes chosen on the card, see the header): a band of
+// kBandTiles tile rows by a span of kSpanTiles tiles, whose 5 m + 3 image
+// rows of 5 S + 3 columns it stages in shared memory at a byte a pixel (the
+// bin's low 4 bits). kSpanTiles is a multiple of 4, so a span starts on a
+// 16-byte pixel boundary; kPitch, the bytes a staged row, is 4 words past a
+// multiple of 32 words, so the 8 words of a tile and 4 neighbouring tiles
+// (one warp) read 32 distinct banks.
+constexpr int kBandTiles = 8;
+constexpr int kSpanTiles = 32;
+constexpr int kBandRows = kStride * kBandTiles + 3;
+constexpr int kSpanCols = kStride * kSpanTiles + 4;  // 5 S + 3, rounded up to 4 pixels
+constexpr int kPitch = 4 * ((kSpanCols / 4 + 27) / 32 * 32 + 4);
+static_assert(kSpanTiles % 4 == 0 && kPitch >= kSpanCols + 4 && (kPitch / 4) % 32 == 4, "");
+
 __global__ void __launch_bounds__(kThreads)
 bin_pack_kernel(const int* __restrict__ bins, unsigned* __restrict__ tiles, int height,
-                int width, int th, int tw) {
-  // Thread g of keyframe blockIdx.y: word r of tile (ty, tx), consecutive
-  // threads along tx (overlapping 32-byte runs of one image row).
-  const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long words = static_cast<long long>(th) * tw * 8;
-  if (g >= words) return;
+                int width, int th, int tw, int spans, bool vec) {
+  __shared__ __align__(16) unsigned char band[kBandRows * kPitch];
   const long long kf = blockIdx.y;
-  const int tx = static_cast<int>(g % tw);
-  const long long rest = g / tw;
-  const int r = static_cast<int>(rest & 7), ty = static_cast<int>(rest >> 3);
-  const int y = kStride * ty + r, x0 = kStride * tx;
-  unsigned w = 0;
-  if (y < height) {
-    const int* row = bins + (kf * height + y) * static_cast<long long>(width) + x0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      if (x0 + c < width) w |= (static_cast<unsigned>(__ldg(row + c)) & 0xfu) << (4 * c);
+  const int ty0 = blockIdx.x / spans * kBandTiles, tx0 = blockIdx.x % spans * kSpanTiles;
+  const int y0 = kStride * ty0, x0 = kStride * tx0;
+  const int* __restrict__ img = bins + kf * height * static_cast<long long>(width);
+  // Stage the band: with vec (width a multiple of 4 pixels, the image
+  // 16-byte aligned) 4 pixels a 16-byte load, else a pixel a load; 0 past
+  // the image. Consecutive threads read consecutive pixels of a row.
+  if (vec) {
+    constexpr int kQuads = kSpanCols / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kBandRows * kQuads; i += kThreads) {
+      const int row = i / kQuads, c = 4 * (i - row * kQuads);
+      const int y = y0 + row, x = x0 + c;
+      unsigned b = 0;
+      if (y < height && x < width) {
+        const int4 p = __ldg(reinterpret_cast<const int4*>(img + static_cast<long long>(y) * width + x));
+        b = (p.x & 0xfu) | (p.y & 0xfu) << 8 | (p.z & 0xfu) << 16 | (p.w & 0xfu) << 24;
+      }
+      *reinterpret_cast<unsigned*>(band + row * kPitch + c) = b;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kBandRows * kSpanCols; i += kThreads) {
+      const int row = i / kSpanCols, c = i - row * kSpanCols;
+      const int y = y0 + row, x = x0 + c;
+      band[row * kPitch + c] =
+          y < height && x < width ? __ldg(img + static_cast<long long>(y) * width + x) & 0xf : 0;
+    }
   }
-  tiles[kf * words + ((static_cast<long long>(ty) * tw + tx) << 3) + r] = w;
+  __syncthreads();
+  // Build the words, word r of a tile fastest: a warp writes 4 whole tiles,
+  // 128 contiguous bytes. Word r of tile (ty, tx) is the 8 staged bytes of
+  // row 5 ty + r from column 5 tx, each a nibble.
+  for (int i = threadIdx.x; i < kBandTiles * kSpanTiles * 8; i += kThreads) {
+    const int r = i & 7, dx = (i >> 3) % kSpanTiles, dy = (i >> 3) / kSpanTiles;
+    const int ty = ty0 + dy, tx = tx0 + dx;
+    if (ty >= th || tx >= tw) continue;
+    const int o = (kStride * dy + r) * kPitch + kStride * dx;
+    const unsigned* w = reinterpret_cast<const unsigned*>(band + (o & ~3));
+    const unsigned sh = 8 * (o & 3);
+    unsigned long long b = static_cast<unsigned long long>(__funnelshift_r(w[1], w[2], sh)) << 32 |
+                           __funnelshift_r(w[0], w[1], sh);
+    b = (b | b >> 4) & 0x00ff00ff00ff00ffull;  // bytes 2j, 2j+1 -> one byte
+    b = (b | b >> 8) & 0x0000ffff0000ffffull;
+    b = (b | b >> 16) & 0x00000000ffffffffull;
+    tiles[((kf * th + ty) * tw + tx) * 8 + r] = static_cast<unsigned>(b);
+  }
 }
 
 // Tiles along an image side of `size` pixels (ops/tap_gather.bin_tile_shape).
@@ -399,10 +455,13 @@ int tap_take(const void* tiles, const void* knot, void* taps, int k, int n, int 
 int bin_pack(const void* bins, void* tiles, int k, int height, int width, void* stream) {
   if (k < 1 || k > 65535 || height < 1 || width < 1) return cudaErrorInvalidValue;
   const int th = tiles_along(height), tw = tiles_along(width);
-  const long long words = static_cast<long long>(th) * tw * 8;
-  const dim3 grid(static_cast<unsigned>((words + kThreads - 1) / kThreads), k);
-  bin_pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(bins), static_cast<unsigned*>(tiles), height, width, th, tw);
+  const int spans = (tw + kSpanTiles - 1) / kSpanTiles;
+  const long long blocks = static_cast<long long>((th + kBandTiles - 1) / kBandTiles) * spans;
+  const bool vec = width % 4 == 0 && reinterpret_cast<uintptr_t>(bins) % 16 == 0;
+  bin_pack_kernel<<<dim3(static_cast<unsigned>(blocks), k), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(bins), static_cast<unsigned*>(tiles), height, width, th, tw, spans,
+      vec);
   return cudaGetLastError();
 }
 

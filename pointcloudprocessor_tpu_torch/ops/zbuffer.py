@@ -184,6 +184,16 @@ def cells(camera, u, v, z, valid, ds: int):
     return ok, torch.where(ok, vi * grid_w + ui, grid_w * grid_h), grid_w * grid_h
 
 
+def depth_buffer_plain(camera, u, v, z, rng, valid, ds: int):
+    """(ok, cell, buf): each point's gate and cell (:func:`cells`) and the
+    (n_cells + 1,) buffer of each cell's minimum range over the points it
+    gates in (f32 max where none; the sink cell last), by
+    :func:`zmin_plain` (``scatter_reduce_(..., "amin")``)."""
+    ok, cell, n_cells = cells(camera, u, v, z, valid, ds)
+    big = torch.finfo(rng.dtype).max
+    return ok, cell, zmin_plain(cell, torch.where(ok, rng, big), big, n_cells + 1)
+
+
 def cull_mask_uv_plain(
     camera: cam.PinholeCamera,
     u: torch.Tensor,
@@ -194,12 +204,9 @@ def cull_mask_uv_plain(
     downsample_factor: int = 14,
     depth_epsilon: float = 0.05,
 ) -> torch.Tensor:
-    """The twin of :func:`cull_mask_uv` on any device: :func:`zmin_plain`
-    (``scatter_reduce_(..., "amin")``) and :func:`visible_plain` (a gather
-    and the depth test)."""
-    ok, cell, n_cells = cells(camera, u, v, z, valid, int(downsample_factor))
-    big = torch.finfo(rng.dtype).max
-    buf = zmin_plain(cell, torch.where(ok, rng, big), big, n_cells + 1)
+    """The twin of :func:`cull_mask_uv` on any device: :func:`depth_buffer_plain`
+    and :func:`visible_plain` (a gather and the depth test)."""
+    ok, cell, buf = depth_buffer_plain(camera, u, v, z, rng, valid, int(downsample_factor))
     return visible_plain(ok, rng, buf, cell, depth_epsilon)
 
 

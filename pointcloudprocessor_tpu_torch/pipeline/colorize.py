@@ -17,14 +17,20 @@ path, so with "hpr" each keyframe's mask is the HPR mask (`ops/hpr.py`).
 Dispatch goes by the map's device. CPU tensors take the plain twins
 (:func:`fuse_keyframe_plain`, :func:`keyframe_rgb_mask_plain`: eager torch,
 :func:`observe_keyframe` and ``fusion.update_topk``). CUDA tensors take C1,
-the two kernels of `csrc/colorize.cu`: a z-buffer keyframe is a memset and
-two launches (``colorize_scatter``: transform, projection, gate, cell and
-scatter-min; ``colorize_update``: the same again, the depth test, the
-sample, the HSV map, the score and the register, count and label updates),
-an HPR keyframe H2 on the eager transform and one ``colorize_update``; a
-build or launch failure raises. Any other device raises. Both paths update
-the state in place and agree bit for bit. ``launch_counts`` counts each
-kernel's launches.
+the two kernels of `csrc/colorize.cu`. Pass (a), ``colorize_scatter``
+(:func:`depth_keys`: transform, projection, gate, cell and scatter-min),
+reads nothing of the fusion state, so :func:`fuse` runs it once for all its
+keyframes (up to ``SCATTER_VIEWS`` a launch) after one memset of their key
+buffers; then pass (b), ``colorize_update`` (the same transform and
+projection again, the depth test against the keyframe's keys, the sample,
+the HSV map, the score and the register, count and label updates), once a
+keyframe. A single keyframe (:func:`fuse_keyframe` without keys,
+:func:`keyframe_rgb_mask`) is a memset and both launches; an HPR keyframe H2
+on the eager transform and one ``colorize_update``; a build or launch
+failure raises. The CPU takes the same two steps through the twins
+(:func:`depth_keys_plain`, then the twin step against those cell minima).
+Any other device raises. Both paths update the state in place and agree bit
+for bit. ``launch_counts`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -71,7 +77,12 @@ class _ColorizeArgs(ctypes.Structure):
     ]
 
 
-_SIGNATURES = {"colorize": ([ctypes.POINTER(_ColorizeArgs), _PTR], _I32)}
+_SIGNATURES = {"colorize_keys": ([ctypes.POINTER(_ColorizeArgs), _I32, _PTR], _I32),
+               "colorize": ([ctypes.POINTER(_ColorizeArgs), _PTR], _I32)}
+
+# Keyframes one colorize_scatter launch takes at most (csrc/colorize.cu
+# kMaxViews); fuse launches once for each run of this many.
+SCATTER_VIEWS = 32
 
 
 def _lib() -> ctypes.CDLL:
@@ -91,9 +102,15 @@ class KeyframePose(NamedTuple):
     def to(self, device) -> "KeyframePose":
         return KeyframePose(self.T.to(device), self.R.to(device), self.position.to(device))
 
-    def at(self, j: int) -> "KeyframePose":
-        """Keyframe ``j`` of a batch (views, no copy)."""
+    def at(self, j) -> "KeyframePose":
+        """Keyframe ``j`` of a batch, or the batch of keyframes ``j`` for a
+        slice (views, no copy)."""
         return KeyframePose(se3.SE3(self.T.q[j], self.T.t[j]), self.R[j], self.position[j])
+
+    def batch(self) -> "KeyframePose":
+        """One keyframe's view as a batch of one (views, no copy)."""
+        return KeyframePose(se3.SE3(self.T.q[None], self.T.t[None]), self.R[None],
+                            self.position[None])
 
 
 def keyframe_pose(kf_pose: se3.SE3, T_correction: se3.SE3) -> KeyframePose:
@@ -146,12 +163,15 @@ def observe_keyframe(
     hpr_tolerance: float = 0.05,
     hpr_impl: str = "auto",
     hpr_dense_cutoff: int = 100_000,
+    cell_min: Optional[torch.Tensor] = None,
 ) -> KeyframeObservation:
     """Project the map into one keyframe: cull (the z-buffer, or HPR with
     ``culling_method="hpr"``), sample colors (and the mask label), score
     (`PointCloudProcessor.cpp:495-591`). The HPR branch gates on the
     unfloored pixel coordinates, as the JAX package's does
-    (colorize.py:95-109)."""
+    (colorize.py:95-109). With ``cell_min`` (this keyframe's row of
+    :func:`depth_keys_plain`) the z-buffer's depth test reads those cell
+    minima instead of scattering its own."""
     x, y, z = se3.transform_xyz(
         T_camera_world, points_world[:, 0], points_world[:, 1], points_world[:, 2]
     )
@@ -160,11 +180,16 @@ def observe_keyframe(
     if culling_method == "hpr":
         vis = _hpr_visible(camera, x, y, z, u, v, valid, hpr_radius, hpr_tolerance, hpr_impl,
                            hpr_dense_cutoff)
-    elif culling_method == "zbuffer":
+    elif culling_method == "zbuffer" and cell_min is None:
         vis = zbuffer.cull_mask_uv(
             camera, u, v, z, rng, valid,
             downsample_factor=downsample_factor, depth_epsilon=depth_epsilon,
         )
+    elif culling_method == "zbuffer":
+        # A gated-out point's cell is the sink, one past the buffer.
+        ok, cell, _ = zbuffer.cells(camera, u, v, z, valid, downsample_factor)
+        buf = torch.cat([cell_min, cell_min.new_full((1,), torch.finfo(torch.float32).max)])
+        vis = zbuffer.visible_plain(ok, rng, buf, cell, depth_epsilon)
     else:
         raise ValueError(f"culling.method must be 'zbuffer' or 'hpr', got {culling_method!r}")
 
@@ -213,14 +238,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, mask_image,
-                   culling: dict, *, state: Optional["FuseState"] = None, dumps=None,
-                   optimal_distance: float = 2.0, score_floor: float = 0.2,
-                   saturation_scale: float = 1.0, brightness_scale: float = 1.0,
-                   reference_compat: bool = False, highlight: int = 255) -> None:
-    """One launch of C1 (with a z-buffer cull, a memset and two): the
-    fusion ``state`` updated in place, or the ``dumps`` (points_camera,
-    rgb, label, visible) written."""
+def _map_args(camera, points_world, valid) -> tuple[_ColorizeArgs, int]:
+    """The kernel arguments of the map and the camera, checked: (args, n)."""
     dev = points_world.device
     n = points_world.shape[0] if points_world.dim() == 2 else -1
     if dev.type != "cuda" or tuple(points_world.shape) != (n, 3) or n >= 2**31:
@@ -229,34 +248,124 @@ def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, m
     if points_world.dtype != torch.float32 or valid.dtype != torch.bool or valid.device != dev \
             or tuple(valid.shape) != (n,):
         raise ValueError(f"C1: points must be f32 and valid ({n},) bool on {dev}")
+    _check_cuda("intrinsic", camera.intrinsic, dev, torch.float32, (4,))
+    _check_cuda("distortion", camera.distortion, dev, torch.float32, (5,))
+    return _ColorizeArgs(
+        pts=points_world.data_ptr(), sp0=points_world.stride(0), sp1=points_world.stride(1),
+        valid=valid.data_ptr(), sv=valid.stride(0), n=n, intr=camera.intrinsic.data_ptr(),
+        dist=camera.distortion.data_ptr(), width=camera.width, height=camera.height), n
+
+
+def _launch(name: str, a: _ColorizeArgs, dev, *extra) -> None:
+    err = getattr(_lib(), name)(ctypes.byref(a), *extra, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def depth_keys_cuda(camera, views: KeyframePose, points_world, valid,
+                    downsample_factor: int = 14) -> torch.Tensor:
+    """C1's pass (a) on the card for a batch of V keyframes (1 <= V <=
+    ``SCATTER_VIEWS``): one memset of a (V, gw * gh) int32 key buffer and
+    one ``colorize_scatter`` launch (none for an empty map). Row j holds
+    keyframe j's z-buffer as `csrc/zbuffer.cuh`'s order keys of the
+    minimum range a cell (all ones where no point gates in);
+    :func:`cell_minima` reads them as :func:`depth_keys_plain` gives them."""
+    a, n = _map_args(camera, points_world, valid)
+    dev = points_world.device
+    v = views.R.shape[0] if views.R.dim() == 3 else -1
+    if not 1 <= v <= SCATTER_VIEWS:
+        raise ValueError(f"C1: pass (a) takes 1 to {SCATTER_VIEWS} keyframes a launch, got "
+                         f"views of shape {tuple(views.R.shape)}")
+    _check_cuda("R", views.R, dev, torch.float32, (v, 3, 3))
+    _check_cuda("t", views.T.t, dev, torch.float32, (v, 3))
+    gw, gh = zbuffer.grid(camera, downsample_factor)
+    keys = torch.empty((v, gw * gh), dtype=torch.int32, device=dev)
+    a.R, a.t, a.ds, a.keys = (views.R.data_ptr(), views.T.t.data_ptr(), int(downsample_factor),
+                              keys.data_ptr())
+    _launch("colorize_keys", a, dev, v)
+    if n:
+        launch_counts["colorize_scatter"] += 1
+    return keys
+
+
+def depth_keys_plain(camera, views: KeyframePose, points_world, valid,
+                     downsample_factor: int = 14) -> torch.Tensor:
+    """The twin of :func:`depth_keys_cuda` on any device, for any number of
+    keyframes (at least one): (V, gw * gh) f32, row j each cell's minimum
+    range over the points keyframe j gates in (f32 max where none), from
+    the eager transform and projection of :func:`observe_keyframe` and
+    ``zbuffer.depth_buffer_plain``, the buffer of the cull's twin."""
+    p = points_world
+    rows = []
+    for j in range(views.R.shape[0]):
+        x, y, z = se3.transform_xyz(views.at(j).T, p[:, 0], p[:, 1], p[:, 2])
+        rng = torch.sqrt(x * x + y * y + z * z)
+        u, v = cam.project_xyz(camera, x, y, z)
+        buf = zbuffer.depth_buffer_plain(camera, u, v, z, rng, valid, downsample_factor)[2]
+        rows.append(buf[:-1])
+    return torch.stack(rows)
+
+
+def depth_keys(camera, views: KeyframePose, points_world, valid,
+               downsample_factor: int = 14) -> torch.Tensor:
+    """Pass (a) of C1 for a batch of keyframes: the twin on CPU tensors
+    (f32 cell minima), the kernel on CUDA ones (order keys); pass (b)
+    (:func:`fuse_keyframe`'s ``keys``) reads either on its device."""
+    dev = points_world.device.type
+    if dev == "cpu":
+        return depth_keys_plain(camera, views, points_world, valid, downsample_factor)
+    if dev == "cuda":
+        return depth_keys_cuda(camera, views, points_world, valid, downsample_factor)
+    raise NotImplementedError(f"depth_keys: no kernel for device {points_world.device}")
+
+
+def cell_minima(keys: torch.Tensor) -> torch.Tensor:
+    """The f32 cell minima that pass (b) reads from pass (a)'s order keys
+    (`csrc/zbuffer.cuh`: decode, then fmin with f32 max, which takes the
+    all-ones key of an empty cell to f32 max): the contract of
+    :func:`depth_keys_plain`."""
+    b = keys ^ torch.iinfo(torch.int32).min
+    f = (b ^ ((b >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    return torch.fmin(f, torch.tensor(torch.finfo(torch.float32).max, device=keys.device))
+
+
+def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, mask_image,
+                   culling: dict, keys: Optional[torch.Tensor] = None, *,
+                   state: Optional["FuseState"] = None, dumps=None,
+                   optimal_distance: float = 2.0, score_floor: float = 0.2,
+                   saturation_scale: float = 1.0, brightness_scale: float = 1.0,
+                   reference_compat: bool = False, highlight: int = 255) -> None:
+    """C1's pass (b) for one keyframe, one ``colorize_update`` launch: the
+    fusion ``state`` updated in place, or the ``dumps`` (points_camera,
+    rgb, label, visible) written. Under the z-buffer it reads ``keys``, the
+    keyframe's row of :func:`depth_keys_cuda`, and without them runs pass
+    (a) for this keyframe first (a memset and a launch); under HPR, H2 on
+    the eager transform first."""
+    a, n = _map_args(camera, points_world, valid)
+    dev = points_world.device
     h, w = image_rgb.shape[0], image_rgb.shape[1]
     _check_cuda("image", image_rgb, dev, torch.uint8, (h, w, 3))
     if mask_image is not None:
         _check_cuda("mask image", mask_image, dev, torch.int32, (h, w))
     _check_cuda("R", pose.R, dev, torch.float32, (3, 3))
     _check_cuda("t", pose.T.t, dev, torch.float32, (3,))
-    _check_cuda("intrinsic", camera.intrinsic, dev, torch.float32, (4,))
-    _check_cuda("distortion", camera.distortion, dev, torch.float32, (5,))
     compat = reference_compat and state is not None
     if compat:
         _check_cuda("camera position", pose.position, dev, torch.float32, (3,))
-    a = _ColorizeArgs(
-        pts=points_world.data_ptr(), sp0=points_world.stride(0), sp1=points_world.stride(1),
-        valid=valid.data_ptr(), sv=valid.stride(0), n=n,
-        R=pose.R.data_ptr(), t=pose.T.t.data_ptr(), intr=camera.intrinsic.data_ptr(),
-        dist=camera.distortion.data_ptr(), pos=pose.position.data_ptr() if compat else None,
-        width=camera.width, height=camera.height,
-        image=image_rgb.data_ptr(), img_h=h, img_w=w, mask=_ptr(mask_image),
-        hsv=int(saturation_scale != 1.0 or brightness_scale != 1.0),
-        sat=saturation_scale, bri=brightness_scale, opt_dist=optimal_distance,
-        floor_=score_floor, one_minus_floor=1.0 - score_floor, highlight=highlight,
-    )
+    a.R, a.t, a.pos = pose.R.data_ptr(), pose.T.t.data_ptr(), _ptr(pose.position if compat
+                                                                   else None)
+    a.image, a.img_h, a.img_w, a.mask = image_rgb.data_ptr(), h, w, _ptr(mask_image)
+    a.hsv = int(saturation_scale != 1.0 or brightness_scale != 1.0)
+    a.sat, a.bri, a.opt_dist = saturation_scale, brightness_scale, optimal_distance
+    a.floor_, a.one_minus_floor, a.highlight = score_floor, 1.0 - score_floor, highlight
     method = culling["culling_method"]
     if method == "zbuffer":
-        gw, gh = zbuffer.grid(camera, culling["downsample_factor"])
-        keys = torch.empty((gw * gh,), dtype=torch.int32, device=dev)
-        a.keys, a.ds, a.eps = keys.data_ptr(), int(culling["downsample_factor"]), \
-            culling["depth_epsilon"]
+        ds = int(culling["downsample_factor"])
+        if keys is None:
+            keys = depth_keys_cuda(camera, pose.batch(), points_world, valid, ds)[0]
+        gw, gh = zbuffer.grid(camera, ds)
+        _check_cuda("keys", keys, dev, torch.int32, (gw * gh,))
+        a.keys, a.ds, a.eps = keys.data_ptr(), ds, culling["depth_epsilon"]
     elif method == "hpr":
         # H2 (or H1) on the eager transform, then pass (b) with its mask.
         x, y, z = se3.transform_xyz(pose.T, points_world[:, 0], points_world[:, 1],
@@ -287,11 +396,7 @@ def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, m
             pts_cam.data_ptr(), rgb.data_ptr(), label.data_ptr(), vis_out.data_ptr())
     if n == 0:
         return
-    err = _lib().colorize(ctypes.byref(a), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"colorize launch failed: CUDA error {err}")
-    if method == "zbuffer":
-        launch_counts["colorize_scatter"] += 1
+    _launch("colorize", a, dev)
     launch_counts["colorize_update"] += 1
 
 
@@ -341,17 +446,21 @@ def fuse_keyframe_plain(
     saturation_scale: float = 1.0,
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
+    keys: Optional[torch.Tensor] = None,
     **culling,
 ) -> FuseState:
     """The twin of C1 on any device: :func:`observe_keyframe`, then
     ``fusion.update_topk``, the count and, with masks, the label of the
-    strictly better visible score, written into ``state``."""
+    strictly better visible score, written into ``state``. Under the
+    z-buffer, ``keys`` (the keyframe's row of :func:`depth_keys_plain`)
+    stands in for its own scatter-min: the twin of pass (b) alone."""
     obs = observe_keyframe(
         camera, image_rgb, pose.T, points_world, valid, mask_image=mask_image,
         camera_position_world=pose.position, optimal_distance=optimal_distance,
         score_floor=score_floor, saturation_scale=saturation_scale,
         brightness_scale=brightness_scale,
-        reference_compat_orientation=reference_compat_orientation, **_culling(**culling),
+        reference_compat_orientation=reference_compat_orientation, cell_min=keys,
+        **_culling(**culling),
     )
     topk = fusion.update_topk(state.topk, obs.score, obs.rgb_packed, obs.visible)
     state.topk.scores.copy_(topk.scores)
@@ -379,25 +488,29 @@ def fuse_keyframe(
     saturation_scale: float = 1.0,
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
+    keys: Optional[torch.Tensor] = None,
     **culling,
 ) -> FuseState:
     """Fuse one keyframe into ``state`` in place and return it
     (`PointCloudProcessor.cpp:495-591`): cull, sample, score, keep the top
     K. ``culling`` holds ``culling_method``, ``downsample_factor``,
     ``depth_epsilon`` and the ``hpr_*`` options of :func:`observe_keyframe`.
-    CPU tensors take :func:`fuse_keyframe_plain`, CUDA tensors C1 (a memset
-    and two launches, or H2 and one launch under HPR); any other device
-    raises."""
+    Under the z-buffer, ``keys`` is this keyframe's row of
+    :func:`depth_keys` (as :func:`fuse` makes them for all its keyframes);
+    without it the keyframe makes its own. CPU tensors take
+    :func:`fuse_keyframe_plain`, CUDA tensors C1 (with keys one launch of
+    pass (b); without, a memset and both passes; under HPR H2 and pass
+    (b)); any other device raises."""
     dev = points_world.device.type
     scoring = dict(optimal_distance=optimal_distance, score_floor=score_floor,
                    saturation_scale=saturation_scale, brightness_scale=brightness_scale)
     if dev == "cpu":
         return fuse_keyframe_plain(state, camera, image_rgb, pose, points_world, valid, mask_image,
                                    reference_compat_orientation=reference_compat_orientation,
-                                   **scoring, **culling)
+                                   keys=keys, **scoring, **culling)
     if dev == "cuda":
         _colorize_cuda(camera, pose, points_world, valid, image_rgb, mask_image,
-                       _culling(**culling), state=state,
+                       _culling(**culling), keys, state=state,
                        reference_compat=reference_compat_orientation, **scoring)
         return state
     raise NotImplementedError(f"fuse_keyframe: no kernel for device {points_world.device}")
@@ -457,7 +570,7 @@ def keyframe_rgb_mask(
     visible (N,))`` at full map capacity; the caller compacts with
     ``visible``. ``culling`` as for :func:`fuse_keyframe`. CPU tensors take
     :func:`keyframe_rgb_mask_plain`, CUDA tensors C1 with its dump outputs
-    (a memset and two launches, or H2 and one launch under HPR)."""
+    (a memset and both passes, or H2 and pass (b) under HPR)."""
     pose = keyframe_pose(kf_pose, T_correction)
     colors = dict(saturation_scale=saturation_scale, brightness_scale=brightness_scale)
     dev = points_world.device
@@ -509,21 +622,33 @@ def fuse(
     (`PointCloudProcessor.cpp:507,516`). ``images`` (and ``mask_images``)
     may live on the host: each keyframe's image is moved to the map's device
     as it is used. With masks, each point keeps the label of its visible
-    observation of strictly highest score (`best_label`). Each keyframe is
-    one :func:`fuse_keyframe`, or with ``plain`` its twin
-    :func:`fuse_keyframe_plain` on any device (the eager path C1 replaces);
-    ``culling`` as for :func:`fuse_keyframe`."""
+    observation of strictly highest score (`best_label`). Under the z-buffer
+    the keyframes' depth keys come first, for up to ``SCATTER_VIEWS`` of
+    them at once (:func:`depth_keys`: on the card one memset and one
+    ``colorize_scatter`` launch), then each keyframe is one
+    :func:`fuse_keyframe` against its row. With ``plain`` each keyframe is
+    its twin :func:`fuse_keyframe_plain` with its own cull, on any device
+    (the eager path C1 replaces); ``culling`` as for
+    :func:`fuse_keyframe`."""
     device = points_world.device
     labelled = mask_images is not None
     state = init_fuse_state(points_world.shape[0], device, top_k, labelled)
     views = keyframe_pose(kf_poses, T_correction)
     step = fuse_keyframe_plain if plain else fuse_keyframe
-    for j in range(images.shape[0]):
-        step(state, camera, images[j].to(device), views.at(j), points_world, valid,
-             mask_images[j].to(device) if labelled else None,
-             optimal_distance=optimal_distance, score_floor=score_floor,
-             saturation_scale=saturation_scale, brightness_scale=brightness_scale,
-             reference_compat_orientation=reference_compat_orientation, **culling)
+    cull = _culling(**culling)
+    scatter = not plain and cull["culling_method"] == "zbuffer"
+    k = images.shape[0]
+    for start in range(0, k, SCATTER_VIEWS):
+        stop = min(start + SCATTER_VIEWS, k)
+        keys = (depth_keys(camera, views.at(slice(start, stop)), points_world, valid,
+                           cull["downsample_factor"]) if scatter else None)
+        for j in range(start, stop):
+            step(state, camera, images[j].to(device), views.at(j), points_world, valid,
+                 mask_images[j].to(device) if labelled else None,
+                 optimal_distance=optimal_distance, score_floor=score_floor,
+                 saturation_scale=saturation_scale, brightness_scale=brightness_scale,
+                 reference_compat_orientation=reference_compat_orientation,
+                 keys=None if keys is None else keys[j - start], **culling)
     rgb, colored = fusion.blend_topk(state.topk)
     return FusionResult(
         rgb=rgb,

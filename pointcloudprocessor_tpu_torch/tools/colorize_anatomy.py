@@ -18,7 +18,8 @@ that time every stage in turn:
   fuse_plain : ``colorize.fuse(plain=True)``, every keyframe through the
                twin (+ top-K update + blend): the eager path C1 replaced
   fuse       : the pipeline's whole ``colorize.fuse``, production (on the
-               card C1, a memset and two launches a keyframe, + the blend)
+               card C1: a memset and one pass (a) launch for all the
+               keyframes, one pass (b) launch a keyframe, + the blend)
 
 Successive differences attribute the cost, in ms per frame; ``full`` is
 the production fuse a frame, ``full_plain`` the eager one. A stage time
