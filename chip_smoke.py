@@ -126,9 +126,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. The HPR + smoothing path: ``runner.process`` under the headline
    schedule with ``culling.method="hpr"`` (``hpr_impl`` "auto": the grid at
    1M points) and ``fusion.local_smoothing_radius`` = ``SMOOTH_RADIUS``.
-   Asserts as phase 4, with 16 launches of H2 (8 NID culls + 8 colorize
-   observations), 8 of C1's pass (b) and none of its pass (a), one of N1 and
-   none of the z-buffer kernels or H1.
+   Asserts as phase 4, with 2 calls of H2 (one for the 8 NID culls, one
+   for the 8 colorize keyframes, each a memset and four launches), 8 of
+   C1's pass (b) and none of its pass (a), one of N1 and none of the
+   z-buffer kernels or H1. Then the same run through the twins of H2, N1,
+   C1, G1 and the packer (no kernel of the path launched): the same pose,
+   NID, evaluations, gathers and colored points at the same positions, the
+   colors within 1 of 255 as written (``compare_smoothed``).
 9. H1 (``phase_hpr_dense``): the dense cull on the two-wall scene at
    100,000 and 262,144 points bit-equal to its twin run on the CPU on the
    same inputs (all directions, then every 16th); against the twin run on
@@ -136,14 +140,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    call times beside the N^2 x 3 FMA bound, the card twin and the chunked
    product; one 1M-point keyframe cull of the scene with ``impl="dense"``.
 10. H2 (``phase_hpr_grid``): the grid cull bit-equal to its twin on the
-   two-wall scene at 262,144 points, on ``bench_scene.hpr_edge_sets``
-   (also strided and unaligned, and one point) and on the 8 colorize culls
-   of the scene; device and call times at keyframe 0 beside the bound and
-   the twin; ``torch.profiler`` asserts four launches and one memset a cull.
+   two-wall scene at 262,144 points and on ``bench_scene.hpr_edge_sets``
+   (also strided and unaligned, and one point); then in batches, every
+   mask against the twin and against a one-keyframe launch: the scene's 8
+   colorize culls in the views form ``fuse`` takes (the world points
+   transformed, projected and gated in the passes) and in the camera form,
+   the 8 NID culls (``cull_world_points_batch``), a batch of one, and a
+   batch of padded rows with an empty gate; ``torch.profiler`` asserts one
+   memset and four launches a batch; device and call times of each batch
+   beside the 8 culls one keyframe at a time and the eager transform the
+   views form does without, each pass's device us and the bounds.
 11. N1 (``phase_smooth``): the smoothing kernel on the scene's fused colors
-   (HPR culling) within 1e-3 of its twin; in-radius neighbors a point
-   (median 8-24 on the wall asserted) and bucket overflow; device and call
-   times of ``knn.build``, the kernel and the twin beside two bounds.
+   (HPR culling) under the path's schedule (the colored points first, a
+   ``valid_first`` grid's order) and the identity, within 1e-3 of its twin
+   and equal to each other, and on ``bench_scene.smooth_edge_clouds``
+   (ties at the 32nd neighbor, shared buckets, buckets over capacity, cell
+   faces, all or no point colored, a ragged n) within 1e-3; the windows
+   the checked launch stages and their queries (counted by the kernel);
+   in-radius neighbors a point (median 8-24 on the wall asserted), the
+   share over 32 and bucket overflow; device and call times of
+   ``knn.build``, the kernel and the twin beside the bounds (unique bytes;
+   bytes of the windows staged); one launch a ``smooth_colors_local`` call
+   (``torch.profiler``).
 12. The mask path: ``runner.process`` under the headline schedule with the
    mask folder set. Asserts what tests/test_pipeline_e2e.py's
    test_e2e_with_masks asserts (labels follow the mask, highlighted points
@@ -201,7 +219,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The launch counts are set to 0 just before each path and read just after;
 a kernel's ``launches`` are those of the headline run, H1/H2/N1's those of
-the HPR + smoothing run, M1/S1's those of the MLS run (each also carries
+the HPR + smoothing run (H2's a call of a memset and four launches), M1/S1's those of the MLS run (each also carries
 the other paths' counts as ``launches_<path>``).
 The line before the last is a JSON object describing each kernel: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (a sleep kernel queued
@@ -247,6 +265,11 @@ error and mismatches over every cull checked, the probe's (``probe_*``),
 the twins with cells given (``cells_given_plain_ms``), step 0's
 (``step0_*``) and the whole cull's (``whole_cull_*``, with its launches
 and bound; ``plain_whole_cull_*`` for the twin).
+H2 carries the 8 colorize culls' device time in the views form as ``ms``
+(``camera_form_ms``, ``nid_batch_ms``, ``one_at_a_time_ms`` and
+``eager_camera_form_ms`` beside it), each form's bound and ``passes_us``;
+N1 ``windows`` and ``queries_per_window`` (p50) from the kernel's count,
+``window_bound_ms`` and its errors on the edge clouds.
 The last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of jax
 or of the JAX package.
@@ -793,9 +816,9 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     zbuffer_visible) a NID keyframe; one launch of C1's pass (a)
     (colorize_scatter) for all the colorize keyframes and one more a mask
     dump, one of its pass (b) (colorize_update) a colorize keyframe and a
-    dump; with ``hpr`` H2 hpr_grid for all of those culls and C1's pass (b)
-    alone, and
-    one N1 smooth_local launch; one G1 tap_take a direct take (by points a
+    dump; with ``hpr`` one H2 hpr_grid call for the NID culls and one for
+    the colorize keyframes (each mask dump one more), C1's pass (b) alone,
+    and one N1 smooth_local launch; one G1 tap_take a direct take (by points a
     keyframe: each coarse evaluation at the coarse shape, each frozen
     gather and the final evaluation at the fine one) and one bin_pack a
     solve, whose keyframes carry no tap table; with ``mls``
@@ -803,19 +826,23 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     and the MLS stage's split. With ``eager`` (no masks) C1, G1 and the
     packer give way to their twins (``fuse(plain=True)``: each keyframe
     through ``fuse_keyframe_plain`` with its own cull; ``direct_take_plain``,
-    ``pack_bins_plain``): the eager path they
-    replaced, whose colorize culls take the z-buffer kernels. Prints the
+    ``pack_bins_plain``; with ``hpr`` also H2's and N1's,
+    ``hpr_mask_grid_plain``, ``hpr_mask_grid_batch_plain`` and
+    ``smooth_colors_local_plain``): the eager path they replaced, whose
+    z-buffer culls take the z-buffer kernels. Prints the
     solve's peak device memory above what was held at its entry. Returns
     (launches, summary): the pose, NID, evaluations, gathers, colored
-    points, the colored cloud's SHA-256, the ``colorize_fuse`` stage's
-    seconds and the solve's peak memory (MiB; None off the card)."""
+    points, the colored cloud's SHA-256 and its (points, rgb), the
+    ``colorize_fuse`` stage's seconds and the solve's peak memory (MiB; None
+    off the card)."""
     import functools
     import hashlib
 
     import torch
 
     from pointcloudprocessor_tpu_torch.io import pcd
-    from pointcloudprocessor_tpu_torch.ops import tap_gather
+    from pointcloudprocessor_tpu_torch.ops import fusion, tap_gather
+    from pointcloudprocessor_tpu_torch.ops import hpr as hpr_ops
     from pointcloudprocessor_tpu_torch.opt import nid as nid_mod
     from pointcloudprocessor_tpu_torch.opt import refine
     from pointcloudprocessor_tpu_torch.pipeline import colorize, runner
@@ -823,13 +850,17 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
 
     cfg = _config(root, nid, masks, hpr, mls)
     shutil.rmtree(cfg.output_path, ignore_errors=True)
-    kernels = (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins)
+    kernels = (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins,
+               hpr_ops.hpr_mask_grid, hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local)
     wrapped = (nid_mod.prepare_keyframes, refine.refine_pose)
     if eager:
         assert not masks
         colorize.fuse = functools.partial(colorize.fuse, plain=True)
         tap_gather.direct_take = tap_gather.direct_take_plain
         tap_gather.pack_bins = tap_gather.pack_bins_plain
+        hpr_ops.hpr_mask_grid = hpr_ops.hpr_mask_grid_plain
+        hpr_ops.hpr_mask_grid_batch = hpr_ops.hpr_mask_grid_batch_plain
+        fusion.smooth_colors_local = fusion.smooth_colors_local_plain
     tables, peaks = [], []
 
     def prepare(*args, **kw):  # what the solve's keyframes carry
@@ -854,7 +885,8 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     try:
         res = runner.process(cfg, device)
     finally:
-        colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins = kernels
+        (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins, hpr_ops.hpr_mask_grid,
+         hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local) = kernels
         nid_mod.prepare_keyframes, refine.refine_pose = wrapped
     wall = time.perf_counter() - t0
     assert tables and not any(tables), f"the solve's keyframes carried a tap table: {tables}"
@@ -888,19 +920,24 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
             assert sum(by_n.values()) == launches[name], launches
         if nid.coarse_outer_iterations:  # both shapes of the coarse-to-fine solve
             assert len(launches["launches_by_n"]["nid_hist_fwd"]) == 2, launches
-    if device == "cuda" and eager:  # the NID and colorize culls on the z-buffer kernels
+    if device == "cuda" and eager:
         assert launches["tap_take"] == launches["colorize_scatter"] == 0, launches
         assert launches["bin_pack"] == 0, launches
         assert launches["colorize_update"] == 0, launches
-        assert launches["zmin"] == launches["zbuffer_visible"] == 2 * K, launches
+        if hpr:  # every cull and the smoothing through the twins
+            assert launches["hpr_grid"] == launches["smooth_local"] == 0, launches
+            assert launches["zmin"] == launches["zbuffer_visible"] == 0, launches
+        else:  # the NID and colorize culls on the z-buffer kernels
+            assert launches["zmin"] == launches["zbuffer_visible"] == 2 * K, launches
     elif device == "cuda":
-        # The NID culls take the z-buffer kernels (or H2) once a keyframe;
-        # colorize takes C1's pass (a) once for all its keyframes and pass
-        # (b) once a keyframe, each mask dump both passes (under HPR, H2 and
-        # pass (b) a keyframe and a dump).
+        # The NID culls take the z-buffer kernels once a keyframe (under HPR
+        # one H2 call for all the keyframes); colorize takes C1's pass (a)
+        # (under HPR, one H2 call) once for all its keyframes and pass (b)
+        # once a keyframe, each mask dump both (under HPR, H2 and pass (b)).
         steps = (2 if masks else 1) * K
         if hpr:
-            assert launches["hpr_grid"] == K + steps and launches["hpr_support"] == 0, launches
+            assert launches["hpr_grid"] == 2 + steps - K and launches["hpr_support"] == 0, (
+                launches)
             assert launches["zmin"] == launches["zbuffer_visible"] == 0, launches
             assert launches["colorize_scatter"] == 0, launches
             assert launches["colorize_update"] == steps, (steps, launches)
@@ -945,6 +982,7 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     # ~0.999 with its inverse) — a reference-side fault recorded in
     # ROADMAP.md and kept here for parity.
     out = pcd.read(res.colored_cloud_path)
+    summary["cloud"] = (out.points, out.rgb)
     assert len(out.points) == res.num_colored_points
     rgb = out.rgb
     assert np.isfinite(rgb).all() and rgb.min() >= 0 and rgb.max() <= 255
@@ -970,6 +1008,22 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     else:
         assert corr > 0.8, corr
     return launches, summary
+
+
+def compare_smoothed(card, run, twins):
+    """The HPR + smoothing run against the same run through the twins: the
+    same pose, NID, evaluations, gathers and colored points at the same
+    positions; colors within 1 of 255 as written (N1 sums its weights in
+    another order than its twin, so a color can round the other way)."""
+    keys = ("T", "nid", "evaluations", "gathers", "colored")
+    same = {k: run[k] == twins[k] for k in keys}
+    (p, rgb), (p_t, rgb_t) = run["cloud"], twins["cloud"]
+    same["positions"] = p.shape == p_t.shape and bool(np.array_equal(p, p_t))
+    err = float(np.abs(rgb.astype(np.float64) - rgb_t).max()) if same["positions"] else None
+    print(f"[{card}] HPR + smoothing vs its twins: {same}; colors differ by at most {err} "
+          f"(<= 1 required) over {len(p)} points")
+    assert all(same.values()), (same, {k: (run[k], twins[k]) for k in keys})
+    assert err <= 1.0, err
 
 
 def check_mask_outputs(res, out_dir, label):
@@ -2286,18 +2340,53 @@ def phase_hpr_dense(card, root, device="cuda"):
              "replaces": "pointcloudprocessor_tpu/ops/hpr.py:79", **rec}]
 
 
+# f32 operations a point and view of H2's views form, counted from
+# csrc/zbuffer.cuh and csrc/hpr.cu: the transform (9 products, 9 sums), the
+# pixel (2 divisions, 20 products, 12 sums), the range (3 products, 2 sums,
+# a square root), the bearing (2 divisions) and the cell (2 differences, 2
+# divisions); a division or square root counted as one. The erosion: 2 axes
+# x 33 taps x (a sum and a min) a cell.
+H2_VIEW_OPS, H2_CAMERA_OPS, H2_ERODE_OPS = 64, 14, 2 * 33 * 2
+H2_GRID = 512
+
+
+def _h2_passes(card, label, fn, device):
+    """``torch.profiler`` over one H2 call: asserts one memset and the four
+    passes, each launched once; returns {pass: device us} (None off the
+    card)."""
+    prof = _kernel_profile(fn, device)
+    if prof is None:
+        return None
+    print(f"[{card}] H2 {label}, device work a call (launches, mean us): "
+          + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+    assert sorted(prof) == sorted(["hpr_bounds", "hpr_scatter", "hpr_erode", "hpr_test",
+                                   "Memset"]), prof
+    assert all(c == 1 for c, _ in prof.values()), prof
+    return {k: prof[k][1] for k in prof}
+
+
 def phase_hpr_grid(card, root, device="cuda"):
     """H2 bit-equal to its twin on the two-wall scene at bench.py's
     bench_hpr size, on the edge sets of ``bench_scene.hpr_edge_sets`` (also
-    through strided and unaligned views, and one point), and on the 1M-point
-    colorize cull of each of the 8 keyframes; its device and call times at
-    keyframe 0 beside the bound and the twin, each pass's device time, and
-    an assertion that a cull is its four launches and one memset. Returns
-    the kernel's record."""
+    through strided and unaligned views, and one point); then in batches,
+    as the HPR path runs it: the 8 colorize culls of the scene in the views
+    form ``fuse`` takes (``hpr_mask_grid_views``: the world points
+    transformed, projected and gated in the passes) and in the camera form
+    on the eager transform (``view_points``), the 8 NID culls
+    (``cull_world_points_batch``, as ``runner.build_nid_keyframes`` culls),
+    a batch of K = 1, and a batch of keyframes with other strides (rows of
+    a padded tensor, 4 bytes off alignment) and one empty gate: every mask
+    against the twin and against a one-keyframe launch. ``torch.profiler``
+    asserts one memset and four launches a batch; each batch's device and
+    call times beside the same culls one keyframe at a time (8 memsets and
+    32 launches), the eager transform the views form does without, each
+    pass's device us and the bounds. Returns the kernel's record."""
     import torch
 
+    from pointcloudprocessor_tpu_torch.core import cloud as cl
+    from pointcloudprocessor_tpu_torch.core import se3
     from pointcloudprocessor_tpu_torch.ops import hpr
-    from pointcloudprocessor_tpu_torch.pipeline import runner
+    from pointcloudprocessor_tpu_torch.pipeline import colorize, runner
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
     tally = {"culls": 0, "mismatches": 0, "max_abs_err": 0.0}
@@ -2306,6 +2395,15 @@ def phase_hpr_grid(card, root, device="cuda"):
         got = hpr.hpr_mask_grid(pts, valid)
         _compare_masks(tally, f"H2 {label}", got, hpr.hpr_mask_grid_plain(pts, valid))
         return got
+
+    def check_batch(label, got, pts, gates):
+        """Each row against the twin and a one-keyframe launch."""
+        for j in range(got.shape[0]):
+            _compare_masks(tally, f"H2 {label}, keyframe {j}", got[j],
+                           hpr.hpr_mask_grid_plain(pts[j], gates[j]))
+            one = hpr.hpr_mask_grid(pts[j], gates[j])
+            assert torch.equal(got[j], one), f"H2 {label}, keyframe {j}: batch != alone"
+        return [int(v.sum()) for v in got]
 
     p_np, v_np = bs.two_walls(HPR_GRID_N, SEED, z_jitter=0.3, invalid=0.02)
     pts, valid = torch.from_numpy(p_np).to(device), torch.from_numpy(v_np).to(device)
@@ -2324,62 +2422,106 @@ def phase_hpr_grid(card, root, device="cuda"):
 
     cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
     poses = runner._camera_to_world(frames, kf_idx, None, device)
-    n_vis = []
-    for j in range(len(kf_idx)):
-        pts1, gate1 = _scene_colorize_cull(camera, cloud, poses.q[j], poses.t[j])
-        n_vis.append(int(check(f"colorize cull, keyframe {j}", pts1, gate1).sum()))
-        if j == 0:
-            first = (pts1, gate1)
-    print(f"H2 on the 8 colorize culls of {cloud.points.shape[0]} points: visible {n_vis}; "
-          f"{tally['mismatches']} mask bits differ from the twin over {tally['culls']} culls")
+    views = colorize.keyframe_pose(poses, se3.identity(device))
+    R, t = views.R, views.T.t
+    pw, vw = cloud.points, cloud.valid
+    k, n = R.shape[0], pw.shape[0]
+    pts_c, gates_c = hpr.view_points(camera, R, t, pw, vw)
+    norm = cl.normalize_intensity(cloud)
+    c = cfg.culling
+    T_w2c = se3.inverse(poses)
+    pts_n, gates_n = hpr._frustum(camera, norm.points.expand(k, n, 3), norm.valid, T_w2c)
 
-    pts1, gate1 = first
+    def colorize_views():
+        return hpr.hpr_mask_grid_views(camera, R, t, pw, vw)
 
-    def cull():
-        return hpr.hpr_mask_grid(pts1, gate1)
+    def colorize_camera():
+        return hpr.hpr_mask_grid_batch(pts_c, gates_c)
+
+    def colorize_eager():  # the camera form with the eager ops the views form does without
+        return hpr.hpr_mask_grid_batch(*hpr.view_points(camera, R, t, pw, vw))
+
+    def nid_batch():
+        return hpr.hpr_mask_grid_batch(pts_n, gates_n)
+
+    def one_at_a_time():
+        return [hpr.hpr_mask_grid(pts_c[j], gates_c[j]) for j in range(k)]
 
     def twin():
-        return hpr.hpr_mask_grid_plain(pts1, gate1)
+        return hpr.hpr_mask_grid_views_plain(camera, R, t, pw, vw)
 
-    dev_t = {k: _device_ms(fn, device) for k, fn in (("kernel", cull), ("twin", twin),
-                                                      ("kernel again", cull))}
-    call_t = {k: _median_ms(fn, device) for k, fn in (("kernel", cull), ("twin", twin))}
-    n = pts1.shape[0]
-    g = 512
-    b_ms, by = _bound(_nbytes(pts1, gate1) + n, 2.0 * 2 * g * g * 33)
-    floor_3pass = _bound(3 * _nbytes(pts1, gate1) + n)[0]
-    prof = _kernel_profile(cull, device)
-    passes = None
-    if prof is not None:
-        print(f"[{card}] H2 device work a cull (launches, mean us): "
-              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
-        assert sorted(prof) == sorted(["hpr_bounds", "hpr_scatter", "hpr_erode", "hpr_test",
-                                       "Memset"]), prof
-        assert _kernel_launches(prof) == 4 and prof["Memset"][0] == 1, prof
-        passes = {k: prof[k][1] for k in prof}
-    share = f"{b_ms / dev_t['kernel']:.2f}" if dev_t["kernel"] else "not measured"
-    print(f"[{card}] H2 at keyframe 0 ({n} points, {int(gate1.sum())} gated in): device ms: "
-          + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items())
-          + "; a call: " + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items())
-          + f"; bound {b_ms * 1e3:.2f} us ({by}: 14 B a point), kernel at {share}; the three "
-          f"passes' floor {floor_3pass * 1e3:.2f} us")
+    got_v = colorize_views()
+    n_vis = check_batch("colorize culls, views form", got_v, pts_c, gates_c)
+    assert torch.equal(got_v, colorize_camera()), "H2's views form != its camera form"
+    got_n = hpr.cull_world_points_batch(camera, T_w2c, norm.points, norm.valid,
+                                        radius=c.hidden_points_removal_max_z,
+                                        tolerance=c.hpr_tolerance, impl="grid")[1]
+    assert torch.equal(got_n, nid_batch())
+    n_vis_nid = check_batch("NID culls", got_n, pts_n, gates_n)
+    check_batch("a batch of one", hpr.hpr_mask_grid_batch(pts_c[:1], gates_c[:1]), pts_c[:1],
+                gates_c[:1])
+    pad = torch.zeros((k, n + 7, 5), device=device)
+    pad[:, 7:, 1:4] = pts_c
+    strided, gates_s = pad[:, 7:, 1:4], gates_c.clone()
+    gates_s[2] = False
+    got_s = hpr.hpr_mask_grid_batch(strided, gates_s)
+    check_batch("other strides, an empty gate", got_s, strided, gates_s)
+    assert not got_s[2].any()
+    print(f"H2 batched on the scene's {n} points: the 8 colorize culls (views and camera forms) "
+          f"visible {n_vis}, the 8 NID culls {n_vis_nid}, a batch of one, a strided batch with "
+          f"an empty gate: {tally['mismatches']} mask bits differ from the twin over "
+          f"{tally['culls']} culls; every batch row equal to its one-keyframe launch")
+
+    fns = {"views": colorize_views, "camera": colorize_camera, "nid": nid_batch,
+           "one_at_a_time": one_at_a_time, "eager_camera": colorize_eager,
+           "views_again": colorize_views}
+    dev_t = {name: _device_ms(fn, device) for name, fn in fns.items()}
+    call_t = {name: _median_ms(fn, device) for name, fn in fns.items() if name != "views_again"}
+    call_t["twin"] = _call_ms(twin, device, reps=3)
+    passes = {form: _h2_passes(card, f"{form} batch of {k}", fn, device)
+              for form, fn in (("views", colorize_views), ("camera", colorize_camera),
+                               ("nid", nid_batch))}
+    # The function's least time. Views form: the world points and valid (13
+    # B a point) read once, K bytes a point out; camera form: K x 14 B a
+    # point (13 in, 1 out). Operations: a point and view's, and the erosion.
+    erode_ops = k * H2_GRID * H2_GRID * H2_ERODE_OPS
+    b_views = _bound(13 * n + k * n, k * n * H2_VIEW_OPS + erode_ops)
+    b_camera = _bound(14 * k * n, k * n * H2_CAMERA_OPS + erode_ops)
+    share = (f"{b_views[0] / dev_t['views']:.2f}" if dev_t["views"] else "not measured")
+    print(f"[{card}] H2 the 8 colorize culls: device ms "
+          + ", ".join(f"{name} {_ms(v)}" for name, v in dev_t.items())
+          + "; a call: " + ", ".join(f"{name} {_ms(v)}" for name, v in call_t.items())
+          + f"; bounds: views form {b_views[0] * 1e3:.2f} us ({b_views[1]}), camera form "
+          f"{b_camera[0] * 1e3:.2f} us ({b_camera[1]}: {k} x 14 B a point); views form at "
+          f"{share}")
     return [{"name": "hpr_grid", "route": "cuda", "source": f"{PKG}/csrc/hpr.cu",
              "replaces": "pointcloudprocessor_tpu/ops/hpr.py:150", **tally,
-             "ms": dev_t["kernel"], "ms_again": dev_t["kernel again"], "call_ms": call_t["kernel"],
-             "plain_ms": dev_t["twin"] or call_t["twin"], "plain_call_ms": call_t["twin"],
-             "library_ms": None, "bound_ms": b_ms, "bound_by": by,
-             "three_pass_floor_ms": floor_3pass, "passes_us": passes,
-             "kernel_launches_a_cull": None if prof is None else _kernel_launches(prof)}]
+             "ms": dev_t["views"], "ms_again": dev_t["views_again"], "call_ms": call_t["views"],
+             "camera_form_ms": dev_t["camera"], "nid_batch_ms": dev_t["nid"],
+             "one_at_a_time_ms": dev_t["one_at_a_time"],
+             "eager_camera_form_ms": dev_t["eager_camera"],
+             "eager_camera_form_call_ms": call_t["eager_camera"],
+             "plain_ms": call_t["twin"], "plain_call_ms": call_t["twin"], "library_ms": None,
+             "bound_ms": b_views[0], "bound_by": b_views[1], "camera_form_bound_ms": b_camera[0],
+             "camera_form_bound_by": b_camera[1], "keyframes_a_batch": k, "passes_us": passes,
+             "visible_colorize": n_vis, "visible_nid": n_vis_nid}]
 
 
 def phase_smooth(card, root, device="cuda"):
     """N1 on the scene's fused colors (colorize with HPR culling at the
-    identity correction, 8 keyframes) at ``SMOOTH_RADIUS``: agreement with
-    the twin (``fusion.smooth_colors_local_plain``) within 1e-3, the
-    distribution of in-radius neighbors a wall point (asserted median 8-24)
-    and the share of overflowing buckets; times of ``knn.build``, the kernel
-    and the twin beside two bounds (unique bytes; per query). Returns the
-    kernel's record."""
+    identity correction, 8 keyframes) at ``SMOOTH_RADIUS``, under the
+    path's schedule (the order of a grid built with ``valid_first``) and
+    the identity: within 1e-3 of the twin (``fusion.smooth_colors_local_plain``)
+    and equal to each other; then ``smooth_colors_local`` on the edge clouds
+    of ``bench_scene.smooth_edge_clouds`` (ties at equal distance with
+    distinct colors at the 32nd neighbor, cells sharing a bucket, buckets
+    over capacity, points on cell faces, all or no point colored, a ragged
+    n) within 1e-3 of the twin. The windows the checked launch stages and
+    their queries (counted by the kernel, ``run_sizes``); the distribution
+    of in-radius neighbors a wall point (asserted median 8-24), the share of
+    queries with more than 32 and of overflowing buckets; times of
+    ``knn.build``, the kernel and the twin beside the bounds (unique bytes;
+    bytes a window staged). Returns the kernel's record."""
     import torch
 
     from pointcloudprocessor_tpu_torch.core import se3
@@ -2398,19 +2540,41 @@ def phase_smooth(card, root, device="cuda"):
     pts, rgb, colored = cloud.points, fused.rgb, fused.colored
     n, cap, k_max = pts.shape[0], 32, 32
     table = max(2 * n, 1024)
-    grid = knn.build(pts, colored, SMOOTH_RADIUS, table, cap)
-    got = knn.smooth_local_cuda(grid, pts, rgb, colored, SMOOTH_RADIUS, k_max) \
-        if device == "cuda" else fusion.smooth_colors_local(pts, rgb, colored, SMOOTH_RADIUS)
+    grid = knn.build(pts, colored, SMOOTH_RADIUS, table, cap, valid_first=True)
+    identity = torch.arange(n, dtype=torch.int32, device=device)
+    sizes = _run_sizes(device)
     want = fusion.smooth_colors_local_plain(pts, rgb, colored, SMOOTH_RADIUS)
-    err = float((got - want).abs().max())
     whole = fusion.smooth_colors_local(pts, rgb, colored, SMOOTH_RADIUS)
+    if device == "cuda":
+        got = knn.smooth_local_cuda(grid, pts, rgb, colored, SMOOTH_RADIUS, k_max, grid.order,
+                                    run_sizes=sizes)
+        got_id = knn.smooth_local_cuda(grid, pts, rgb, colored, SMOOTH_RADIUS, k_max, identity)
+    else:
+        got = got_id = whole
+    windows, per_window = _window_stats(sizes)
+    err = float((got - want).abs().max())
     moved = float((got - rgb).abs().max())
     print(f"N1 smooth_local on {n} points ({int(colored.sum())} colored), radius "
           f"{SMOOTH_RADIUS} m: max|kernel - twin| = {err:.3e} (tol 1e-3); colors moved up to "
-          f"{moved:.1f}; smooth_colors_local == the kernel on the same grid: "
-          f"{bool(torch.equal(whole, got))}")
+          f"{moved:.1f}; the identity schedule gives the same colors: "
+          f"{bool(torch.equal(got_id, got))}; smooth_colors_local == the kernel on the same "
+          f"grid: {bool(torch.equal(whole, got))}; windows staged {windows}, queries a window "
+          f"(p50) {per_window}")
     assert err <= 1e-3, "N1 disagrees with its twin"
-    assert torch.equal(whole, got)
+    assert torch.equal(got_id, got) and torch.equal(whole, got)
+
+    # The edge clouds, each through smooth_colors_local against the twin.
+    edge_err = {}
+    for name, (ep, ec, er) in bs.smooth_edge_clouds().items():
+        erng = np.random.default_rng(SEED)
+        e_rgb = torch.from_numpy(erng.uniform(0, 255, (len(ep), 3)).astype(np.float32))
+        e_args = (torch.from_numpy(ep).to(device), e_rgb.to(device), torch.from_numpy(ec).to(device),
+                  er)
+        edge_err[name] = float((fusion.smooth_colors_local(*e_args)
+                                - fusion.smooth_colors_local_plain(*e_args)).abs().max())
+    print("N1 on the edge clouds, max|kernel - twin|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in edge_err.items()) + " (tol 1e-3)")
+    assert max(edge_err.values()) <= 1e-3, edge_err
 
     # In-radius neighbors a colored point (duplicates counted, before the
     # cap of 32), and the buckets' occupancy.
@@ -2429,21 +2593,24 @@ def phase_smooth(card, root, device="cuda"):
     qs = torch.tensor([0.1, 0.5, 0.9], device=device)
     wall_q = torch.quantile(counts[on_wall].float(), qs).tolist()
     occ_q = torch.quantile(counts[~on_wall].float(), qs).tolist() if (~on_wall).any() else None
+    all_q = torch.quantile(counts.float(), qs).tolist()
+    over_k = float((counts > k_max).float().mean())
     nonempty = int((grid.counts > 0).sum())
     over = int((grid.counts > cap).sum())
     dropped = int(torch.clamp(grid.counts - cap, min=0).sum())
-    print(f"N1 neighbors within {SMOOTH_RADIUS} m a colored point (p10 / median / p90): wall "
-          f"{wall_q}, occluder {occ_q}; more than {k_max}: "
-          f"{float((counts > k_max).float().mean()):.4f} of queries; buckets: {nonempty} occupied, {over} over capacity {cap} "
-          f"({over / max(nonempty, 1):.2e}), {dropped} points dropped; candidates a query "
-          f"{float(occupied.float().mean()):.1f}")
+    slots = float(occupied.float().mean())
+    print(f"N1 neighbors within {SMOOTH_RADIUS} m a colored point (p10 / median / p90): all "
+          f"{all_q}, wall {wall_q}, occluder {occ_q}; more than {k_max}: {over_k:.4f} of "
+          f"queries; buckets: {nonempty} occupied, {over} over capacity {cap} "
+          f"({over / max(nonempty, 1):.2e}), {dropped} points dropped; candidate slots a query "
+          f"{slots:.1f}")
     assert 8 <= wall_q[1] <= 24, wall_q
 
     def build():
-        return knn.build(pts, colored, SMOOTH_RADIUS, table, cap)
+        return knn.build(pts, colored, SMOOTH_RADIUS, table, cap, valid_first=True)
 
     def kernel():
-        return knn.smooth_local_cuda(grid, pts, rgb, colored, SMOOTH_RADIUS, k_max)
+        return knn.smooth_local_cuda(grid, pts, rgb, colored, SMOOTH_RADIUS, k_max, grid.order)
 
     def twin():
         return fusion.smooth_colors_local_plain(pts, rgb, colored, SMOOTH_RADIUS)
@@ -2457,17 +2624,21 @@ def phase_smooth(card, root, device="cuda"):
     dev_t = {k: _device_ms(fn, device) for k, fn in fns.items()}
     call_t = {k: _median_ms(fn, device) for k, fn in fns.items() if k != "kernel again"}
     n_col = int(colored.sum())
+    # Unique bytes: the counts, the occupied slots, points, rgb, colored, the
+    # schedule and the output, each once. A window staged: 27 count words,
+    # and 16 B a slot (index and point), at a colored query's mean slots.
     unique = (4 * table + 4 * int(torch.clamp(grid.counts, max=cap).sum()) + 12 * n + 12 * n + n
-              + 12 * n)
-    per_query = 27 * 4 * n_col + 16 * int(occupied.sum()) + (n - n_col) * 13 + 12 * n
+              + 4 * n + 12 * n)
     b_ms, by = _bound(unique)
-    pq_ms = _bound(per_query)[0]
+    window_bytes = None if windows is None else windows * (27 * 4 + 16 * slots)
+    pw_ms = None if window_bytes is None else _bound(window_bytes)[0]
     t_k = dev_t.get("kernel")
     share = f"{b_ms / t_k:.3f}" if t_k else "not measured"
     print(f"[{card}] N1 device ms: " + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items())
           + "; a call: " + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items())
-          + f"; bounds: unique bytes {b_ms * 1e3:.1f} us ({unique} B), per query "
-          f"{pq_ms * 1e3:.1f} us ({per_query} B); kernel at {share} of the first")
+          + f"; bounds: unique bytes {b_ms * 1e3:.1f} us ({unique} B), the windows staged "
+          + ("not measured" if pw_ms is None else f"{pw_ms * 1e3:.1f} us ({window_bytes:.0f} B)")
+          + f"; kernel at {share} of the first")
     prof = _kernel_profile(whole_call, device, reps=5)
     if prof is not None:
         print(f"[{card}] smooth_colors_local device work a call ({_kernel_launches(prof)} "
@@ -2476,13 +2647,16 @@ def phase_smooth(card, root, device="cuda"):
         assert prof["smooth_local_kernel"][0] == 1, prof
     return [{"name": "smooth_local", "route": "cuda", "source": f"{PKG}/csrc/smooth.cu",
              "replaces": "pointcloudprocessor_tpu/ops/fusion.py:196", "max_abs_err": err,
+             "edge_cloud_max_abs_err": edge_err,
              "ms": t_k, "ms_again": dev_t.get("kernel again"), "call_ms": call_t.get("kernel"),
              "plain_ms": dev_t["twin"] or call_t["twin"], "plain_call_ms": call_t["twin"],
-             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "per_query_bound_ms": pq_ms,
+             "library_ms": None, "bound_ms": b_ms, "bound_by": by, "window_bound_ms": pw_ms,
+             "windows": windows, "queries_per_window": per_window,
              "build_ms": dev_t["build"], "build_call_ms": call_t["build"],
              "smooth_colors_local_call_ms": call_t["smooth_colors_local"],
-             "radius_m": SMOOTH_RADIUS, "neighbors_wall_p10_p50_p90": wall_q,
-             "neighbors_occluder_p10_p50_p90": occ_q, "buckets_over_capacity": over,
+             "radius_m": SMOOTH_RADIUS, "neighbors_p10_p50_p90": all_q,
+             "neighbors_wall_p10_p50_p90": wall_q, "neighbors_occluder_p10_p50_p90": occ_q,
+             "share_over_k": over_k, "buckets_over_capacity": over,
              "buckets_occupied": nonempty}]
 
 
@@ -3216,7 +3390,7 @@ def main() -> int:
         # byte for byte.
         _, eager = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
                                 "headline schedule, eager C1 / G1", eager=True)
-        timed = ("colorize_fuse_s", "solve_peak_mib")
+        timed = ("colorize_fuse_s", "solve_peak_mib", "cloud")
         same = {k: headline[k] == eager[k] for k in headline if k not in timed}
         print(f"[{card}] headline with C1 / G1 vs their twins: {same}; colorize_fuse "
               f"{headline['colorize_fuse_s']:.3f} s vs {eager['colorize_fuse_s']:.3f} s; solve "
@@ -3230,9 +3404,13 @@ def main() -> int:
         del kfs
         kernels += phase_zbuffer(card, root)
         kernels += phase_colorize(card, root, T0)
-        # The HPR + smoothing path under the headline schedule.
-        hpr_launches, _ = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
-                                       "HPR + smoothing", hpr=True)
+        # The HPR + smoothing path under the headline schedule, then through
+        # the twins of H2, N1, C1, G1 and the packer.
+        hpr_launches, hpr_run = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                             "HPR + smoothing", hpr=True)
+        _, hpr_eager = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                    "HPR + smoothing, twins", hpr=True, eager=True)
+        compare_smoothed(card, hpr_run, hpr_eager)
         kernels += phase_hpr_dense(card, root)
         kernels += phase_hpr_grid(card, root)
         kernels += phase_smooth(card, root)

@@ -179,32 +179,8 @@ struct Projected {
   float u, v;     // pixel (models/camera.project_xyz)
 };
 
-// p_cam = R p + t, R row-major at pose[0..8], t at pose[9..11].
-__device__ __forceinline__ void transform(const float* pose, float px, float py, float pz,
-                                          float& x, float& y, float& z) {
-  x = add(add(add(mul(pose[0], px), mul(pose[1], py)), mul(pose[2], pz)), pose[9]);
-  y = add(add(add(mul(pose[3], px), mul(pose[4], py)), mul(pose[5], pz)), pose[10]);
-  z = add(add(add(mul(pose[6], px), mul(pose[7], py)), mul(pose[8], pz)), pose[11]);
-}
-
 __device__ __forceinline__ float range(float x, float y, float z) {
   return __fsqrt_rn(add(add(mul(x, x), mul(y, y)), mul(z, z)));
-}
-
-// The pixel of a camera-frame point; c = fx, fy, cx, cy, k1, k2, p1, p2, k3.
-__device__ __forceinline__ void pixel(const float* c, float px, float py, float pz, float& u,
-                                      float& v) {
-  const float tiny = static_cast<float>(1e-9);
-  const float safe_z = fabsf(pz) < tiny ? (pz < 0.0f ? -tiny : tiny) : pz;
-  const float x = dvd(px, safe_z), y = dvd(py, safe_z);
-  const float x2 = mul(x, x), y2 = mul(y, y), xy = mul(x, y);
-  const float r2 = add(x2, y2), r4 = mul(r2, r2), r6 = mul(r2, r4);
-  const float k1 = c[4], k2 = c[5], p1 = c[6], p2 = c[7], k3 = c[8];
-  const float rc = add(add(add(1.0f, mul(k1, r2)), mul(k2, r4)), mul(k3, r6));
-  const float xd = add(add(mul(rc, x), mul(p1, mul(2.0f, xy))), mul(p2, add(r2, mul(2.0f, x2))));
-  const float yd = add(add(mul(rc, y), mul(p1, add(r2, mul(2.0f, y2)))), mul(p2, mul(2.0f, xy)));
-  u = add(mul(c[0], xd), c[2]);
-  v = add(mul(c[1], yd), c[3]);
 }
 
 __device__ __forceinline__ void load_point(const ColorizeArgs& a, long long i, float& px,

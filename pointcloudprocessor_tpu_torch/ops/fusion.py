@@ -186,20 +186,28 @@ def smooth_colors_local_plain(
     max_neighbors: int = 32,
     bucket_capacity: int = 32,
     chunk_size: int = 65536,
+    order: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain version of :func:`smooth_colors_local`, the JAX package's
     form (fusion.py:196-226): the hash grid, the (N, K) radius search in
-    chunks, and the weighted blend."""
+    chunks, and the weighted blend. With ``order`` (an (N,) permutation) the
+    queries go through the search in that order, chunk by chunk, and their
+    colors back to their points: each point's color does not depend on it."""
     from . import knn
 
     n = points.shape[0]
     grid = knn.build(points, colored, radius, max(2 * n, 1024), bucket_capacity)
+    perm = None if order is None else order.long()
+    queries = points if perm is None else points[perm]
     idx, dist, ok = knn.chunked_radius_neighbors(
-        grid, points, points, radius, max_neighbors, chunk_size=chunk_size)
+        grid, points, queries, radius, max_neighbors, chunk_size=chunk_size)
     w = torch.where(ok, 1.0 / (1.0 + dist * dist), 0.0)
     neigh_rgb = rgb[torch.clamp(idx, min=0).long()]  # (N, K, 3)
     total = torch.sum(w, dim=1)
     blended = torch.sum(neigh_rgb * w[..., None], dim=1) / torch.clamp(total, min=1e-12)[:, None]
+    if perm is not None:
+        total = torch.empty_like(total).index_copy_(0, perm, total)
+        blended = torch.empty_like(blended).index_copy_(0, perm, blended)
     return torch.where((colored & (total > 0))[:, None], blended, rgb)
 
 
@@ -220,9 +228,11 @@ def smooth_colors_local(
     color. Returns the new (N, 3) colors.
 
     CPU tensors take :func:`smooth_colors_local_plain`; CUDA tensors build
-    the hash grid with torch ops and run the search and blend as the N1
-    kernel (``knn.smooth_local_cuda``, one launch, no (N, K) tensor; the
-    colors agree up to f32 summation order). Any other device raises."""
+    the hash grid with torch ops, its order listing the colored points first
+    (``knn.build(valid_first=True)``), and run the search and blend as the N1
+    kernel over that schedule (``knn.smooth_local_cuda``, one launch, no
+    (N, K) tensor; ``max_neighbors`` at most 32; the colors agree up to f32
+    summation order). Any other device raises."""
     from . import knn
 
     dev = points.device.type
@@ -231,9 +241,10 @@ def smooth_colors_local(
                                          bucket_capacity, chunk_size)
     if dev == "cuda":
         n = points.shape[0]
-        grid = knn.build(points, colored, radius, max(2 * n, 1024), bucket_capacity)
+        grid = knn.build(points, colored, radius, max(2 * n, 1024), bucket_capacity,
+                         valid_first=True)
         return knn.smooth_local_cuda(grid, points.contiguous(), rgb.contiguous(), colored,
-                                     radius, max_neighbors)
+                                     radius, max_neighbors, grid.order)
     raise NotImplementedError(f"smooth_colors_local: no kernel for device {points.device}")
 
 

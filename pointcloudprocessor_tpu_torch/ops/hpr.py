@@ -18,8 +18,18 @@ Dispatch goes by the tensors' device: CPU tensors take the plain twins
 (:func:`hpr_mask_plain`, chunked ``d @ f.T`` then ``amax`` in f32, never
 TF32; :func:`hpr_mask_grid_plain`, the JAX package's ops in torch), CUDA
 tensors the kernels of `csrc/hpr.cu` (H1 ``hpr_support``: two launches;
-H2 ``hpr_grid``: a memset and four launches, no eager op and no host sync),
-any other device raises. ``launch_counts`` counts each wrapper's calls that
+H2 ``hpr_grid``: a memset and four launches, no eager op and no host sync,
+for a batch of K keyframes, each pass taking every keyframe: camera-frame
+points, :func:`hpr_mask_grid_batch` (one keyframe, :func:`hpr_mask_grid`,
+is a batch of one), or world points seen by K views, which the passes
+transform, project and gate themselves, :func:`hpr_mask_grid_views`), any
+other device raises. The callers cull a batch: :func:`cull_world_points_batch`
+(the NID keyframes of ``runner.build_nid_keyframes``) and :func:`mask_views`
+(the keyframes of a ``fuse``, ``pipeline/colorize.hpr_masks``); the dense
+cull and the CPU twins go a keyframe at a time. H2's bound: K x 14 B a
+point for camera-frame points; for views, the world points' 13 B a point
+and K B out, or the ~64 f32 operations a point and view where larger
+(`csrc/hpr.cu`). ``launch_counts`` counts each wrapper's calls that
 launched. The grid mask equals its twin bit for bit. The dense kernel
 chains its FMAs as XLA's CPU norm and dot do, so it equals the twin run on
 the CPU bit for bit; the twin run on the card rounds otherwise, and a mask
@@ -53,8 +63,10 @@ _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctype
 _SIGNATURES = {
     # x, y, z, valid, their 4 strides, f, u, poison, vis, n, radius, tol, stream
     "hpr_support": ([_PTR] * 4 + [_I64] * 4 + [_PTR] * 4 + [_I32] + [_F32] * 2 + [_PTR], _I32),
-    # x, y, z, valid, their 4 strides, scratch, eroded, vis, n, grid, window, radius, tol, stream
-    "hpr_grid": ([_PTR] * 4 + [_I64] * 4 + [_PTR] * 3 + [_I32] * 3 + [_F32] * 2 + [_PTR], _I32),
+    # x, y, z, valid, their 4 element and 4 keyframe strides, R, t, intrinsic, distortion,
+    # width, height, scratch, eroded, vis, n, k, grid, window, radius, tol, stream
+    "hpr_grid": ([_PTR] * 4 + [_I64] * 8 + [_PTR] * 4 + [_I32] * 2 + [_PTR] * 3 + [_I32] * 4
+                 + [_F32] * 2 + [_PTR], _I32),
 }
 MAX_WINDOW = 31  # the erosion's tile with its halo in 48 KB of shared memory (csrc/hpr.cu)
 
@@ -234,29 +246,82 @@ def hpr_mask_grid_plain(points_camera: torch.Tensor, valid: torch.Tensor,
     return ok & ~(eroded < r - tolerance)
 
 
-def hpr_mask_grid_cuda(points_camera: torch.Tensor, valid: torch.Tensor,
-                       radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
-                       grid_size: int = 512, window: int = 16) -> torch.Tensor:
-    """H2 on the card: a memset of its scratch and four launches (bounds,
-    scatter, both erosions, test); the bounds stay on the device."""
-    x, y, z, valid, n = _columns(points_camera, valid)
+def _batch_columns(points_camera: torch.Tensor, valid: torch.Tensor):
+    """(x, y, z, valid, k, n) views for H2, checked: points (K, N, 3) f32 and
+    valid (K, N) bool on one CUDA device, any strides."""
+    dev = points_camera.device
+    if dev.type != "cuda" or valid.device != dev:
+        raise ValueError(f"hpr: points and valid must be on one CUDA device, got {dev} / "
+                         f"{valid.device}")
+    if points_camera.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"hpr: points must be float32 and valid bool, got "
+                        f"{points_camera.dtype} / {valid.dtype}")
+    if points_camera.dim() != 3 or points_camera.shape[2] != 3 \
+            or tuple(valid.shape) != tuple(points_camera.shape[:2]):
+        raise ValueError(f"hpr: points (K, N, 3) and valid (K, N), got "
+                         f"{tuple(points_camera.shape)} / {tuple(valid.shape)}")
+    k, n = valid.shape
+    if n >= 2**31 or k > 65535:
+        raise ValueError(f"hpr: {k} keyframes of {n} points out of range (K <= 65535)")
+    x, y, z = points_camera.unbind(-1)
+    return x, y, z, valid, k, n
+
+
+def _check_grid(grid_size: int, window: int) -> None:
     if not 1 <= grid_size <= 32768 or not 0 <= window <= MAX_WINDOW:
         raise ValueError(f"hpr_mask_grid: grid_size {grid_size} (1..32768), window {window} "
                          f"(0..{MAX_WINDOW}) out of range")
-    dev = points_camera.device
-    vis = torch.empty((n,), dtype=torch.bool, device=dev)
-    if n == 0:
+
+
+def _grid_launch(columns, views, camera, dev, k, n, radius, tolerance, grid_size,
+                 window) -> torch.Tensor:
+    """H2's memset and four launches over k keyframes of n points: (k, n)
+    masks. ``columns`` (x, y, z, valid) with their element and keyframe
+    strides; ``views`` ((R, t), contiguous) and ``camera``, or None."""
+    vis = torch.empty((k, n), dtype=torch.bool, device=dev)
+    if n == 0 or k == 0:
         return vis
     g2 = grid_size * grid_size
-    scratch = torch.empty((g2 + 8,), dtype=torch.int32, device=dev)
-    eroded = torch.empty((g2,), dtype=torch.float32, device=dev)
-    err = _lib().hpr_grid(*_strided_args(x, y, z, valid), scratch.data_ptr(), eroded.data_ptr(),
-                          vis.data_ptr(), n, grid_size, window, float(radius), float(tolerance),
-                          torch.cuda.current_stream(dev).cuda_stream)
+    scratch = torch.empty((k, g2 + 8), dtype=torch.int32, device=dev)
+    eroded = torch.empty((k, g2), dtype=torch.float32, device=dev)
+    x, y, z, valid = columns
+    kstride = (lambda a: a.stride(0)) if views is None else (lambda a: 0)
+    view_args = (None,) * 4 + (0, 0) if views is None else (
+        views[0].data_ptr(), views[1].data_ptr(), camera.intrinsic.data_ptr(),
+        camera.distortion.data_ptr(), int(camera.width), int(camera.height))
+    err = _lib().hpr_grid(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), valid.data_ptr(),
+        x.stride(-1), y.stride(-1), z.stride(-1), valid.stride(-1),
+        kstride(x), kstride(y), kstride(z), kstride(valid), *view_args,
+        scratch.data_ptr(), eroded.data_ptr(), vis.data_ptr(), n, k, grid_size,
+        window, float(radius), float(tolerance), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hpr_grid launch failed: CUDA error {err}")
     launch_counts["hpr_grid"] += 1
     return vis
+
+
+def hpr_mask_grid_batch_cuda(points_camera: torch.Tensor, valid: torch.Tensor,
+                             radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
+                             grid_size: int = 512, window: int = 16) -> torch.Tensor:
+    """H2 on the card for K keyframes at once: (K, N) masks from camera-frame
+    points (K, N, 3) and gates (K, N), any strides. One memset of the (K,
+    G*G + 8) scratch and four launches (bounds, scatter, both erosions,
+    test), each over every keyframe; each keyframe keeps its own bounds and
+    grids, and its row is the one-keyframe cull's bit for bit."""
+    x, y, z, valid, k, n = _batch_columns(points_camera, valid)
+    _check_grid(grid_size, window)
+    return _grid_launch((x, y, z, valid), None, None, points_camera.device, k, n, radius,
+                        tolerance, grid_size, window)
+
+
+def hpr_mask_grid_cuda(points_camera: torch.Tensor, valid: torch.Tensor,
+                       radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
+                       grid_size: int = 512, window: int = 16) -> torch.Tensor:
+    """H2 on the card for one keyframe: :func:`hpr_mask_grid_batch_cuda` on
+    a batch of one (a memset and four launches)."""
+    return hpr_mask_grid_batch_cuda(points_camera[None], valid[None], radius, tolerance,
+                                    grid_size, window)[0]
 
 
 def hpr_mask_grid(points_camera: torch.Tensor, valid: torch.Tensor,
@@ -273,6 +338,108 @@ def hpr_mask_grid(points_camera: torch.Tensor, valid: torch.Tensor,
     if dev == "cuda":
         return hpr_mask_grid_cuda(points_camera, valid, radius, tolerance, grid_size, window)
     raise NotImplementedError(f"hpr_mask_grid: no kernel for device {points_camera.device}")
+
+
+def hpr_mask_grid_batch_plain(points_camera: torch.Tensor, valid: torch.Tensor,
+                              radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
+                              grid_size: int = 512, window: int = 16) -> torch.Tensor:
+    """The twin of :func:`hpr_mask_grid_batch_cuda`: (K, N) masks, each
+    keyframe's :func:`hpr_mask_grid_plain`."""
+    n = valid.shape[1]
+    rows = [hpr_mask_grid_plain(p, v, radius, tolerance, grid_size, window)
+            for p, v in zip(points_camera, valid)]
+    return torch.stack(rows) if rows else torch.zeros((0, n), dtype=torch.bool,
+                                                      device=points_camera.device)
+
+
+def hpr_mask_grid_batch(points_camera: torch.Tensor, valid: torch.Tensor,
+                        radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
+                        grid_size: int = 512, window: int = 16) -> torch.Tensor:
+    """:func:`hpr_mask_grid` of K keyframes at once: (K, N) masks from
+    camera-frame points (K, N, 3) and gates (K, N). The twin on CPU tensors,
+    H2 on CUDA ones (one memset and four launches for the batch)."""
+    dev = points_camera.device.type
+    if dev == "cpu":
+        return hpr_mask_grid_batch_plain(points_camera, valid, radius, tolerance, grid_size,
+                                         window)
+    if dev == "cuda":
+        return hpr_mask_grid_batch_cuda(points_camera, valid, radius, tolerance, grid_size,
+                                        window)
+    raise NotImplementedError(f"hpr_mask_grid_batch: no kernel for device {points_camera.device}")
+
+
+def colorize_gate(camera: cam.PinholeCamera, z, u, v, valid) -> torch.Tensor:
+    """The colorize HPR cull's gate: valid, z > 0 and the unfloored pixel in
+    the image, as the JAX package's colorize gates it (colorize.py:95-109)."""
+    return valid & (z > 0.0) & (u >= 0) & (u < camera.width) & (v >= 0) & (v < camera.height)
+
+
+def view_points(camera: cam.PinholeCamera, R: torch.Tensor, t: torch.Tensor,
+                points_world: torch.Tensor, valid: torch.Tensor):
+    """(points_camera (V, N, 3), gate (V, N)): world points (N, 3) seen by V
+    views (R (V, 3, 3), t (V, 3)), the ops of ``se3.transform_xyz`` broadcast
+    over the views (each view gets the bits it gets alone), projected, and
+    :func:`colorize_gate`."""
+    R, t = R[..., None], t[..., None]
+    px, py, pz = (points_world[None, :, c] for c in range(3))
+    x = R[:, 0, 0] * px + R[:, 0, 1] * py + R[:, 0, 2] * pz + t[:, 0]
+    y = R[:, 1, 0] * px + R[:, 1, 1] * py + R[:, 1, 2] * pz + t[:, 1]
+    z = R[:, 2, 0] * px + R[:, 2, 1] * py + R[:, 2, 2] * pz + t[:, 2]
+    u, v = cam.project_xyz(camera, x, y, z)
+    return torch.stack([x, y, z], dim=-1), colorize_gate(camera, z, u, v, valid)
+
+
+def hpr_mask_grid_views_plain(camera: cam.PinholeCamera, R: torch.Tensor, t: torch.Tensor,
+                              points_world: torch.Tensor, valid: torch.Tensor,
+                              radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
+                              grid_size: int = 512, window: int = 16) -> torch.Tensor:
+    """The twin of :func:`hpr_mask_grid_views_cuda`: :func:`view_points`,
+    then :func:`hpr_mask_grid_batch_plain`."""
+    pts, gate = view_points(camera, R, t, points_world, valid)
+    return hpr_mask_grid_batch_plain(pts, gate, radius, tolerance, grid_size, window)
+
+
+def hpr_mask_grid_views_cuda(camera: cam.PinholeCamera, R: torch.Tensor, t: torch.Tensor,
+                             points_world: torch.Tensor, valid: torch.Tensor,
+                             radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
+                             grid_size: int = 512, window: int = 16) -> torch.Tensor:
+    """H2 on the card for world points (N, 3) seen by V views (R (V, 3, 3),
+    t (V, 3)): (V, N) masks, the colorize HPR cull of each view. The same
+    memset and four launches as :func:`hpr_mask_grid_batch_cuda`; each pass
+    over the points transforms, projects and gates them itself (the world
+    points, 13 B a point, stay in L2 across the views), so no (V, N, 3)
+    camera-frame tensor is written. Each row equals
+    :func:`hpr_mask_grid_views_plain`'s bit for bit."""
+    x, y, z, valid, n = _columns(points_world, valid)
+    dev = points_world.device
+    v = R.shape[0] if R.dim() == 3 else -1
+    for name, a, size in (("R", R, (v, 3, 3)), ("t", t, (v, 3)),
+                          ("intrinsic", camera.intrinsic, (4,)),
+                          ("distortion", camera.distortion, (5,))):
+        if (a.device != dev or a.dtype != torch.float32 or tuple(a.shape) != size
+                or not a.is_contiguous()):
+            raise ValueError(f"hpr: {name} must be contiguous float32 {size} on {dev}, got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    _check_grid(grid_size, window)
+    return _grid_launch((x, y, z, valid), (R, t), camera, dev, v, n, radius, tolerance,
+                        grid_size, window)
+
+
+def hpr_mask_grid_views(camera: cam.PinholeCamera, R: torch.Tensor, t: torch.Tensor,
+                        points_world: torch.Tensor, valid: torch.Tensor,
+                        radius: float = DEFAULT_RADIUS, tolerance: float = 0.05,
+                        grid_size: int = 512, window: int = 16) -> torch.Tensor:
+    """The colorize HPR grid culls of world points seen by V views, (V, N):
+    the twin on CPU tensors, H2 on CUDA ones (one memset and four launches,
+    the transform, projection and gate in its passes)."""
+    dev = points_world.device.type
+    if dev == "cpu":
+        return hpr_mask_grid_views_plain(camera, R, t, points_world, valid, radius, tolerance,
+                                         grid_size, window)
+    if dev == "cuda":
+        return hpr_mask_grid_views_cuda(camera, R, t, points_world, valid, radius, tolerance,
+                                        grid_size, window)
+    raise NotImplementedError(f"hpr_mask_grid_views: no kernel for device {points_world.device}")
 
 
 def select_impl(impl: str, n: int, dense_cutoff: int) -> str:
@@ -293,6 +460,44 @@ def mask(points_camera: torch.Tensor, gate: torch.Tensor, radius: float, toleran
     return fn(points_camera, gate, radius=radius, tolerance=tolerance)
 
 
+def mask_batch(points_camera: torch.Tensor, gate: torch.Tensor, radius: float,
+               tolerance: float, impl: str = "auto", dense_cutoff: int = 100_000
+               ) -> torch.Tensor:
+    """:func:`mask` of K keyframes, (K, N, 3) and (K, N) -> (K, N): the grid
+    cull in one batch (:func:`hpr_mask_grid_batch`), the dense one a
+    keyframe at a time."""
+    if select_impl(impl, points_camera.shape[1], dense_cutoff) == "grid":
+        return hpr_mask_grid_batch(points_camera, gate, radius=radius, tolerance=tolerance)
+    rows = [hpr_mask(p, g, radius=radius, tolerance=tolerance)
+            for p, g in zip(points_camera, gate)]
+    return torch.stack(rows) if rows else torch.zeros_like(gate)
+
+
+def mask_views(camera: cam.PinholeCamera, R: torch.Tensor, t: torch.Tensor,
+               points_world: torch.Tensor, valid: torch.Tensor, radius: float,
+               tolerance: float, impl: str = "auto", dense_cutoff: int = 100_000
+               ) -> torch.Tensor:
+    """The colorize HPR masks of world points seen by V views, (V, N), by
+    the selected impl: the grid cull in one batch that transforms the points
+    itself (:func:`hpr_mask_grid_views`), the dense one a keyframe at a time
+    on :func:`view_points`."""
+    if select_impl(impl, points_world.shape[0], dense_cutoff) == "grid":
+        return hpr_mask_grid_views(camera, R, t, points_world, valid, radius=radius,
+                                   tolerance=tolerance)
+    pts, gate = view_points(camera, R, t, points_world, valid)
+    return mask_batch(pts, gate, radius, tolerance, impl, dense_cutoff)
+
+
+def _frustum(camera: cam.PinholeCamera, points_world: torch.Tensor, valid: torch.Tensor,
+             T_camera_world: se3.SE3):
+    """(points_camera, gate): the transform and the frustum gate (valid, z >
+    0, floor(u), floor(v) in the image) of `hidden_points_removal`'s
+    pre-filter (view_culling.cpp:270-289)."""
+    pts_cam = se3.transform_points(T_camera_world, points_world)
+    u, v = cam.project_uv(camera, pts_cam)
+    return pts_cam, valid & (pts_cam[..., 2] > 0.0) & cam.in_image_uv(camera, u, v)
+
+
 def cull_world_points(
     camera: cam.PinholeCamera,
     T_camera_world: se3.SE3,
@@ -307,7 +512,24 @@ def cull_world_points(
     frustum (valid, z > 0, floor(u), floor(v) in the image:
     `hidden_points_removal` pre-filters at view_culling.cpp:270-289) and
     HPR-cull; returns (points_camera, visibility_mask) (hpr.py:211-240)."""
-    pts_cam = se3.transform_points(T_camera_world, points_world)
-    u, v = cam.project_uv(camera, pts_cam)
-    gate = valid & (pts_cam[..., 2] > 0.0) & cam.in_image_uv(camera, u, v)
+    pts_cam, gate = _frustum(camera, points_world, valid, T_camera_world)
     return pts_cam, mask(pts_cam, gate, radius, tolerance, impl, dense_cutoff)
+
+
+def cull_world_points_batch(
+    camera: cam.PinholeCamera,
+    T_camera_world: se3.SE3,
+    points_world: torch.Tensor,
+    valid: torch.Tensor,
+    radius: float = DEFAULT_RADIUS,
+    tolerance: float = 0.05,
+    impl: str = "auto",
+    dense_cutoff: int = 100_000,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`cull_world_points` for K keyframes at once (``T_camera_world``
+    batched (K,)): (points_camera (K, N, 3), masks (K, N)), each keyframe's
+    the bits its own call gives (the same elementwise ops, broadcast), the
+    grid culls in one batch (:func:`mask_batch`)."""
+    k, n = T_camera_world.q.shape[0], points_world.shape[0]
+    pts_cam, gate = _frustum(camera, points_world.expand(k, n, 3), valid, T_camera_world)
+    return pts_cam, mask_batch(pts_cam, gate, radius, tolerance, impl, dense_cutoff)

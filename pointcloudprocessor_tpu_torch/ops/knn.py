@@ -27,10 +27,15 @@ Two CUDA kernels live here: :func:`smooth_local_cuda` is N1
 (`csrc/sor.cu`), the K-nearest radius search of
 :func:`chunked_radius_neighbors` in one launch, which :func:`radius_search`
 takes on CUDA tensors (the SOR filter, the VGD upsampler's nearest source).
-S1 takes the queries in a schedule that groups equal cells (the grid's own
+Both take the queries in a schedule that groups equal cells (the grid's own
 sort order ``HashGrid.order`` where the caller's queries are the grid's
-points, else :func:`cell_order`) and stages each cell's 27-bucket window
-once a block in shared memory.
+points, else :func:`cell_order`) and stage each cell's 27-bucket window
+once a block in shared memory (`csrc/cell_window.cuh`). N1's schedule is
+the order of a grid built with ``valid_first``: its colored points, the
+queries, come first, so an uncolored point stages no window. N1's bounds
+(`csrc/smooth.cu`): the unique bytes, each input read once (the counts,
+the occupied slots, points, rgb, colored, the schedule, the output), and
+the bytes of the windows it stages (27 count words and 16 B a slot each).
 ``launch_counts`` counts their launches.
 """
 
@@ -56,9 +61,10 @@ class HashGrid(NamedTuple):
         row [x_0..x_B-1, y_0.., z_0..], +inf in empty slots: the JAX
         package's planes (knn.py:94-105), kept for the plain MLS fit.
     order: optional (N,) int32, the points sorted by bucket (stable; in a
-        bucket the valid before the invalid), which :func:`build` sorts
-        anyway: the schedule that a CUDA search whose queries are the
-        grid's points is given.
+        bucket the valid before the invalid, or with ``valid_first`` all the
+        valid before all the invalid), which :func:`build` sorts anyway: the
+        schedule that a CUDA search whose queries are the grid's points is
+        given.
     """
 
     buckets: torch.Tensor
@@ -76,6 +82,7 @@ def build(
     table_size: int,
     bucket_capacity: int = 32,
     store_points: bool = False,
+    valid_first: bool = False,
 ) -> HashGrid:
     """The hash grid, built with a sort (no atomics), as the JAX package
     builds it (knn.py:51-117): hash each point's cell, sort the indices by
@@ -83,22 +90,31 @@ def build(
     of its bucket, where the JAX package sends it to a sink bucket), rank
     each valid point within its hash run, and scatter the index to (bucket,
     rank) for rank < capacity. The sorted indices are kept as ``order``.
-    ``store_points`` also scatters the coordinates into ``bucket_points``."""
+    ``store_points`` also scatters the coordinates into ``bucket_points``.
+    ``valid_first`` sorts every valid point before every invalid one (each
+    part by hash): the same tables, and an ``order`` whose valid points come
+    first, the schedule of a search whose queries are the valid points
+    (N1's colored points, :func:`smooth_local_cuda`)."""
     n = points.shape[0]
     dev = points.device
     h = voxel_hash(voxel_coords(points, cell_size), table_size)
     if table_size >= 2**30:
         h = h.to(torch.int64)
-    sorted_k, order = torch.sort(h * 2 + ~valid, stable=True)
+    if valid_first:
+        sorted_k, order = torch.sort(h + (~valid).to(h.dtype) * table_size, stable=True)
+        is_valid, bucket = sorted_k < table_size, sorted_k
+    else:
+        sorted_k, order = torch.sort(h * 2 + ~valid, stable=True)
+        is_valid, bucket = sorted_k % 2 == 0, sorted_k // 2
     # A run's start is the first index of its key in the sorted keys (the
     # JAX package's cummax of the run starts; torch's cummax on the card
     # is a slow scan: 2.7 ms at 1M points).
     rank = torch.arange(n, dtype=torch.int64, device=dev) - torch.searchsorted(sorted_k, sorted_k)
     counts = torch.zeros((table_size,), dtype=torch.int32, device=dev).scatter_add_(
         0, h.long(), valid.to(torch.int32))
-    keep = (rank < bucket_capacity) & (sorted_k % 2 == 0)
+    keep = (rank < bucket_capacity) & is_valid
     flat_slot = torch.where(
-        keep, (sorted_k // 2).long() * bucket_capacity + torch.clamp(rank, max=bucket_capacity - 1),
+        keep, bucket.long() * bucket_capacity + torch.clamp(rank, max=bucket_capacity - 1),
         table_size * bucket_capacity,
     )
     order = order.to(torch.int32)
@@ -331,10 +347,12 @@ def reset_launch_counts() -> None:
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # buckets, counts, points, rgb, colored, out, n, table, cap, cell, r2, k, stream
-    "smooth_local": ([_PTR] * 6 + [_I32] * 3 + [_F32] * 2 + [_I32, _PTR], _I32),
+    # buckets, counts, points, rgb, colored, order, out, run_sizes, n_sizes, n, table, cap,
+    # cell, r2, k, stream
+    "smooth_local": ([_PTR] * 8 + [_I32] * 4 + [_F32] * 2 + [_I32, _PTR], _I32),
 }
 MAX_BUCKET_CAPACITY = 32  # csrc/smooth.cu kMaxB
+MAX_SMOOTH_NEIGHBORS = 32  # csrc/smooth.cu kMaxK
 _SELECT_SIGNATURES = {
     # buckets, counts, points, queries, order, idx, dist, ok, run_sizes, n_sizes, n_q,
     # table, cap, cell, r2, k, exclude_self, stream
@@ -364,34 +382,51 @@ def _run_sizes(run_sizes: torch.Tensor | None, device) -> tuple[int | None, int]
 
 
 def smooth_local_cuda(grid: HashGrid, points: torch.Tensor, rgb: torch.Tensor,
-                      colored: torch.Tensor, radius: float, max_neighbors: int) -> torch.Tensor:
+                      colored: torch.Tensor, radius: float, max_neighbors: int,
+                      order: torch.Tensor | None, run_sizes: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """N1 on the card: (N, 3) colors, each colored point's the
-    ``1 / (1 + d^2)``-weighted mean of its ``max_neighbors`` nearest
-    colored points within ``radius`` (itself included), found in ``grid``
-    (built over ``points`` with ``valid = colored``); other points keep
-    their color. One launch; the plain version is
-    ``fusion.smooth_colors_local_plain``."""
+    ``1 / (1 + d^2)``-weighted mean of its ``max_neighbors`` (at most 32)
+    nearest colored points within ``radius`` (itself included), found in
+    ``grid`` (built over ``points`` with ``valid = colored``); other points
+    keep their color. One launch. The kernel takes the points in ``order``,
+    an (N,) int32 permutation that groups equal cells and lists the colored
+    points first: ``grid.order`` of a grid built with ``valid_first``. Its
+    colored points are the queries; each cell among a block's queries stages
+    its window once, and no uncolored point stages one. The colors do not
+    depend on the order (under one that interleaves them, a block also
+    takes its uncolored points as queries, which keep their color).
+    ``run_sizes``, where given, an (L,) int32 tensor on the card, gains 1 at
+    min(s, L - 1) for each window the launch stages, s its queries. The
+    plain version is ``fusion.smooth_colors_local_plain``."""
+    n = points.shape[0]
+    if order is None:
+        raise ValueError("smooth_local: the schedule `order` is required (grid.order of a "
+                         "grid built with valid_first)")
+    _check("order", order, torch.int32, (n,), points.device)
     dev = points.device
     if dev.type != "cuda":
         raise ValueError(f"smooth_local_cuda: points must be on a CUDA device, got {dev}")
-    n = points.shape[0]
     t, cap = grid.buckets.shape
     _check("buckets", grid.buckets, torch.int32, (t, cap), dev)
     _check("counts", grid.counts, torch.int32, (t,), dev)
     _check("points", points, torch.float32, (n, 3), dev)
     _check("rgb", rgb, torch.float32, (n, 3), dev)
     _check("colored", colored, torch.bool, (n,), dev)
-    if not 1 <= cap <= MAX_BUCKET_CAPACITY or max_neighbors < 1 or n >= 2**31 or t >= 2**31:
+    if (not 1 <= cap <= MAX_BUCKET_CAPACITY or not 1 <= max_neighbors <= MAX_SMOOTH_NEIGHBORS
+            or n >= 2**31 or t >= 2**31):
         raise ValueError(f"smooth_local: capacity {cap} (<= {MAX_BUCKET_CAPACITY}), "
-                         f"max_neighbors {max_neighbors}, {n} points, table {t} out of range")
+                         f"max_neighbors {max_neighbors} (1..{MAX_SMOOTH_NEIGHBORS}), {n} points, "
+                         f"table {t} out of range")
     out = torch.empty_like(rgb)
     if n == 0:
         return out
+    sizes_ptr, n_sizes = _run_sizes(run_sizes, dev)
     r2 = torch.tensor(radius * radius, dtype=torch.float32).item()
     err = kbuild.library("smooth", _SIGNATURES).smooth_local(
         grid.buckets.data_ptr(), grid.counts.data_ptr(), points.data_ptr(), rgb.data_ptr(),
-        colored.data_ptr(), out.data_ptr(), n, t, cap, float(grid.cell_size), r2,
-        int(max_neighbors), torch.cuda.current_stream(dev).cuda_stream)
+        colored.data_ptr(), order.data_ptr(), out.data_ptr(), sizes_ptr, n_sizes, n, t, cap,
+        float(grid.cell_size), r2, int(max_neighbors), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"smooth_local launch failed: CUDA error {err}")
     launch_counts["smooth_local"] += 1

@@ -24,11 +24,15 @@ keyframes (up to ``SCATTER_VIEWS`` a launch) after one memset of their key
 buffers; then pass (b), ``colorize_update`` (the same transform and
 projection again, the depth test against the keyframe's keys, the sample,
 the HSV map, the score and the register, count and label updates), once a
-keyframe. A single keyframe (:func:`fuse_keyframe` without keys,
-:func:`keyframe_rgb_mask`) is a memset and both launches; an HPR keyframe H2
-on the eager transform and one ``colorize_update``; a build or launch
-failure raises. The CPU takes the same two steps through the twins
-(:func:`depth_keys_plain`, then the twin step against those cell minima).
+keyframe. Under HPR, :func:`fuse` culls all its keyframes in one H2 call
+(:func:`hpr_masks`: its passes transform, project and gate the map in each
+view) and each keyframe is one ``colorize_update`` against its row. A
+single keyframe (:func:`fuse_keyframe` without keys or masks,
+:func:`keyframe_rgb_mask`) is a memset and both launches, or under HPR an
+H2 call of its own and one ``colorize_update``; a build or launch failure
+raises. The CPU takes the same two steps through the twins
+(:func:`depth_keys_plain` or :func:`hpr_masks`, then the twin step against
+those cell minima or masks).
 Any other device raises. Both paths update the state in place and agree bit
 for bit. ``launch_counts`` counts each kernel's launches.
 """
@@ -135,11 +139,23 @@ class KeyframeObservation(NamedTuple):
 
 
 def _hpr_visible(camera, x, y, z, u, v, valid, radius, tolerance, impl, dense_cutoff):
-    """The HPR mask of the camera-frame points, gated on the unfloored pixel
-    coordinates as the JAX package's colorize gates them (colorize.py:95-109)."""
-    gate = (valid & (z > 0.0) & (u >= 0) & (u < camera.width)
-            & (v >= 0) & (v < camera.height))
-    return hpr.mask(torch.stack([x, y, z], dim=-1), gate, radius, tolerance, impl, dense_cutoff)
+    """The HPR mask of one keyframe's camera-frame points, gated on the
+    unfloored pixel coordinates (``hpr.colorize_gate``)."""
+    return hpr.mask(torch.stack([x, y, z], dim=-1), hpr.colorize_gate(camera, z, u, v, valid),
+                    radius, tolerance, impl, dense_cutoff)
+
+
+def hpr_masks(camera, views: KeyframePose, points_world, valid, culling: dict) -> torch.Tensor:
+    """The colorize HPR masks of a batch of V keyframes, (V, N) bool, from
+    one batched cull (``hpr.mask_views``): the grid cull on the card is one
+    H2 call whose passes transform, project and gate the map themselves; its
+    twin, and the dense cull a keyframe at a time, take the transform of
+    ``se3.transform_xyz`` broadcast over the views (each keyframe gets the
+    bits it gets alone). Row j is keyframe j's ``vis`` for
+    :func:`fuse_keyframe`."""
+    return hpr.mask_views(camera, views.R, views.T.t, points_world, valid,
+                          culling["hpr_radius"], culling["hpr_tolerance"], culling["hpr_impl"],
+                          culling["hpr_dense_cutoff"])
 
 
 def observe_keyframe(
@@ -164,6 +180,7 @@ def observe_keyframe(
     hpr_impl: str = "auto",
     hpr_dense_cutoff: int = 100_000,
     cell_min: Optional[torch.Tensor] = None,
+    visible: Optional[torch.Tensor] = None,
 ) -> KeyframeObservation:
     """Project the map into one keyframe: cull (the z-buffer, or HPR with
     ``culling_method="hpr"``), sample colors (and the mask label), score
@@ -171,13 +188,17 @@ def observe_keyframe(
     unfloored pixel coordinates, as the JAX package's does
     (colorize.py:95-109). With ``cell_min`` (this keyframe's row of
     :func:`depth_keys_plain`) the z-buffer's depth test reads those cell
-    minima instead of scattering its own."""
+    minima instead of scattering its own; with ``visible`` (this keyframe's
+    row of :func:`hpr_masks`) the HPR branch takes that mask instead of
+    culling."""
     x, y, z = se3.transform_xyz(
         T_camera_world, points_world[:, 0], points_world[:, 1], points_world[:, 2]
     )
     rng = torch.sqrt(x * x + y * y + z * z)
     u, v = cam.project_xyz(camera, x, y, z)
-    if culling_method == "hpr":
+    if culling_method == "hpr" and visible is not None:
+        vis = visible
+    elif culling_method == "hpr":
         vis = _hpr_visible(camera, x, y, z, u, v, valid, hpr_radius, hpr_tolerance, hpr_impl,
                            hpr_dense_cutoff)
     elif culling_method == "zbuffer" and cell_min is None:
@@ -330,7 +351,8 @@ def cell_minima(keys: torch.Tensor) -> torch.Tensor:
 
 
 def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, mask_image,
-                   culling: dict, keys: Optional[torch.Tensor] = None, *,
+                   culling: dict, keys: Optional[torch.Tensor] = None,
+                   vis: Optional[torch.Tensor] = None, *,
                    state: Optional["FuseState"] = None, dumps=None,
                    optimal_distance: float = 2.0, score_floor: float = 0.2,
                    saturation_scale: float = 1.0, brightness_scale: float = 1.0,
@@ -339,8 +361,9 @@ def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, m
     fusion ``state`` updated in place, or the ``dumps`` (points_camera,
     rgb, label, visible) written. Under the z-buffer it reads ``keys``, the
     keyframe's row of :func:`depth_keys_cuda`, and without them runs pass
-    (a) for this keyframe first (a memset and a launch); under HPR, H2 on
-    the eager transform first."""
+    (a) for this keyframe first (a memset and a launch); under HPR it reads
+    ``vis``, the keyframe's row of :func:`hpr_masks`, and without it culls
+    this keyframe first (:func:`hpr_masks` of a batch of one)."""
     a, n = _map_args(camera, points_world, valid)
     dev = points_world.device
     h, w = image_rgb.shape[0], image_rgb.shape[1]
@@ -367,13 +390,10 @@ def _colorize_cuda(camera, pose: KeyframePose, points_world, valid, image_rgb, m
         _check_cuda("keys", keys, dev, torch.int32, (gw * gh,))
         a.keys, a.ds, a.eps = keys.data_ptr(), ds, culling["depth_epsilon"]
     elif method == "hpr":
-        # H2 (or H1) on the eager transform, then pass (b) with its mask.
-        x, y, z = se3.transform_xyz(pose.T, points_world[:, 0], points_world[:, 1],
-                                    points_world[:, 2])
-        u, v = cam.project_xyz(camera, x, y, z)
-        vis = _hpr_visible(camera, x, y, z, u, v, valid, culling["hpr_radius"],
-                           culling["hpr_tolerance"], culling["hpr_impl"],
-                           culling["hpr_dense_cutoff"])
+        # Pass (b) with the keyframe's HPR mask.
+        if vis is None:
+            vis = hpr_masks(camera, pose.batch(), points_world, valid, culling)[0]
+        _check_cuda("HPR mask", vis, dev, torch.bool, (n,))
         a.vis_in = vis.data_ptr()
     else:
         raise ValueError(f"culling.method must be 'zbuffer' or 'hpr', got {method!r}")
@@ -447,19 +467,21 @@ def fuse_keyframe_plain(
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
     keys: Optional[torch.Tensor] = None,
+    vis: Optional[torch.Tensor] = None,
     **culling,
 ) -> FuseState:
     """The twin of C1 on any device: :func:`observe_keyframe`, then
     ``fusion.update_topk``, the count and, with masks, the label of the
     strictly better visible score, written into ``state``. Under the
     z-buffer, ``keys`` (the keyframe's row of :func:`depth_keys_plain`)
-    stands in for its own scatter-min: the twin of pass (b) alone."""
+    stands in for its own scatter-min, and under HPR ``vis`` (its row of
+    :func:`hpr_masks`) for its own cull: the twin of pass (b) alone."""
     obs = observe_keyframe(
         camera, image_rgb, pose.T, points_world, valid, mask_image=mask_image,
         camera_position_world=pose.position, optimal_distance=optimal_distance,
         score_floor=score_floor, saturation_scale=saturation_scale,
         brightness_scale=brightness_scale,
-        reference_compat_orientation=reference_compat_orientation, cell_min=keys,
+        reference_compat_orientation=reference_compat_orientation, cell_min=keys, visible=vis,
         **_culling(**culling),
     )
     topk = fusion.update_topk(state.topk, obs.score, obs.rgb_packed, obs.visible)
@@ -489,6 +511,7 @@ def fuse_keyframe(
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
     keys: Optional[torch.Tensor] = None,
+    vis: Optional[torch.Tensor] = None,
     **culling,
 ) -> FuseState:
     """Fuse one keyframe into ``state`` in place and return it
@@ -496,21 +519,21 @@ def fuse_keyframe(
     K. ``culling`` holds ``culling_method``, ``downsample_factor``,
     ``depth_epsilon`` and the ``hpr_*`` options of :func:`observe_keyframe`.
     Under the z-buffer, ``keys`` is this keyframe's row of
-    :func:`depth_keys` (as :func:`fuse` makes them for all its keyframes);
-    without it the keyframe makes its own. CPU tensors take
-    :func:`fuse_keyframe_plain`, CUDA tensors C1 (with keys one launch of
-    pass (b); without, a memset and both passes; under HPR H2 and pass
-    (b)); any other device raises."""
+    :func:`depth_keys`, and under HPR ``vis`` its row of :func:`hpr_masks`
+    (as :func:`fuse` makes them for all its keyframes); without them the
+    keyframe makes its own. CPU tensors take :func:`fuse_keyframe_plain`,
+    CUDA tensors C1 (with keys or vis one launch of pass (b); without, a
+    memset and both passes, or H2 and pass (b)); any other device raises."""
     dev = points_world.device.type
     scoring = dict(optimal_distance=optimal_distance, score_floor=score_floor,
                    saturation_scale=saturation_scale, brightness_scale=brightness_scale)
     if dev == "cpu":
         return fuse_keyframe_plain(state, camera, image_rgb, pose, points_world, valid, mask_image,
                                    reference_compat_orientation=reference_compat_orientation,
-                                   keys=keys, **scoring, **culling)
+                                   keys=keys, vis=vis, **scoring, **culling)
     if dev == "cuda":
         _colorize_cuda(camera, pose, points_world, valid, image_rgb, mask_image,
-                       _culling(**culling), keys, state=state,
+                       _culling(**culling), keys, vis, state=state,
                        reference_compat=reference_compat_orientation, **scoring)
         return state
     raise NotImplementedError(f"fuse_keyframe: no kernel for device {points_world.device}")
@@ -625,7 +648,8 @@ def fuse(
     observation of strictly highest score (`best_label`). Under the z-buffer
     the keyframes' depth keys come first, for up to ``SCATTER_VIEWS`` of
     them at once (:func:`depth_keys`: on the card one memset and one
-    ``colorize_scatter`` launch), then each keyframe is one
+    ``colorize_scatter`` launch), and under HPR their masks
+    (:func:`hpr_masks`: on the card one H2 call); then each keyframe is one
     :func:`fuse_keyframe` against its row. With ``plain`` each keyframe is
     its twin :func:`fuse_keyframe_plain` with its own cull, on any device
     (the eager path C1 replaces); ``culling`` as for
@@ -637,18 +661,22 @@ def fuse(
     step = fuse_keyframe_plain if plain else fuse_keyframe
     cull = _culling(**culling)
     scatter = not plain and cull["culling_method"] == "zbuffer"
+    batch_hpr = not plain and cull["culling_method"] == "hpr"
     k = images.shape[0]
     for start in range(0, k, SCATTER_VIEWS):
         stop = min(start + SCATTER_VIEWS, k)
-        keys = (depth_keys(camera, views.at(slice(start, stop)), points_world, valid,
-                           cull["downsample_factor"]) if scatter else None)
+        batch = views.at(slice(start, stop))
+        keys = (depth_keys(camera, batch, points_world, valid, cull["downsample_factor"])
+                if scatter else None)
+        vis = hpr_masks(camera, batch, points_world, valid, cull) if batch_hpr else None
         for j in range(start, stop):
             step(state, camera, images[j].to(device), views.at(j), points_world, valid,
                  mask_images[j].to(device) if labelled else None,
                  optimal_distance=optimal_distance, score_floor=score_floor,
                  saturation_scale=saturation_scale, brightness_scale=brightness_scale,
                  reference_compat_orientation=reference_compat_orientation,
-                 keys=None if keys is None else keys[j - start], **culling)
+                 keys=None if keys is None else keys[j - start],
+                 vis=None if vis is None else vis[j - start], **culling)
     rgb, colored = fusion.blend_topk(state.topk)
     return FusionResult(
         rgb=rgb,

@@ -115,18 +115,23 @@ def _culling_kwargs(cfg: PipelineConfig) -> dict:
     )
 
 
-def _cull(camera, T_w2c: se3.SE3, points, valid, cfg: PipelineConfig):
-    """(points_camera, mask) of one keyframe's cull by ``cfg.culling.method``
-    (JAX `_cull_device`, `runner.py:122-132`)."""
+def _culls(camera, T_c2w: se3.SE3, points, valid, cfg: PipelineConfig):
+    """(points_camera, mask) of each keyframe's cull by ``cfg.culling.method``
+    (JAX `_cull_device`, `runner.py:122-132`), for the batch of camera ->
+    world poses ``T_c2w``: under HPR all of them in one batch
+    (``hpr.cull_world_points_batch``: on the card one H2 call), each
+    keyframe's the bits of its own cull; under the z-buffer one at a time."""
     c = cfg.culling
     if c.method == "hpr":
-        return hpr.cull_world_points(
-            camera, T_w2c, points, valid, radius=c.hidden_points_removal_max_z,
+        pts_cam, masks = hpr.cull_world_points_batch(
+            camera, se3.inverse(T_c2w), points, valid, radius=c.hidden_points_removal_max_z,
             tolerance=c.hpr_tolerance, impl=c.hpr_impl, dense_cutoff=c.hpr_dense_cutoff)
+        return zip(pts_cam, masks)
     if c.method == "zbuffer":
-        return zbuffer.cull_world_points(
-            camera, T_w2c, points, valid, downsample_factor=c.downsample_factor,
-            depth_epsilon=c.depth_epsilon)
+        return (zbuffer.cull_world_points(
+            camera, se3.inverse(se3.SE3(T_c2w.q[j], T_c2w.t[j])), points, valid,
+            downsample_factor=c.downsample_factor, depth_epsilon=c.depth_epsilon)
+            for j in range(T_c2w.q.shape[0]))
     raise ValueError(f"culling.method must be 'zbuffer' or 'hpr', got {c.method!r}")
 
 
@@ -137,16 +142,17 @@ def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = 
     ``<ts>_beforeNID.pcd`` dumps are written when ``save_dir`` is set).
 
     A keyframe with more visible points than ``culled_capacity`` keeps an
-    evenly spaced subset, the same indices as the JAX runner picks."""
+    evenly spaced subset, the same indices as the JAX runner picks. Under
+    ``culling.method="hpr"`` all the keyframes are culled in one batch
+    (:func:`_culls`)."""
     device = map_cloud.points.device
     cap = cfg.culled_capacity
     bins = cfg.nid.bins
     norm_cloud = cl.normalize_intensity(map_cloud)
     poses = _camera_to_world(frames, kf_idx, _extrinsic_lidar_to_cam(cfg, device), device)
+    culls = _culls(camera, poses, norm_cloud.points, norm_cloud.valid, cfg)
     pts_list, int_list, val_list, bin_list = [], [], [], []
-    for j, i in enumerate(kf_idx):
-        T_c2w = se3.SE3(poses.q[j], poses.t[j])
-        pts_cam, mask = _cull(camera, se3.inverse(T_c2w), norm_cloud.points, norm_cloud.valid, cfg)
+    for i, (pts_cam, mask) in zip(kf_idx, culls):
         vis_idx = torch.nonzero(mask, as_tuple=True)[0]
         n_vis = vis_idx.numel()
         if n_vis > cap:

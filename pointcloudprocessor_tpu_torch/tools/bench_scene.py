@@ -245,6 +245,41 @@ def hpr_edge_sets(seed: int = SEED, n_bulk: int = 4096) -> dict:
     return sets
 
 
+SMOOTH_EDGE_RADIUS = 0.02
+SMOOTH_EDGE_STEP = 2.0 ** -7  # a lattice step whose coordinates, offsets and squares are exact in f32
+
+
+def smooth_edge_clouds(seed: int = SEED) -> dict:
+    """Inputs of the local color smoothing (N1) at its edges, {name: (points
+    (n, 3) f32, colored (n,) bool, radius)}: "ties at the 32nd" (a lattice of
+    step 2^-7 m: an interior point has 27 neighbors up to 3 steps^2 and 6 at
+    exactly 4 steps^2 inside 0.02 m, so its 32nd nearest falls among 6 at one
+    distance and the tie-break picks 5); "shared buckets" (300 points,
+    ~300 occupied cells in a table of 1024: many 27-cell windows list a
+    bucket twice); "over capacity" (60 colored points in one cell, more than
+    a bucket's 32); "cell faces" (every coordinate on a face of the 0.25 m
+    cells or a step past it); "all uncolored"; "all colored"; "ragged n"
+    (1,001 points)."""
+    rs = np.random.default_rng(seed + 5)
+    f32, r = np.float32, SMOOTH_EDGE_RADIUS
+    g = np.arange(9, dtype=f32) * f32(SMOOTH_EDGE_STEP)
+    lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    sets = {"ties at the 32nd": (lattice, np.ones(len(lattice), bool), r)}
+    p = (rs.uniform(0, 1, (300, 3)) * 0.3).astype(f32)
+    sets["shared buckets"] = (p, rs.uniform(size=300) > 0.1, r)
+    p = np.concatenate([rs.uniform(0.001, 0.019, (60, 3)), rs.uniform(0, 0.1, (400, 3))])
+    sets["over capacity"] = (p.astype(f32), np.ones(len(p), bool), r)
+    p = (rs.integers(-6, 6, (2000, 3)) * 0.125 + rs.integers(0, 2, (2000, 3))
+         * SMOOTH_EDGE_STEP).astype(f32)
+    sets["cell faces"] = (p, rs.uniform(size=2000) > 0.2, 0.25)
+    p = rs.uniform(0, 0.2, (800, 3)).astype(f32)
+    sets["all uncolored"] = (p, np.zeros(800, bool), r)
+    sets["all colored"] = (p, np.ones(800, bool), r)
+    p = rs.uniform(0, 0.25, (1001, 3)).astype(f32)
+    sets["ragged n"] = (p, rs.uniform(size=1001) > 0.3, r)
+    return sets
+
+
 def mls_scene(n_points: int, seed: int = 1) -> np.ndarray:
     """(n_points, 3) f32: the MLS bench's hardened corner (`bench.py:553-578`),
     drawn as it draws it. Three pieces with 5 mm surface noise: a dense wall

@@ -195,9 +195,9 @@ def test_smooth_colors_local_device_dispatch():
     p, colored, rgb = _cloud(n=300)
     args = (torch.from_numpy(p), torch.from_numpy(rgb), torch.from_numpy(colored), 0.1)
     assert torch.equal(tfus.smooth_colors_local(*args), tfus.smooth_colors_local_plain(*args))
-    grid = tknn.build(args[0], args[2], 0.1, 1024)
+    grid = tknn.build(args[0], args[2], 0.1, 1024, valid_first=True)
     with pytest.raises(ValueError, match="CUDA"):
-        tknn.smooth_local_cuda(grid, args[0], args[1], args[2], 0.1, 32)
+        tknn.smooth_local_cuda(grid, args[0], args[1], args[2], 0.1, 32, grid.order)
     meta = torch.zeros((4, 3), device="meta")
     with pytest.raises(NotImplementedError):
         tfus.smooth_colors_local(meta, meta, torch.ones((4,), dtype=torch.bool, device="meta"),
