@@ -132,13 +132,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    z-buffer kernels or H1. Then the same run through the twins of H2, N1,
    C1, G1 and the packer (no kernel of the path launched): the same pose,
    NID, evaluations, gathers and colored points at the same positions, the
-   colors within 1 of 255 as written (``compare_smoothed``).
-9. H1 (``phase_hpr_dense``): the dense cull on the two-wall scene at
+   colors within 1 of 255 as written (``compare_smoothed``). Then the
+   small-map path: the same run on ``bench_scene.scene_map(100_000)``
+   (``SMALL_MAP``, written beside map.pcd; the same JPEGs and odometry;
+   65,536 culled points a keyframe; outputs under ``out_small``), where
+   "auto" takes H1: 2 calls of H1 (one for the 8 NID culls, one for the 8
+   colorize culls), none of H2, each of the 16 masks bit-equal to the dense
+   twin run on the CPU on the same inputs; its pose, NID and colored points
+   printed beside the same run through the dense twin on the card (the
+   pose is printed, not gated; the texture bar holds outside the
+   occluder's shadow, 0.6 inside it).
+9. H1 (``phase_hpr_dense``): the tiled dense cull on the two-wall scene at
    100,000 and 262,144 points bit-equal to its twin run on the CPU on the
-   same inputs (all directions, then every 16th); against the twin run on
-   the card the differing bits and their margins in ulp of 2R; device and
-   call times beside the N^2 x 3 FMA bound, the card twin and the chunked
-   product; one 1M-point keyframe cull of the scene with ``impl="dense"``.
+   same inputs (all directions, then every 16th), and at 20,000 points
+   with R = 1 (every pair kept); its pairs evaluated and subtiles kept
+   (counted by the kernel, ``hpr.support_stats``) equal to
+   ``hpr_support_tiled_plain``'s at 100,000; against the twin run on the
+   card the differing bits and their margins in ulp of 2R; device and call
+   times at both sizes beside two bounds (the dense N^2 x 3 FMA, and the
+   inputs' own need: the needed pairs x 4 instructions at the instruction rate,
+   or N x 14 B), the card twin and the chunked product; ``torch.profiler``
+   asserts one launch each of ``hpr_flip``, ``hpr_describe`` and
+   ``hpr_support_kernel`` and the same device launches a call at every
+   size and batch; one 1M-point keyframe cull of the scene with the dense
+   test (every 256th direction against the CPU twin); the 8 colorize culls
+   of the 100,000-point map in one call, each row equal to its keyframe's
+   own call, beside the 8 one at a time.
 10. H2 (``phase_hpr_grid``): the grid cull bit-equal to its twin on the
    two-wall scene at 262,144 points and on ``bench_scene.hpr_edge_sets``
    (also strided and unaligned, and one point); then in batches, every
@@ -218,9 +237,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    buffers (and fuses).
 
 The launch counts are set to 0 just before each path and read just after;
-a kernel's ``launches`` are those of the headline run, H1/H2/N1's those of
-the HPR + smoothing run (H2's a call of a memset and four launches), M1/S1's those of the MLS run (each also carries
-the other paths' counts as ``launches_<path>``).
+a kernel's ``launches`` are those of the headline run, H1's those of the
+small-map run (a call a cull batch), H2/N1's those of the HPR + smoothing
+run (H2's a call of a memset and four launches), M1/S1's those of the MLS
+run (each also carries the other paths' counts as ``launches_<path>``).
 The line before the last is a JSON object describing each kernel: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (a sleep kernel queued
 ahead of the start event hides the host's enqueue; where a twin's host side
@@ -265,6 +285,12 @@ error and mismatches over every cull checked, the probe's (``probe_*``),
 the twins with cells given (``cells_given_plain_ms``), step 0's
 (``step0_*``) and the whole cull's (``whole_cull_*``, with its launches
 and bound; ``plain_whole_cull_*`` for the twin).
+H1 carries its device time at 262,144 two-wall points as ``ms`` (and at
+100,000, ``ms_100000``), the bound from the inputs' need as ``bound_ms``
+beside ``dense_bound_ms``, the needed pairs, the pairs evaluated and the
+subtiles kept at both sizes, ``launches_a_call``, the 1M-point scene
+cull's time (``scene_1m_ms``) and the small map's 8 colorize culls in one
+call (``small_map_batch8_ms``) and one at a time.
 H2 carries the 8 colorize culls' device time in the views form as ``ms``
 (``camera_form_ms``, ``nid_batch_ms``, ``one_at_a_time_ms`` and
 ``eager_camera_form_ms`` beside it), each form's bound and ``passes_us``;
@@ -292,6 +318,11 @@ PKG = "pointcloudprocessor_tpu_torch"
 # Main-path shapes: bench.py's full scale (tools/bench_scene.py holds the
 # scene itself).
 WIDTH, HEIGHT, N_MAP, N_CULL, K = 4096, 3000, 1_000_000, 262_144, 8
+# The small-map path: the scene's map drawn at the dense cutoff, where
+# culling.hpr_impl "auto" takes H1 (the cutoff is ">"); its culls keep
+# 62,000-68,000 gated points and ~42,000-50,000 visible, so 65,536 culled
+# points a keyframe hold every visible one.
+SMALL_N_MAP, SMALL_N_CULL, SMALL_MAP = 100_000, 65_536, "map_100k.pcd"
 SEED = 0
 # NID schedules: the headline (bench.py:797-805) and the plain objective
 # (frozen taps and coarse-to-fine off). 20 inner iterations as in bench.py's
@@ -717,6 +748,8 @@ def write_scene(root, device="cuda"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     points, inten = bs.scene_map(N_MAP, WIDTH, HEIGHT, SEED)
     pcd.write(os.path.join(root, "map.pcd"), points, intensity=inten)
+    points, inten = bs.scene_map(SMALL_N_MAP, WIDTH, HEIGHT, SEED)
+    pcd.write(os.path.join(root, SMALL_MAP), points, intensity=inten)
 
     quats, positions = bs.scene_trajectory(K)
     T0, op = bs.scene_odometry(K)
@@ -750,22 +783,29 @@ def write_scene(root, device="cuda"):
             codec = "PIL"
             Image.fromarray(img).save(name, quality=95)
             Image.fromarray(mask).save(mask_name)
-    print(f"scene written in {time.perf_counter() - t0:.1f} s: {N_MAP} points, {K} "
+    print(f"scene written in {time.perf_counter() - t0:.1f} s: {N_MAP} points ({SMALL_N_MAP} "
+          f"in {SMALL_MAP}), {K} "
           f"{WIDTH}x{HEIGHT} JPEGs and PNG masks ({codec}); PCD codec: "
           f"{'native' if native.available() else 'numpy fallback'}")
     return T0
 
 
-def _config(root, nid, masks=False, hpr=False, mls=False):
+def _config(root, nid, masks=False, hpr=False, mls=False, small=False):
     """The pipeline config of the smoke scene (bench.py's e2e config,
     `bench.py:766-806`, ``bench_scene.e2e_config``) with the given
     NIDConfig, with the scene's mask folder if ``masks``, with HPR culling
-    (``hpr_impl`` "auto": the grid at 1M points) and local color smoothing
-    at ``SMOOTH_RADIUS`` if ``hpr``, with the MLS stage
-    (``upsampling="none"``) if ``mls``."""
+    (``hpr_impl`` "auto": the grid at 1M points, H1 on the small map) and
+    local color smoothing at ``SMOOTH_RADIUS`` if ``hpr``, with the MLS
+    stage (``upsampling="none"``) if ``mls``; on the 100,000-point map
+    (``SMALL_MAP``, ``SMALL_N_CULL`` culled points a keyframe) if
+    ``small``."""
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
-    cfg = bs.e2e_config(root, nid, mls, WIDTH, HEIGHT, N_MAP, N_CULL, K)
+    n_map, n_cull = (SMALL_N_MAP, SMALL_N_CULL) if small else (N_MAP, N_CULL)
+    cfg = bs.e2e_config(root, nid, mls, WIDTH, HEIGHT, n_map, n_cull, K)
+    if small:  # its own outputs: the later phases read the 1M-point run's crop
+        cfg.point_cloud_path = os.path.join(root, SMALL_MAP)
+        cfg.output_path = os.path.join(root, "out_small")
     if masks:
         cfg.mask_image_folder = os.path.join(root, "masks")
     if hpr:
@@ -805,7 +845,7 @@ def _pose_error(T, T0):
 
 
 def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False, mls=False,
-                 eager=False):
+                 eager=False, small=False):
     """``runner.process`` on the smoke scene under ``nid`` (with the mask
     folder if ``masks``; with HPR culling and local smoothing if ``hpr``;
     with the MLS map stage if ``mls``), the launch counts set to 0 just
@@ -828,8 +868,14 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     through ``fuse_keyframe_plain`` with its own cull; ``direct_take_plain``,
     ``pack_bins_plain``; with ``hpr`` also H2's and N1's,
     ``hpr_mask_grid_plain``, ``hpr_mask_grid_batch_plain`` and
-    ``smooth_colors_local_plain``): the eager path they replaced, whose
-    z-buffer culls take the z-buffer kernels. Prints the
+    ``smooth_colors_local_plain``; on the small map the dense twin,
+    ``hpr_mask_plain`` a keyframe at a time on the card): the eager path
+    they replaced, whose z-buffer culls take the z-buffer kernels. With
+    ``small`` (and ``hpr``) the run is on the 100,000-point map, where
+    "auto" takes H1: two ``hpr_support`` calls (the 8 NID culls, then the 8
+    colorize culls), no H2, and each of the 16 masks bit-equal to the dense
+    twin run on the CPU on the same inputs (:func:`check_dense_culls`); its
+    pose is printed, not gated. Prints the
     solve's peak device memory above what was held at its entry. Returns
     (launches, summary): the pose, NID, evaluations, gathers, colored
     points, the colored cloud's SHA-256 and its (points, rgb), the
@@ -848,11 +894,15 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     from pointcloudprocessor_tpu_torch.pipeline import colorize, runner
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
 
-    cfg = _config(root, nid, masks, hpr, mls)
+    assert hpr or not small
+    cfg = _config(root, nid, masks, hpr, mls, small)
+    n_cull = cfg.culled_capacity
     shutil.rmtree(cfg.output_path, ignore_errors=True)
     kernels = (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins,
-               hpr_ops.hpr_mask_grid, hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local)
+               hpr_ops.hpr_mask_grid, hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local,
+               hpr_ops.hpr_mask, hpr_ops.hpr_mask_dense_batch)
     wrapped = (nid_mod.prepare_keyframes, refine.refine_pose)
+    dense_culls = []
     if eager:
         assert not masks
         colorize.fuse = functools.partial(colorize.fuse, plain=True)
@@ -861,6 +911,20 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         hpr_ops.hpr_mask_grid = hpr_ops.hpr_mask_grid_plain
         hpr_ops.hpr_mask_grid_batch = hpr_ops.hpr_mask_grid_batch_plain
         fusion.smooth_colors_local = fusion.smooth_colors_local_plain
+
+        def dense_twin(points, gate, radius, tolerance):
+            return torch.stack([hpr_ops.hpr_mask_plain(p, g, radius, tolerance)
+                                for p, g in zip(points, gate)])
+
+        hpr_ops.hpr_mask = hpr_ops.hpr_mask_plain  # the twin step's own culls
+        hpr_ops.hpr_mask_dense_batch = dense_twin
+    elif small:
+        def dense_batch(points, gate, radius, tolerance):  # records each cull batch
+            out = kernels[-1](points, gate, radius, tolerance)
+            dense_culls.append((points, gate, radius, tolerance, out))
+            return out
+
+        hpr_ops.hpr_mask_dense_batch = dense_batch
     tables, peaks = [], []
 
     def prepare(*args, **kw):  # what the solve's keyframes carry
@@ -886,7 +950,8 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         res = runner.process(cfg, device)
     finally:
         (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins, hpr_ops.hpr_mask_grid,
-         hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local) = kernels
+         hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local, hpr_ops.hpr_mask,
+         hpr_ops.hpr_mask_dense_batch) = kernels
         nid_mod.prepare_keyframes, refine.refine_pose = wrapped
     wall = time.perf_counter() - t0
     assert tables and not any(tables), f"the solve's keyframes carried a tap table: {tables}"
@@ -905,7 +970,11 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
           f"{f'{peaks[0]:.1f} MiB' if peaks else 'not measured'}; launches {launches}")
     assert res.num_keyframes == K, res.num_keyframes
     assert np.isfinite(res.nid_value), res.nid_value
-    assert err_cm < 1.0 and err_deg < 1.0, "refine did not recover the planted error"
+    if small:  # printed, not gated: the masks are this path's gate
+        print(f"{label}: planted error recovered to 1 cm / 1 deg: "
+              f"{err_cm < 1.0 and err_deg < 1.0}")
+    else:
+        assert err_cm < 1.0 and err_deg < 1.0, "refine did not recover the planted error"
     assert res.num_colored_points > 0
     with open(res.colored_cloud_path, "rb") as f:
         summary = {"T": (res.T_correction.q.tolist(), res.T_correction.t.tolist()),
@@ -926,6 +995,7 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         assert launches["colorize_update"] == 0, launches
         if hpr:  # every cull and the smoothing through the twins
             assert launches["hpr_grid"] == launches["smooth_local"] == 0, launches
+            assert launches["hpr_support"] == 0, launches
             assert launches["zmin"] == launches["zbuffer_visible"] == 0, launches
         else:  # the NID and colorize culls on the z-buffer kernels
             assert launches["zmin"] == launches["zbuffer_visible"] == 2 * K, launches
@@ -935,9 +1005,12 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         # (under HPR, one H2 call) once for all its keyframes and pass (b)
         # once a keyframe, each mask dump both (under HPR, H2 and pass (b)).
         steps = (2 if masks else 1) * K
-        if hpr:
+        if hpr and small:  # "auto" takes H1: one call a cull batch
+            assert launches["hpr_support"] == 2 and launches["hpr_grid"] == 0, launches
+        if hpr and not small:
             assert launches["hpr_grid"] == 2 + steps - K and launches["hpr_support"] == 0, (
                 launches)
+        if hpr:
             assert launches["zmin"] == launches["zbuffer_visible"] == 0, launches
             assert launches["colorize_scatter"] == 0, launches
             assert launches["colorize_update"] == steps, (steps, launches)
@@ -953,17 +1026,19 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         # included, and the final exact evaluation.
         if nid.frozen_taps:
             coarse = sum(c for n, c in launches["launches_by_n"]["nid_hist_fwd"].items()
-                         if int(n) < N_CULL)
+                         if int(n) < n_cull)
             takes = coarse + refined["gathers"] + 1
             by_n = launches["launches_by_n"]["tap_take"]
-            assert by_n.get(str(N_CULL), 0) == refined["gathers"] + 1, launches
-            assert by_n.get(str(N_CULL // nid.coarse_stride), 0) == coarse, launches
+            assert by_n.get(str(n_cull), 0) == refined["gathers"] + 1, launches
+            assert by_n.get(str(n_cull // nid.coarse_stride), 0) == coarse, launches
         else:
             takes = launches["nid_hist_fwd"]
         assert launches["tap_take"] == takes, (takes, launches)
         assert launches["bin_pack"] == 1, launches  # one a solve
         assert launches["mls_moments"] == (1 if mls else 0), launches
         assert launches["knn_select"] == (2 if mls else 0), launches
+    if small and not eager:
+        summary["dense_culls"] = check_dense_culls(card, label, dense_culls)
     if mls:
         t = res.timings
         split = {k: round(t[k], 3) for k in ("mls_sor1", "mls_fit", "mls_sor2", "mls_write")}
@@ -1005,9 +1080,53 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         # cells go empty ~5x as often and more shadowed wall points take its
         # colors: the bar holds where the cull has no work.
         assert corr_open > 0.8 and corr > 0.7, (corr, corr_open)
+    elif small:
+        # A tenth of the map's points: the occluder's 12,500 leave gaps that
+        # shadowed wall points show through, taking colors the texture does
+        # not predict; the bar holds where the cull has no work.
+        assert corr_open > 0.8 and corr > 0.6, (corr, corr_open)
     else:
         assert corr > 0.8, corr
     return launches, summary
+
+
+def check_dense_culls(card, label, culls):
+    """Each mask of the small-map path's H1 calls against the dense twin
+    run on the CPU on the same inputs (its directions at the gated points:
+    the rest are not ok, so hidden), bit for bit; asserts two calls of K
+    culls. Returns the mask bits checked and the visible points."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import hpr
+
+    assert len(culls) == 2 and all(c[0].shape[0] == K for c in culls), [
+        tuple(c[0].shape) for c in culls]
+    t0 = time.perf_counter()
+    checked, visible = 0, []
+    for points, gate, radius, tol, out in culls:
+        for p, g, o in zip(points.cpu(), gate.cpu(), out.cpu()):
+            rows = torch.nonzero(g).flatten()
+            ok, sup, self_ = hpr.hpr_support_plain(p, g, radius, rows=rows)
+            want = torch.zeros_like(g)
+            want[rows] = ok & (sup - self_ <= tol)
+            differ = int((o != want).sum())
+            assert differ == 0, f"{label}: an H1 cull differs from the CPU twin in {differ} bits"
+            checked += g.numel()
+            visible.append(int(o.sum()))
+    print(f"[{card}] {label}: the {2 * K} H1 culls (8 NID, 8 colorize) bit-equal to the dense "
+          f"twin on the CPU, {checked} mask bits; visible {visible} "
+          f"(checked in {time.perf_counter() - t0:.1f} s)")
+    return {"bits": checked, "visible": visible}
+
+
+def compare_dense_twins(card, run, twins):
+    """The small-map path against the same run through the dense twin on
+    the card (its norm and cuBLAS product round otherwise than the CPU's,
+    so a mask bit may differ): pose, NID and colored points side by side,
+    printed, not gated."""
+    keys = ("T", "nid", "evaluations", "colored")
+    print(f"[{card}] small map, H1 vs the dense twin on the card: "
+          + json.dumps({k: [run[k], twins[k]] for k in keys}))
 
 
 def compare_smoothed(card, run, twins):
@@ -2211,6 +2330,8 @@ def phase_colorize(card, root, T0, device="cuda"):
 # bench_hpr size (`bench.py:665-697`), and the smoothing radius: ~15 colored
 # neighbors a wall point at the scene's density (7/8 of 1M points on ~30 m^2).
 HPR_DENSE_N = (100_000, 262_144)
+HPR_DENSE_SCENE_STRIDE = 256  # the 1M-point scene cull's directions checked on the CPU
+HPR_DENSE_R1_N = 20_000  # the R = 1 set: every range past 2R, every pair kept
 HPR_GRID_N = 262_144
 SMOOTH_RADIUS = 0.015
 HPR_TOL = 0.05
@@ -2233,109 +2354,218 @@ def _scene_colorize_cull(camera, cloud, q, t):
     return torch.stack([x, y, z], dim=-1), gate
 
 
+def _h1_profile(card, label, fn, device):
+    """``torch.profiler`` over one H1 call: asserts one launch each of
+    ``hpr_flip``, ``hpr_describe`` and ``hpr_support_kernel``; returns
+    {name: [launches, mean us]} (None off the card)."""
+    prof = _kernel_profile(fn, device, reps=5)
+    if prof is None:
+        return None
+    print(f"[{card}] H1 {label}, device work a call (launches, mean us): "
+          + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
+    for name in ("hpr_flip", "hpr_describe", "hpr_support_kernel"):
+        assert prof.get(name, [0])[0] == 1, (name, prof)
+    return prof
+
+
+# H1's bound from the inputs' own need: 4 instructions a needed pair (3 FMA
+# and a max) at the card's instruction rate, 128 lanes an SM x 132 SMs x 1.98 GHz
+# (F32_OPS_S / 2), or N x 14 B (x, y, z, valid in, the mask out).
+H1_INSTR_S = F32_OPS_S / 2
+
+
 def phase_hpr_dense(card, root, device="cuda"):
-    """H1 on the two-wall scene (z jitter 0.3 m, 2% invalid) at the dense
-    cutoff and at bench.py's culled size, bit-equal to its twin run on the
-    CPU on the same inputs (every direction at the cutoff; every 16th at
-    262,144 points, the CPU's product taking a minute for all): the twin on
-    the CPU is the JAX package's arithmetic. Against the twin run on the
-    card, whose norm and cuBLAS product round otherwise, the mask bits that
-    differ and their margins (support - self support - tol) in ulp of 2R
-    are printed. Device and call times beside the N^2 x 3 FMA bound, the
-    card twin's and the chunked product's; then one 1M-point colorize cull
-    of the scene's keyframe 0 with the dense test (what the TPU-chosen
-    ``dense_cutoff`` saves on this card). Returns the kernel's record."""
+    """H1 (the tiled dense cull) on the two-wall scene (z jitter 0.3 m, 2%
+    invalid) at the dense cutoff and at bench.py's culled size, bit-equal to
+    its twin run on the CPU on the same inputs (every direction at the
+    cutoff, every 16th at 262,144 points), and at 20,000 points with R = 1
+    (every range past 2R: no subtile skipped); its pairs evaluated and
+    subtiles kept (counted by the kernel) equal to
+    ``hpr_support_tiled_plain``'s on the card at the cutoff. Against the
+    twin run on the card, whose norm and cuBLAS product round otherwise, the
+    mask bits that differ and their margins in ulp of 2R are printed.
+    Device and call times at both sizes beside two bounds (the dense N^2 x
+    3 FMA; the inputs' own need: the needed pairs, counted by
+    ``tools/hpr_dense_probe.needed_pairs``, x 4 instructions at the instruction
+    rate, or N x 14 B), the card twin's and the chunked product's; the
+    launches a call (``torch.profiler``), the same at both sizes and for a
+    batch. Then one 1M-point colorize cull of the scene's keyframe 0 with
+    the dense test, every 256th direction against the CPU twin, and the 8
+    colorize culls of the 100,000-point map (the small-map path's) in one
+    batch, each row equal to its keyframe's own call. Returns the kernel's
+    record."""
     import torch
 
     from pointcloudprocessor_tpu_torch.ops import hpr
     from pointcloudprocessor_tpu_torch.pipeline import runner
     from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+    from pointcloudprocessor_tpu_torch.tools import hpr_dense_probe as probe
     from pointcloudprocessor_tpu_torch.utils import profiling
 
     ulp = float(np.spacing(np.float32(2.0 * hpr.DEFAULT_RADIUS)))
     where = "card" if device == "cuda" else device
     rec = {"mismatches": 0, "card_twin_flips": 0, "card_twin_flips_outside_2ulp": 0,
            "card_twin_max_margin_ulp": 0.0, "max_abs_err": 0.0}
+
+    def stats_of(fn):
+        """(result, [pairs evaluated, subtiles kept]) of one H1 call."""
+        hpr.support_stats = torch.zeros(2, dtype=torch.int64, device=device) \
+            if device == "cuda" else None
+        try:
+            out = fn()
+            return out, (hpr.support_stats.tolist() if device == "cuda" else None)
+        finally:
+            hpr.support_stats = None
+
+    def check_cpu(label, pts, valid, rows, radius=hpr.DEFAULT_RADIUS):
+        got, kept = stats_of(lambda: hpr.hpr_mask(pts, valid, radius))
+        ok_c, sup_c, self_c = hpr.hpr_support_plain(pts.cpu(), valid.cpu(), radius, rows=rows)
+        differ = int((got.cpu()[rows] != (ok_c & (sup_c - self_c <= HPR_TOL))).sum())
+        rec["mismatches"] += differ
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(differ > 0))
+        print(f"H1 hpr_support on {label}: {int(got.sum())} visible; against the twin on the "
+              f"CPU ({rows.numel()} directions): {differ} mask bits differ (bit-equal "
+              f"required); pairs evaluated, subtiles kept: {kept}")
+        assert differ == 0, f"H1 disagrees with its twin on {label}"
+        return got, kept
+
+    sets = {}
     for n in HPR_DENSE_N:
-        p_np, v_np = bs.two_walls(n, SEED, z_jitter=0.3, invalid=0.02)
-        pts, valid = torch.from_numpy(p_np).to(device), torch.from_numpy(v_np).to(device)
-        got = hpr.hpr_mask(pts, valid)
+        pts, valid = probe.two_wall_set(n, device)
         rows = torch.arange(0, n, 1 if n <= HPR_DENSE_N[0] else 16)
-        ok_c, sup_c, self_c = hpr.hpr_support_plain(torch.from_numpy(p_np), torch.from_numpy(v_np),
-                                                    rows=rows)
-        want_c = ok_c & (sup_c - self_c <= HPR_TOL)
-        diff_c = got.cpu()[rows] != want_c
-        rec["mismatches"] += int(diff_c.sum())
-        rec["max_abs_err"] = max(rec["max_abs_err"], float(diff_c.float().max()))
+        got, kept = check_cpu(f"two walls, {n} points", pts, valid, rows)
         ok, sup, self_ = hpr.hpr_support_plain(pts, valid)
         want = ok & (sup - self_ <= HPR_TOL)
         diff = got != want
         margin_ulp = ((sup - self_ - HPR_TOL).abs() / ulp)[diff]
         n_out = int((margin_ulp > 2.0).sum())
-        drift = float(((sup.cpu()[rows] - sup_c).abs()[ok_c]).max() / ulp)
         rec["card_twin_flips"] += int(diff.sum())
         rec["card_twin_flips_outside_2ulp"] += n_out
         if margin_ulp.numel():
             rec["card_twin_max_margin_ulp"] = max(rec["card_twin_max_margin_ulp"],
                                                   float(margin_ulp.max()))
-        print(f"H1 hpr_support on two walls, {n} points: {int(got.sum())} visible; against the "
-              f"twin on the CPU ({rows.numel()} directions): {int(diff_c.sum())} mask bits "
-              f"differ (bit-equal required); against the twin on the {where}: {int(diff.sum())} "
-              f"differ, {n_out} with a margin over 2 ulp of 2R ({ulp} m), the card twin's "
-              f"supports {drift:.1f} ulp from the CPU twin's at most")
-        assert int(diff_c.sum()) == 0, f"H1 disagrees with its twin at {n} points"
-    # Times at bench.py's culled size (the last set).
-    r = torch.linalg.vector_norm(pts, dim=-1)
-    okm = valid & (r > 1e-9)
-    u = pts / torch.clamp(r, min=1e-12)[:, None]
-    ft = torch.where(okm[:, None], u * (2.0 * hpr.DEFAULT_RADIUS - r)[:, None], 0.0).T.contiguous()
-    dirs = torch.where(okm[:, None], u, 0.0)
+        print(f"  against the twin on the {where}: {int(diff.sum())} differ, {n_out} with a "
+              f"margin over 2 ulp of 2R ({ulp} m)")
+        need = probe.needed_pairs(pts, valid)
+        sets[n] = (pts, valid, kept, need)
+    # The tiled plan in torch on the same device: the kernel's counts.
+    n0 = HPR_DENSE_N[0]
+    pts, valid, kept, _ = sets[n0]
+    _, _, _, tiled = hpr.hpr_support_tiled_plain(pts, valid)
+    print(f"H1 at {n0} points: pairs evaluated and subtiles kept {kept}, "
+          f"hpr_support_tiled_plain's {list(tiled)}")
+    if device == "cuda":
+        assert kept == list(tiled), (kept, tiled)
+    # R = 1: every flipped point has s <= 0, so the rule keeps every subtile.
+    p_np, v_np = bs.two_walls(HPR_DENSE_R1_N, SEED + 1, z_jitter=0.3, invalid=0.02)
+    pts1, val1 = torch.from_numpy(p_np).to(device), torch.from_numpy(v_np).to(device)
+    _, kept_r1 = check_cpu(f"two walls, {HPR_DENSE_R1_N} points, R = 1", pts1, val1,
+                           torch.arange(HPR_DENSE_R1_N), radius=1.0)
+    n_ok = int(val1.sum())
+    if device == "cuda":
+        assert kept_r1[0] == n_ok * n_ok, (kept_r1, n_ok)
+    # Times at both sizes, bench.py's culled size last.
+    dev_t, call_t, prof = {}, {}, {}
+    for n, (pts, valid, kept, need) in sets.items():
+        r = torch.linalg.vector_norm(pts, dim=-1)
+        okm = valid & (r > 1e-9)
+        u = pts / torch.clamp(r, min=1e-12)[:, None]
+        ft = torch.where(okm[:, None], u * (2.0 * hpr.DEFAULT_RADIUS - r)[:, None],
+                         0.0).T.contiguous()
+        dirs = torch.where(okm[:, None], u, 0.0)
 
-    def product():
-        return [torch.amax(dirs[s: s + 4096] @ ft, dim=1) for s in range(0, n, 4096)]
+        def product(dirs=dirs, ft=ft, n=n):
+            return [torch.amax(dirs[s: s + 4096] @ ft, dim=1) for s in range(0, n, 4096)]
 
-    def kernel():
-        return hpr.hpr_mask(pts, valid)
+        def kernel(pts=pts, valid=valid):
+            return hpr.hpr_mask(pts, valid)
 
-    def twin():
-        return hpr.hpr_mask_plain(pts, valid)
+        def twin(pts=pts, valid=valid):
+            return hpr.hpr_mask_plain(pts, valid)
 
-    dev_t = {k: _device_ms(fn, device) for k, fn in (("kernel", kernel), ("twin", twin),
-                                                      ("chunked product", product),
-                                                      ("kernel again", kernel))}
-    # The twin's and the product's host side outlast the hidden window: their
-    # device time is refused, and their time a call stands in for it.
-    call_t = {k: profiling.median_ms(fn, device, reps=20 if k == "kernel" else 5)
-              for k, fn in (("kernel", kernel), ("twin", twin), ("chunked product", product))}
-    b_ms, by = _bound(_nbytes(pts, valid, got), 6.0 * n * n)
-    share = f"{b_ms / dev_t['kernel']:.2f}" if dev_t["kernel"] else "not measured"
-    print(f"[{card}] H1 at {n} points: device ms: "
-          + ", ".join(f"{k} {_ms(t)}" for k, t in dev_t.items())
-          + "; a call: " + ", ".join(f"{k} {_ms(t)}" for k, t in call_t.items())
-          + f"; bound {b_ms:.3f} ms ({by}: {n}^2 x 3 FMA at 67 TFLOP/s), kernel at {share}")
-    prof = _kernel_profile(kernel, device, reps=3)
-    if prof is not None:
-        print(f"[{card}] H1 device work a call: "
-              + json.dumps({k: [c, round(us, 2)] for k, (c, us) in prof.items()}))
-        assert _kernel_launches(prof) == 2, prof
-    # The dense test on one 1M-point colorize cull of the scene.
+        dev_t[n] = {k: _device_ms(fn, device) for k, fn in (
+            ("kernel", kernel), ("twin", twin), ("chunked product", product),
+            ("kernel again", kernel))}
+        # The twin's and the product's host side outlast the hidden window:
+        # their device time is refused, and their time a call stands in.
+        call_t[n] = {k: profiling.median_ms(fn, device, reps=20 if k == "kernel" else 5)
+                     for k, fn in (("kernel", kernel), ("twin", twin),
+                                   ("chunked product", product))}
+        dense_ms, _ = _bound(0, 6.0 * n * n)
+        own_ms, own_by = _bound(14 * n, int_ops=0.0)
+        if need * 4 / H1_INSTR_S * 1e3 > own_ms:
+            own_ms, own_by = need * 4 / H1_INSTR_S * 1e3, "operations"
+        t = dev_t[n]["kernel"]
+        print(f"[{card}] H1 at {n} points: device ms: "
+              + ", ".join(f"{k} {_ms(v)}" for k, v in dev_t[n].items())
+              + "; a call: " + ", ".join(f"{k} {_ms(v)}" for k, v in call_t[n].items())
+              + f"; bounds: the inputs' need {own_ms:.4f} ms ({own_by}: {need} needed pairs x 4"
+              f" instructions at {H1_INSTR_S:.3g}/s, or {n} x 14 B), share "
+              f"{'not measured' if t is None else f'{own_ms / t:.3f}'}; the dense "
+              f"{n}^2 x 3 FMA {dense_ms:.3f} ms; pairs evaluated {kept[0] if kept else None} "
+              f"({'not measured' if not kept else f'{kept[0] / int(okm.sum()) ** 2:.5f}'} of "
+              f"the ok pairs), subtiles kept {kept[1] if kept else None}")
+        prof[n] = _h1_profile(card, f"at {n} points", kernel, device)
+        rec.update({f"ms_{n}": t, f"call_ms_{n}": call_t[n]["kernel"],
+                    f"plain_ms_{n}": dev_t[n]["twin"] or call_t[n]["twin"],
+                    f"library_ms_{n}": dev_t[n]["chunked product"] or call_t[n]["chunked product"],
+                    f"bound_ms_{n}": own_ms, f"dense_bound_ms_{n}": dense_ms,
+                    f"needed_pairs_{n}": need, f"pairs_evaluated_{n}": kept[0] if kept else None,
+                    f"subtiles_kept_{n}": kept[1] if kept else None})
+    # One 1M-point colorize cull of the scene (the headline run's crop).
     cfg, camera, cloud, frames, kf_idx = scene_cloud(root, device)
     poses = runner._camera_to_world(frames, kf_idx, None, device)
     pts1, gate1 = _scene_colorize_cull(camera, cloud, poses.q[0], poses.t[0])
-    vis_dense = hpr.hpr_mask(pts1, gate1)
+    rows = torch.arange(0, pts1.shape[0], HPR_DENSE_SCENE_STRIDE)
+    vis_dense, kept_1m = check_cpu(f"the scene's keyframe-0 colorize cull ({pts1.shape[0]} "
+                                   f"points, {int(gate1.sum())} gated in)", pts1, gate1, rows)
     vis_grid = hpr.hpr_mask_grid(pts1, gate1)
-    dense_1m = profiling.median_ms(lambda: hpr.hpr_mask(pts1, gate1), device, reps=3, warmup=1,
+    dense_1m = profiling.median_ms(lambda: hpr.hpr_mask(pts1, gate1), device, reps=5, warmup=1,
                                    hide_host=True)
-    print(f"[{card}] H1 on the scene's keyframe-0 colorize cull ({pts1.shape[0]} points, "
-          f"{int(gate1.sum())} gated in): device {_ms(dense_1m)} ms; {int(vis_dense.sum())} "
-          f"visible (the grid cull: {int(vis_grid.sum())}, {int((vis_dense != vis_grid).sum())} "
-          "bits differ)")
-    rec.update(ms=dev_t["kernel"], ms_again=dev_t["kernel again"], call_ms=call_t["kernel"],
-               plain_ms=dev_t["twin"] or call_t["twin"], plain_call_ms=call_t["twin"],
-               library_ms=dev_t["chunked product"] or call_t["chunked product"],
-               library_call_ms=call_t["chunked product"], bound_ms=b_ms, bound_by=by, n=n,
-               scene_1m_dense_ms=dense_1m, scene_1m_visible_dense=int(vis_dense.sum()),
-               scene_1m_visible_grid=int(vis_grid.sum()))
+    print(f"[{card}] H1 on the scene's keyframe-0 colorize cull: device {_ms(dense_1m)} ms; "
+          f"{int(vis_dense.sum())} visible (the grid cull: {int(vis_grid.sum())}, "
+          f"{int((vis_dense != vis_grid).sum())} bits differ)")
+    del cloud, pts1, gate1
+    # The small-map path's 8 colorize culls in one call.
+    camera, R, t, pw, vw = probe.scene_views(SMALL_N_MAP, device)
+    cams, gates = hpr.view_points(camera, R, t, pw, vw)
+    batch = hpr.mask_batch(cams, gates, hpr.DEFAULT_RADIUS, HPR_TOL, impl="dense")
+    for j in range(K):
+        assert torch.equal(batch[j], hpr.hpr_mask(cams[j], gates[j])), j
+    batch_ms = _device_ms(lambda: hpr.mask_batch(cams, gates, hpr.DEFAULT_RADIUS, HPR_TOL,
+                                                 impl="dense"), device)
+    batch_call = profiling.median_ms(lambda: hpr.mask_batch(cams, gates, hpr.DEFAULT_RADIUS,
+                                                            HPR_TOL, impl="dense"), device)
+    # One keyframe at a time: the sum of each call's device time (8 calls
+    # outlast the hidden window's host time).
+    singles = [_device_ms(lambda j=j: hpr.hpr_mask(cams[j], gates[j]), device) for j in range(K)]
+    singles_ms = None if None in singles else sum(singles)
+    prof["batch"] = _h1_profile(card, f"the {K} colorize culls of the {SMALL_N_MAP}-point map",
+                                lambda: hpr.mask_batch(cams, gates, hpr.DEFAULT_RADIUS, HPR_TOL,
+                                                       impl="dense"), device)
+    print(f"[{card}] H1, the {K} colorize culls of the {SMALL_N_MAP}-point map "
+          f"({[int(g.sum()) for g in gates]} gated in): one call {_ms(batch_ms)} ms of device "
+          f"time ({_ms(batch_call)} a call), each row equal to its keyframe's own call; one "
+          f"keyframe at a time {_ms(singles_ms)}")
+    launches = None
+    if prof[HPR_DENSE_N[0]] is not None:
+        counts = {k: sum(c for c, _ in p.values()) for k, p in prof.items()}
+        assert len(set(counts.values())) == 1, counts  # a fixed count, whatever the size
+        launches = counts[HPR_DENSE_N[0]]
+        print(f"H1: {launches} device launches (kernels, memsets, copies) a call, at every size "
+              "and batch")
+    n = HPR_DENSE_N[-1]
+    rec.update(ms=rec[f"ms_{n}"], call_ms=rec[f"call_ms_{n}"], plain_ms=rec[f"plain_ms_{n}"],
+               library_ms=rec[f"library_ms_{n}"], bound_ms=rec[f"bound_ms_{n}"],
+               bound_by="operations" if rec[f"needed_pairs_{n}"] * 4 / H1_INSTR_S
+               > 14 * n / HBM_BYTES_S else "bytes", dense_bound_ms=rec[f"dense_bound_ms_{n}"],
+               ms_again=dev_t[n]["kernel again"], plain_call_ms=call_t[n]["twin"],
+               library_call_ms=call_t[n]["chunked product"], n=n,
+               launches_a_call=launches, r1_pairs_evaluated=kept_r1[0] if kept_r1 else None,
+               scene_1m_ms=dense_1m, scene_1m_pairs_evaluated=kept_1m[0] if kept_1m else None,
+               scene_1m_visible_dense=int(vis_dense.sum()),
+               scene_1m_visible_grid=int(vis_grid.sum()), small_map_batch8_ms=batch_ms,
+               small_map_batch8_call_ms=batch_call, small_map_one_at_a_time_ms=singles_ms)
     return [{"name": "hpr_support", "route": "cuda", "source": f"{PKG}/csrc/hpr.cu",
              "replaces": "pointcloudprocessor_tpu/ops/hpr.py:79", **rec}]
 
@@ -3411,6 +3641,15 @@ def main() -> int:
         _, hpr_eager = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
                                     "HPR + smoothing, twins", hpr=True, eager=True)
         compare_smoothed(card, hpr_run, hpr_eager)
+        # The small-map path: HPR + smoothing on the 100,000-point map, where
+        # "auto" takes H1 (one call for the 8 NID culls, one for the 8
+        # colorize culls), then the same run through the dense twin on the card.
+        small_launches, small_run = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                                 "small map, HPR + smoothing", hpr=True,
+                                                 small=True)
+        _, small_twins = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
+                                      "small map, dense twin", hpr=True, small=True, eager=True)
+        compare_dense_twins(card, small_run, small_twins)
         kernels += phase_hpr_dense(card, root)
         kernels += phase_hpr_grid(card, root)
         kernels += phase_smooth(card, root)
@@ -3429,11 +3668,13 @@ def main() -> int:
     phase_tools()
     launches.update(tap_select=grouped["K3"]["tap_select"],
                     tap_streamed=grouped["K4"]["tap_streamed"])
-    # Each kernel's launches are those of the path it was ported for (the
-    # HPR + smoothing path's kernels, the MLS path's, the z-buffer headline
-    # path's for the rest); each record also carries the other paths'.
-    paths = {"zbuffer_path": launches, "hpr_path": hpr_launches, "mls_path": mls_launches}
-    own = {"hpr_support": "hpr_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
+    # Each kernel's launches are those of the path it was ported for (H1's
+    # the small-map path's, H2's and N1's the HPR + smoothing path's, M1's
+    # and S1's the MLS path's, the z-buffer headline path's for the rest);
+    # each record also carries the other paths'.
+    paths = {"zbuffer_path": launches, "hpr_path": hpr_launches, "mls_path": mls_launches,
+             "small_map_path": small_launches}
+    own = {"hpr_support": "small_map_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
            "mls_moments": "mls_path", "knn_select": "mls_path"}
     for k in kernels:
         mine = own.get(k["name"], "zbuffer_path")
