@@ -231,6 +231,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    occupied cells sharing a bucket counted; ``smooth_cloud`` with each
    upsampling method on a flat patch, with one more S1 launch for the
    VGD's nearest-source search.
+14b. The per-keyframe path: ``runner.process`` with ``nid.per_keyframe`` and
+   ``nid.smooth_trajectory`` (2 outer x 20 inner, z-buffer culls): one
+   lockstep solve gives each of the 8 keyframes its own correction, then the
+   pose graph fuses them with the odometry chain. Asserts each keyframe's
+   final NID at most its NID at T0 + 1e-3, every lane inside the trust
+   region around T0, the pose graph's residual norm at most its initial
+   one, the texture bar, one K1, one K2 and one G1 launch an evaluation of
+   the lockstep solve (for all 8 keyframes), one bin_pack, 8 launches of
+   each z-buffer kernel; prints each keyframe's pose error before and after
+   the pose graph. Then ``phase_lockstep`` times that solve against a loop
+   of 8 one-keyframe solves on the same keyframes (printed, not asserted).
+14c. The re-cull path: the headline schedule with
+   ``nid.recull_every_outer_iter``: a pass a outer iteration, the keyframes
+   culled again at the current correction before each pass after the
+   first. Asserts the planted error recovered to 1 cm / 1 degree, 8
+   launches of each z-buffer kernel a build (the first and each re-cull),
+   one bin_pack (the re-culls reuse the packed tiles), G1 at both shapes
+   (each pass's gathers and final evaluation).
 18. Tools at full scale: ``tools/colorize_anatomy`` (the eager stages and
    the production C1 fuse) and ``tools/zbuffer_probe``, each printing its
    JSON line; both must report non-null kernel times and exact masks /
@@ -240,7 +258,9 @@ The launch counts are set to 0 just before each path and read just after;
 a kernel's ``launches`` are those of the headline run, H1's those of the
 small-map run (a call a cull batch), H2/N1's those of the HPR + smoothing
 run (H2's a call of a memset and four launches), M1/S1's those of the MLS
-run (each also carries the other paths' counts as ``launches_<path>``).
+run (each also carries the other paths' counts as ``launches_<path>``:
+the per-keyframe path's as ``launches_per_keyframe_path``, the re-cull
+path's as ``launches_recull_path``).
 The line before the last is a JSON object describing each kernel: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (a sleep kernel queued
 ahead of the start event hides the host's enqueue; where a twin's host side
@@ -332,6 +352,10 @@ SEED = 0
 HEADLINE = dict(max_outer_iterations=2, max_inner_iterations=20, coarse_outer_iterations=1,
                 coarse_stride=16, frozen_taps=True, frozen_guard_frac=0.75, ftol=3e-4)
 PLAIN = dict(max_outer_iterations=2, max_inner_iterations=20)
+# The per-keyframe path: a correction a keyframe (one lockstep solve for the
+# 8), then the pose graph fuses them with the odometry chain.
+PER_KEYFRAME = dict(max_outer_iterations=2, max_inner_iterations=20, per_keyframe=True,
+                    smooth_trajectory=True)
 # The K5 probe's full size (tools/zbuffer_probe.FULL): 999,424 points into
 # the 293 x 215 cells of a 14x-downsampled 4096x3000 image.
 PROBE_N, PROBE_CELLS = 999_424, 293 * 215
@@ -844,6 +868,105 @@ def _pose_error(T, T0):
     return float(dt) * 100.0, float(np.degrees(float(dr)))
 
 
+def _pose_errors(T, T0):
+    """(cm, deg) of each row of a (K,) correction from T0."""
+    from pointcloudprocessor_tpu_torch.core import se3
+
+    dt, dr = se3.delta_magnitudes(se3.SE3(T.q.to("cpu"), T.t.to("cpu")), T0)
+    return [(float(a) * 100.0, float(np.degrees(float(b)))) for a, b in zip(dt, dr)]
+
+
+def check_per_keyframe(card, label, nid, solves, T0, pose_graph, T_final):
+    """The per-keyframe path's gates, on its last lockstep solve: each
+    keyframe's final NID at most its NID at the planted T0 + 1e-3, every
+    lane inside the trust region around T0, the pose graph's residual norm
+    at most its initial one. Prints each keyframe's pose error before and
+    after the pose graph. Runs after the path's counts are read (the NIDs
+    at T0 launch K1 and G1)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.opt import nid as nid_mod
+
+    (camera, kfs, *_), res = solves[-1]
+    device = kfs.points.device
+    k = kfs.points.shape[0]
+    T0_k = se3.SE3(T0.q.expand(k, 4).to(device), T0.t.expand(k, 3).to(device))
+    with torch.no_grad():
+        at_t0 = nid_mod.multi_nid_per_keyframe(camera, T0_k, kfs, nid.bins).cpu()
+    final = res.nid.cpu()
+    before, after = _pose_errors(res.T_camera_lidar, T0), _pose_errors(T_final, T0)
+    for j in range(k):
+        print(f"{label}: keyframe {j}: NID {float(final[j]):.6f} (at T0 {float(at_t0[j]):.6f}); "
+              f"pose error vs T0 {before[j][0]:.4f} cm / {before[j][1]:.4f} deg refined, "
+              f"{after[j][0]:.4f} cm / {after[j][1]:.4f} deg after the pose graph; outer "
+              f"{int(res.outer_iterations[j])}, evaluations {int(res.evaluations[j])}, "
+              f"converged {bool(res.converged[j])}")
+    assert bool((final <= at_t0 + 1e-3).all()), (final, at_t0)
+    trans, rot = nid.trust_region_trans * 100.0, nid.trust_region_rot_deg
+    assert all(cm <= trans and deg <= rot for cm, deg in before), before
+    if pose_graph is not None:
+        print(f"[{card}] {label}: pose graph residual norm {pose_graph['residual_norm']:.6f} "
+              f"(initial {pose_graph['initial_residual_norm']:.6f})")
+        assert pose_graph["residual_norm"] <= pose_graph["initial_residual_norm"], pose_graph
+
+
+def phase_lockstep(card, camera, kfs, nid, device="cuda"):
+    """The per-keyframe solve as the path runs it (one lockstep solve over
+    the 8 keyframes) against a loop of 8 one-keyframe solves (the same
+    ``refine_pose_per_keyframe``, B = 1 each), from the identity, timed in
+    turns (lockstep, loop, lockstep) on the host clock with the card
+    synchronized. Printed for PERF.md, not asserted; each lane's NID of the
+    loop beside the lockstep's."""
+    from dataclasses import replace
+
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.opt import nid as nid_mod
+    from pointcloudprocessor_tpu_torch.opt import refine
+
+    kfs = nid_mod.prepare_keyframes(kfs)
+    k = kfs.points.shape[0]
+    kw = dict(bins=nid.bins, max_outer_iterations=nid.max_outer_iterations,
+              max_inner_iterations=nid.max_inner_iterations,
+              delta_trans_thresh=nid.delta_trans_thresh,
+              delta_rot_thresh=float(np.radians(nid.delta_rot_thresh_deg)),
+              trust_region_trans=nid.trust_region_trans,
+              trust_region_rot=float(np.radians(nid.trust_region_rot_deg)))
+    identity = se3.identity(device)
+
+    def timed(fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def lockstep():
+        return refine.refine_pose_per_keyframe(camera, kfs, identity, **kw)
+
+    def loop():
+        return [refine.refine_pose_per_keyframe(
+            camera, replace(kfs, points=kfs.points[j:j + 1], intensity=kfs.intensity[j:j + 1],
+                            valid=kfs.valid[j:j + 1], bin_image=kfs.bin_image[j:j + 1],
+                            bin_tiles=kfs.bin_tiles[j:j + 1]), identity, **kw)
+            for j in range(k)]
+
+    t_a, res = timed(lockstep)
+    t_loop, lanes = timed(loop)
+    t_b, _ = timed(lockstep)
+    calls = sum(r.lockstep_evaluations for r in lanes)
+    gap = max(abs(float(res.nid[j]) - float(r.nid[0])) for j, r in enumerate(lanes))
+    print(f"[{card}] per-keyframe solve, {k} keyframes x {kfs.points.shape[1]} points, "
+          f"{nid.max_outer_iterations} x {nid.max_inner_iterations}: lockstep {t_a:.3f} s / "
+          f"{t_b:.3f} s ({res.lockstep_evaluations} evaluations of all {k}), loop of {k} "
+          f"one-keyframe solves {t_loop:.3f} s ({calls} evaluations of one); largest NID gap "
+          f"of a lane {gap:.2e}")
+
+
 def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False, mls=False,
                  eager=False, small=False):
     """``runner.process`` on the smoke scene under ``nid`` (with the mask
@@ -901,7 +1024,7 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     kernels = (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins,
                hpr_ops.hpr_mask_grid, hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local,
                hpr_ops.hpr_mask, hpr_ops.hpr_mask_dense_batch)
-    wrapped = (nid_mod.prepare_keyframes, refine.refine_pose)
+    wrapped = (nid_mod.prepare_keyframes, refine.refine_pose, refine.refine_pose_per_keyframe)
     dense_culls = []
     if eager:
         assert not masks
@@ -932,18 +1055,25 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         tables.append(out.tap_rows is not None)
         return out
 
-    def solve(*args, **kw):  # the solve's peak memory above its entry's
-        if device == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-        out = wrapped[1](*args, **kw)
-        if device == "cuda":
-            torch.cuda.synchronize()
-            peaks.append((torch.cuda.max_memory_allocated() - held) / 2**20)
-        return out
+    solves = []  # (args, RefineResult) of each solve: one, or one a re-cull pass
 
-    nid_mod.prepare_keyframes, refine.refine_pose = prepare, solve
+    def solver(fn):
+        def solve(*args, **kw):  # the solve's peak memory above its entry's
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            out = fn(*args, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                peaks.append((torch.cuda.max_memory_allocated() - held) / 2**20)
+            solves.append((args, out))
+            return out
+
+        return solve
+
+    nid_mod.prepare_keyframes = prepare
+    refine.refine_pose, refine.refine_pose_per_keyframe = solver(wrapped[1]), solver(wrapped[2])
     _reset_counts()
     t0 = time.perf_counter()
     try:
@@ -952,25 +1082,45 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins, hpr_ops.hpr_mask_grid,
          hpr_ops.hpr_mask_grid_batch, fusion.smooth_colors_local, hpr_ops.hpr_mask,
          hpr_ops.hpr_mask_dense_batch) = kernels
-        nid_mod.prepare_keyframes, refine.refine_pose = wrapped
+        nid_mod.prepare_keyframes, refine.refine_pose, refine.refine_pose_per_keyframe = wrapped
     wall = time.perf_counter() - t0
     assert tables and not any(tables), f"the solve's keyframes carried a tap table: {tables}"
-    assert len(peaks) == (1 if device == "cuda" else 0), peaks
+    assert solves and len(peaks) == (len(solves) if device == "cuda" else 0), peaks
+    # One solve, or one a pass of the re-cull loop; each pass after the
+    # first culls again.
+    passes = len(solves)
+    assert passes == 1 or nid.recull_every_outer_iter, passes
     launches = _read_counts()
     with open(os.path.join(cfg.output_path, "metrics.jsonl")) as f:
-        refined = [json.loads(line) for line in f if '"nid_refined"' in line][-1]
+        events = [json.loads(line) for line in f]
+    refined = [e for e in events if e["event"] == "nid_refined"][-1]
+    recull = [e for e in events if e["event"] == "nid_recull_outer"]
+    smoothed = [e for e in events if e["event"] == "pose_graph_smoothed"]
+    assert len(recull) == (passes if nid.recull_every_outer_iter else 0), recull
+    assert len(smoothed) == (1 if nid.per_keyframe and nid.smooth_trajectory else 0), smoothed
 
-    err_cm, err_deg = _pose_error(res.T_correction, T0)
     print(f"[{card}] {label}: runner.process wall {wall:.2f} s; stages (s): "
           + json.dumps({k: round(v, 3) for k, v in res.timings.items()}))
-    print(f"{label}: pose error vs planted T0: {err_cm:.4f} cm / {err_deg:.4f} deg; NID "
+    if nid.per_keyframe:
+        err_cm, err_deg = (max(e) for e in zip(*_pose_errors(res.T_correction, T0)))
+        err = f"worst keyframe {err_cm:.4f} cm / {err_deg:.4f} deg"
+    else:
+        err_cm, err_deg = _pose_error(res.T_correction, T0)
+        err = f"{err_cm:.4f} cm / {err_deg:.4f} deg"
+    print(f"{label}: pose error vs planted T0: {err}; NID "
           f"{res.nid_value:.6f}; evaluations {res.nid_evaluations}; gathers "
-          f"{refined['gathers']}; outer {res.nid_outer_iterations}; keyframes "
+          f"{refined['gathers']}; outer {res.nid_outer_iterations}; passes {passes}; keyframes "
           f"{res.num_keyframes}; colored {res.num_colored_points}; solve peak device memory "
-          f"{f'{peaks[0]:.1f} MiB' if peaks else 'not measured'}; launches {launches}")
+          f"{f'{max(peaks):.1f} MiB' if peaks else 'not measured'}; launches {launches}")
+    for e in recull:
+        print(f"{label}: re-cull pass {e['outer']}: max_dt {e['max_dt']:.6f} m, max_dr "
+              f"{e['max_dr']:.6f} rad")
     assert res.num_keyframes == K, res.num_keyframes
     assert np.isfinite(res.nid_value), res.nid_value
-    if small:  # printed, not gated: the masks are this path's gate
+    if nid.per_keyframe:  # each lane against its NID at T0, then the pose graph
+        check_per_keyframe(card, label, nid, solves, T0, smoothed[0] if smoothed else None,
+                           res.T_correction)
+    elif small:  # printed, not gated: the masks are this path's gate
         print(f"{label}: planted error recovered to 1 cm / 1 deg: "
               f"{err_cm < 1.0 and err_deg < 1.0}")
     else:
@@ -982,7 +1132,9 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
                    "gathers": refined["gathers"], "colored": res.num_colored_points,
                    "colored_pcd_sha256": hashlib.sha256(f.read()).hexdigest(),
                    "colorize_fuse_s": res.timings["colorize_fuse"],
-                   "solve_peak_mib": peaks[0] if peaks else None}
+                   "solve_peak_mib": max(peaks) if peaks else None}
+    if nid.per_keyframe:  # the inputs of its solve, for phase_lockstep
+        summary["solve_inputs"] = solves[-1][0][:2]
     if device == "cuda":
         assert launches["nid_hist_fwd"] > 0 and launches["nid_hist_bwd"] > 0, launches
         for name, by_n in launches["launches_by_n"].items():
@@ -1015,8 +1167,8 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
             assert launches["colorize_scatter"] == 0, launches
             assert launches["colorize_update"] == steps, (steps, launches)
             assert launches["smooth_local"] == 1, launches
-        else:
-            assert launches["zmin"] == launches["zbuffer_visible"] == K, launches
+        else:  # the NID culls of each build: the first and each re-cull
+            assert launches["zmin"] == launches["zbuffer_visible"] == K * passes, launches
             assert launches["colorize_scatter"] == 1 + (K if masks else 0), launches
             assert launches["colorize_update"] == steps, (steps, launches)
             assert launches["hpr_grid"] == launches["smooth_local"] == 0, launches
@@ -1024,17 +1176,26 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         # objective gathers (the coarse phase's, all of the plain schedule's);
         # with frozen taps so does each refresh of the cache, the first
         # included, and the final exact evaluation.
-        if nid.frozen_taps:
+        if nid.frozen_taps and not nid.per_keyframe:
             coarse = sum(c for n, c in launches["launches_by_n"]["nid_hist_fwd"].items()
                          if int(n) < n_cull)
-            takes = coarse + refined["gathers"] + 1
+            fine = sum(r.gathers + 1 for _, r in solves)  # each pass's gathers and final
+            takes = coarse + fine
             by_n = launches["launches_by_n"]["tap_take"]
-            assert by_n.get(str(n_cull), 0) == refined["gathers"] + 1, launches
+            assert by_n.get(str(n_cull), 0) == fine, launches
             assert by_n.get(str(n_cull // nid.coarse_stride), 0) == coarse, launches
         else:
             takes = launches["nid_hist_fwd"]
+        if nid.per_keyframe:
+            # One K1, one K2 and one G1 launch an evaluation of the lockstep
+            # solve, each for all K keyframes.
+            lockstep = sum(r.lockstep_evaluations for _, r in solves)
+            assert launches["nid_hist_fwd"] == launches["nid_hist_bwd"] == lockstep, (
+                lockstep, launches)
+            assert launches["launches_by_n"]["nid_hist_fwd"] == {str(n_cull): lockstep}, launches
         assert launches["tap_take"] == takes, (takes, launches)
-        assert launches["bin_pack"] == 1, launches  # one a solve
+        # One a solve; the re-cull passes reuse the first build's tiles.
+        assert launches["bin_pack"] == 1, launches
         assert launches["mls_moments"] == (1 if mls else 0), launches
         assert launches["knn_select"] == (2 if mls else 0), launches
     if small and not eager:
@@ -3660,6 +3821,17 @@ def main() -> int:
         # The MLS path: bench.py's e2e config with MLS on, headline schedule.
         mls_launches, _ = phase_runner(card, root, T0, cfg_mod.NIDConfig(**HEADLINE),
                                        "MLS path", mls=True)
+        # The per-keyframe path (z-buffer culls): one lockstep solve for the 8
+        # keyframes, then the pose graph; then the lockstep solve timed
+        # against 8 one-keyframe solves on its keyframes.
+        pk_launches, pk_run = phase_runner(card, root, T0, cfg_mod.NIDConfig(**PER_KEYFRAME),
+                                           "per-keyframe + pose graph")
+        phase_lockstep(card, *pk_run.pop("solve_inputs"), cfg_mod.NIDConfig(**PER_KEYFRAME))
+        # The re-cull path: the headline schedule, re-culling the keyframes at
+        # the current correction between outer iterations.
+        recull_launches, _ = phase_runner(
+            card, root, T0, cfg_mod.NIDConfig(**HEADLINE, recull_every_outer_iter=True),
+            "re-cull path")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels += phase_mls(card)
@@ -3673,7 +3845,8 @@ def main() -> int:
     # and S1's the MLS path's, the z-buffer headline path's for the rest);
     # each record also carries the other paths'.
     paths = {"zbuffer_path": launches, "hpr_path": hpr_launches, "mls_path": mls_launches,
-             "small_map_path": small_launches}
+             "small_map_path": small_launches, "per_keyframe_path": pk_launches,
+             "recull_path": recull_launches}
     own = {"hpr_support": "small_map_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
            "mls_moments": "mls_path", "knn_select": "mls_path"}
     for k in kernels:

@@ -183,3 +183,155 @@ def minimize_cached(
         ),
         cache,
     )
+
+
+class BatchedBFGSResult(NamedTuple):
+    x: torch.Tensor  # (B, d)
+    value: torch.Tensor  # (B,)
+    grad_norm: torch.Tensor  # (B,)
+    iterations: torch.Tensor  # (B,) int64
+    converged: torch.Tensor  # (B,) bool
+    evaluations: torch.Tensor  # (B,) int64: the probes of each lane, its first included
+    H: torch.Tensor  # (B, d, d)
+    calls: int  # value_and_grad calls, each over every lane
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot products over the last axis, summed in index order, one rounding
+    a step. Elementwise ops only: a row's bits do not depend on the batch it
+    sits in (a reduction or a batched matmul may vectorize across rows)."""
+    acc = a[..., 0] * b[..., 0]
+    for j in range(1, a.shape[-1]):
+        acc = acc + a[..., j] * b[..., j]
+    return acc
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., n, m) @ (..., m, p) with :func:`_dot`'s order and rounding."""
+    acc = a[..., :, 0, None] * b[..., None, 0, :]
+    for j in range(1, a.shape[-1]):
+        acc = acc + a[..., :, j, None] * b[..., None, j, :]
+    return acc
+
+
+def _norm(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(_dot(a, a))
+
+
+def minimize_batched(
+    value_and_grad: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
+    x0: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+    max_iterations: int = 64,
+    grad_tol: float = 1e-6,
+    step_tol: float = 1e-10,
+    armijo_c1: float = 1e-4,
+    max_backtracks: int = 25,
+) -> BatchedBFGSResult:
+    """B independent BFGS solves in lockstep: the JAX package's ``minimize``
+    under ``vmap`` (`bfgs.py:35-299`, vmapped by `refine.py:476`).
+
+    ``x0`` is (B, d); ``value_and_grad(x)`` takes all B rows and returns
+    ((B,) values, (B, d) gradients) in one call, row b a function of
+    ``x[b]`` alone. Each lane has its own line search (Armijo, the clamped
+    quadratic backtrack, halving out of +inf), its own ``done`` and its own
+    iteration and evaluation counts; a lane that has finished, or has
+    accepted its probe while others backtrack, keeps its state, as a
+    ``vmap``ped ``while_loop`` keeps it. Every probe evaluates all B rows
+    (rows not probing are handed their iterate). Lanes where ``active`` is
+    False do not solve: their rows are ``x0`` with 0 iterations and 0
+    evaluations. As the JAX package's per-keyframe solves, every lane starts
+    from the identity metric with the first-update scaling and no ``ftol``
+    exit.
+
+    Each lane's scalars are those of :func:`minimize_cached`, in f32 and in
+    its order of operations; its dot products, norms and 6x6 products are
+    summed in index order (:func:`_dot`), so a lane's bits do not depend on
+    the batch it is solved in. The state lives on ``x0``'s device and its
+    decisions are read there: hand host tensors in and out of
+    ``value_and_grad`` and a probe costs the one device sync of its
+    evaluation, whatever B."""
+    b, d = x0.shape
+    dtype, device = x0.dtype, x0.device
+    eye = torch.eye(d, dtype=dtype, device=device).expand(b, d, d)
+    c1 = _f32(armijo_c1, x0)
+    one, sixteenth = _f32(1.0, x0), _f32(1.0 / 16.0, x0)
+    lane = torch.ones(b, dtype=torch.bool, device=device) if active is None else active.clone()
+    calls = 0
+
+    def evaluate(x):
+        nonlocal calls
+        calls += 1
+        return value_and_grad(x)
+
+    x = x0.clone()
+    val, g = evaluate(x)
+    H = eye.clone()
+    it = torch.zeros(b, dtype=torch.int64, device=device)
+    evals = lane.to(torch.int64)
+    done = ~lane | (_norm(g) < grad_tol)
+    prev_alpha = torch.ones(b, dtype=dtype, device=device)
+    while True:
+        run = ~done & (it < max_iterations)
+        if not bool(run.any()):
+            break
+        direction = -_dot(H, g[:, None, :])
+        # Not a descent direction (H lost positive definiteness): steepest.
+        direction = torch.where((_dot(direction, g) < 0)[:, None], direction, -g)
+        first = torch.minimum(one, 1.0 / (_norm(g) + 1e-12))
+        alpha = torch.where(it == 0, first, torch.clamp(1.5 * prev_alpha, sixteenth, one))
+
+        # The line search, every lane at once (minimize_cached's line_search).
+        dg = _dot(g, direction)
+
+        def accepted(alpha, new_val):
+            return torch.isfinite(new_val) & (new_val <= val + c1 * alpha * dg)
+
+        new_val, new_g = evaluate(torch.where(run[:, None], x + alpha[:, None] * direction, x))
+        probes = run.to(torch.int64)
+        backtracks = torch.zeros(b, dtype=torch.int64, device=device)
+        search = run & ~accepted(alpha, new_val) & (backtracks < max_backtracks)
+        while bool(search.any()):
+            denom = new_val - val - dg * alpha
+            quad = torch.isfinite(new_val) & (denom > 0)
+            interp = -dg * alpha * alpha / (2.0 * torch.where(quad, denom, one))
+            shrunk = torch.where(quad, torch.clamp(interp, 0.1 * alpha, 0.5 * alpha), alpha * 0.5)
+            alpha = torch.where(search, shrunk, alpha)
+            v, gv = evaluate(torch.where(search[:, None], x + alpha[:, None] * direction, x))
+            new_val = torch.where(search, v, new_val)
+            new_g = torch.where(search[:, None], gv, new_g)
+            backtracks = backtracks + search
+            probes = probes + search
+            search = run & ~accepted(alpha, new_val) & (backtracks < max_backtracks)
+        ok = accepted(alpha, new_val)
+        alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
+        val_new = torch.where(ok, new_val, val)
+        g_new = torch.where(ok[:, None], new_g, g)
+
+        step = alpha[:, None] * direction
+        x_new = x + step
+        s, y = step, g_new - g
+        sy, yy = _dot(s, y), _dot(y, y)
+        curv = sy > 1e-12
+        rho = torch.where(curv, 1.0 / torch.where(curv, sy, one), torch.zeros_like(sy))
+        scaled = (it == 0) & curv & (yy > 1e-12)
+        H_base = torch.where(
+            scaled[:, None, None], (sy / torch.clamp(yy, min=1e-20))[:, None, None] * eye, H)
+        V = eye - rho[:, None, None] * (s[:, :, None] * y[:, None, :])
+        H_new = _matmul(_matmul(V, H_base), V.transpose(-1, -2)) + rho[:, None, None] * (
+            s[:, :, None] * s[:, None, :])
+        H_new = torch.where(curv[:, None, None], H_new, H)
+
+        stalled = alpha == 0.0
+        finished = stalled | (_norm(g_new) < grad_tol) | (_norm(step) < step_tol)
+        move = run & ~stalled
+        x = torch.where(move[:, None], x_new, x)
+        val = torch.where(move, val_new, val)
+        g = torch.where(move[:, None], g_new, g)
+        H = torch.where(move[:, None, None], H_new, H)
+        prev_alpha = torch.where(move, alpha, prev_alpha)
+        done = torch.where(run, finished, done)
+        it = it + run
+        evals = evals + probes
+    return BatchedBFGSResult(x=x, value=val, grad_norm=_norm(g), iterations=it,
+                             converged=done & lane, evaluations=evals, H=H, calls=calls)

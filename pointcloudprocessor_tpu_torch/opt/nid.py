@@ -300,9 +300,35 @@ def multi_nid_loss(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     return _sum_nid(taps, s, kfs.intensity, inl.to(proj.dtype), bins)
 
 
-def _sum_nid(taps, s, intensity, inlier_f, bins: int) -> torch.Tensor:
+def multi_nid_per_keyframe(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
+                           kfs: NIDKeyframe, bins: int = 16) -> torch.Tensor:
+    """The (K,) per-keyframe NIDs at a batched correction ``T_camera_lidar``
+    of shape (K,), keyframe j's at its own row: the objective of the
+    per-keyframe solves (JAX `refine_pose_per_keyframe`, `refine.py:421-478`,
+    evaluates :func:`multi_nid_loss` on each keyframe under a ``vmap``).
+    ``se3.transform_points`` applies row j to keyframe j's points, so the
+    knots, gate and ``s`` are each keyframe's own, and one evaluation is one
+    direct take (G1) and one histogram launch (K1; K2 on the backward) for
+    all K keyframes. Keyframe j's NID depends on row j alone, so the
+    gradient of ``nids.sum()`` with respect to the (K, 6) tangents of the
+    rows is each keyframe's own gradient in its row. The direct take only:
+    the JAX package's per-keyframe solves never group (`refine.py:468-473`)."""
+    check_bins(bins)
+    kfs = prepare_keyframes(kfs)
+    proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
+    s = proj - knot.to(proj.dtype)
+    with torch.no_grad():
+        taps = _gather_taps(camera, kfs, knot, inl)
+    return _keyframe_nids(taps, s, kfs.intensity, inl.to(proj.dtype), bins)
+
+
+def _keyframe_nids(taps, s, intensity, inlier_f, bins: int) -> torch.Tensor:
     bin_pts = torch.clamp(to_int32(intensity * bins), 0, bins - 1)
-    return torch.sum(nid_from_histograms(*_histograms_from_taps(taps, s, bin_pts, inlier_f, bins)))
+    return nid_from_histograms(*_histograms_from_taps(taps, s, bin_pts, inlier_f, bins))
+
+
+def _sum_nid(taps, s, intensity, inlier_f, bins: int) -> torch.Tensor:
+    return torch.sum(_keyframe_nids(taps, s, intensity, inlier_f, bins))
 
 
 class TapCache(NamedTuple):

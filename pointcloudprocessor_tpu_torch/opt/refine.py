@@ -12,6 +12,11 @@ Port of `pointcloudprocessor_tpu/opt/refine.py` (`refine_pose`,
   pose delta is below ``delta_trans_thresh`` / ``delta_rot_thresh`` or
   ``max_outer_iterations`` (:53-81).
 
+:func:`refine_pose_per_keyframe` (`refine.py:421-478`) gives every keyframe
+its own correction: the JAX package's ``vmap`` of ``refine_pose`` over
+keyframes becomes one lockstep solve (``bfgs.minimize_batched``) whose every
+probe evaluates all keyframes at once.
+
 With no reference analogue, as in the JAX package: a coarse-to-fine
 schedule, the frozen-tap cache (`opt/nid.multi_nid_loss_cached`), the
 raster sort and the grouped gathers. The JAX package's `lax.while_loop`s
@@ -43,6 +48,9 @@ class RefineResult(NamedTuple):
     gathers: int = 0  # tap-table gathers (frozen_taps only; 0 otherwise)
     partial_gathers: int = 0  # gathers served by a partial refresh (not ported: 0)
     gather_drift: float = 0.0  # sum of the drifted fraction at each refresh
+    # Objective calls of refine_pose_per_keyframe's lockstep solve, each one
+    # evaluation of every keyframe (0 from refine_pose).
+    lockstep_evaluations: int = 0
 
 
 def _guarded_objective(trust_trans: float, trust_rot: float, loss):
@@ -236,4 +244,111 @@ def refine_pose(
         gathers=final.gathers,
         partial_gathers=0,
         gather_drift=float(final.drift),
+    )
+
+
+def _guarded_per_keyframe(camera: cam.PinholeCamera, kfs: NIDKeyframe, bins: int,
+                          trust_trans: float, trust_rot: float, T_init: se3.SE3):
+    """(K, 6) host tangents -> ((K,) values, (K, 6) gradients) on the host:
+    keyframe j's NID at ``T_init[j] ∘ exp(xi[j])``, one evaluation of all K
+    keyframes on their device (one G1, one K1 and one K2 launch on the card)
+    and one device sync. The trust region is a lane's own: a lane more than
+    ``trust_trans`` / ``trust_rot`` from its inner-solve start gets +inf and
+    a zero gradient while the other lanes are evaluated as usual (the JAX
+    package's ``jnp.where``, `refine.py:52-65`)."""
+    device = kfs.points.device
+
+    def value_and_grad(xi: torch.Tensor):
+        x = xi.to(device)
+        with torch.no_grad():
+            trans = torch.linalg.norm(se3.exp(x).t, dim=-1)
+            outside = (trans > trust_trans) | (torch.linalg.norm(x[:, 3:], dim=-1) > trust_rot)
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            nids = _nid.multi_nid_per_keyframe(camera, se3.compose(T_init, se3.exp(x)), kfs, bins)
+            # Keyframe j's NID depends on row j alone: the gradient of the
+            # sum is each keyframe's own in its row.
+            (grad,) = torch.autograd.grad(nids.sum(), x)
+        value = torch.where(outside, torch.full_like(nids, float("inf")), nids.detach())
+        grad = torch.where(outside[:, None], torch.zeros_like(grad), grad)
+        out = torch.cat([value[:, None], grad], dim=1).cpu()
+        return out[:, 0], out[:, 1:]
+
+    return value_and_grad
+
+
+def refine_pose_per_keyframe(
+    camera: cam.PinholeCamera,
+    kfs: NIDKeyframe,  # batched over keyframes
+    T_init: se3.SE3,  # scalar or batched (K,) initial correction(s)
+    *,
+    bins: int = 16,
+    max_outer_iterations: int = 10,
+    max_inner_iterations: int = 64,
+    delta_trans_thresh: float = 0.01,
+    delta_rot_thresh: float = 0.017453,
+    trust_region_trans: float = 0.2,
+    trust_region_rot: float = 0.034907,
+) -> RefineResult:
+    """An independent NID correction per keyframe (`refine.py:421-478`), the
+    generalization of the reference's per-keyframe manual poses
+    (`FrameData::addManualOptimizedPose`, honored at
+    `PointCloudProcessor.cpp:510-519`).
+
+    The JAX package runs ``refine_pose`` on each keyframe alone under a
+    ``vmap``; here the K solves run in lockstep: the outer loop and its
+    convergence test are each lane's own, and every inner BFGS probe is one
+    evaluation of all K keyframes (``bfgs.minimize_batched`` over
+    :func:`_guarded_per_keyframe`), which a lane's result does not depend
+    on. ``T_init`` broadcasts to every keyframe. As in the JAX package the
+    gather is the direct take (the packed bin tiles of one ``bin_pack``), with
+    no raster sort, coarse phase or frozen taps.
+
+    Returns a RefineResult whose fields carry a leading K axis as tensors:
+    ``T_camera_lidar`` (K,) and ``nid`` (K,) (each lane's last inner-solve
+    value) on the keyframes' device; ``outer_iterations``, ``evaluations``
+    (each lane's own probes), ``gathers`` and ``partial_gathers`` (zeros)
+    int64 and ``converged`` bool, ``gather_drift`` f32 zeros, on the host.
+    ``lockstep_evaluations`` counts the objective calls, each over all K."""
+    kfs = _nid.prepare_keyframes(kfs)
+    k = kfs.points.shape[0]
+    device = kfs.points.device
+    T = se3.SE3(T_init.q.to(device).expand(k, 4).clone(), T_init.t.to(device).expand(k, 3).clone())
+    dtype = T.t.dtype
+    nid = torch.full((k,), float("inf"), dtype=dtype, device=device)
+    it = torch.zeros(k, dtype=torch.int64)
+    done = torch.zeros(k, dtype=torch.bool)
+    evals = torch.zeros(k, dtype=torch.int64)
+    calls = 0
+    while True:
+        active = ~done & (it < max_outer_iterations)
+        if not bool(active.any()):
+            break
+        res = bfgs.minimize_batched(
+            _guarded_per_keyframe(camera, kfs, bins, trust_region_trans, trust_region_rot, T),
+            torch.zeros((k, 6), dtype=dtype),
+            active=active,
+            max_iterations=max_inner_iterations,
+        )
+        calls += res.calls
+        with torch.no_grad():
+            T_new = se3.compose(T, se3.exp(res.x.to(device)))
+            dt, dr = se3.delta_magnitudes(T, T_new)
+        converged = ((dt < delta_trans_thresh) & (dr < delta_rot_thresh)).cpu()
+        on = active.to(device)
+        T = se3.SE3(torch.where(on[:, None], T_new.q, T.q), torch.where(on[:, None], T_new.t, T.t))
+        nid = torch.where(on, res.value.to(device), nid)
+        it = it + active
+        done = torch.where(active, converged, done)
+        evals = evals + res.evaluations
+    return RefineResult(
+        T_camera_lidar=T,
+        nid=nid,
+        outer_iterations=it,
+        converged=done,
+        evaluations=evals,
+        gathers=torch.zeros(k, dtype=torch.int64),
+        partial_gathers=torch.zeros(k, dtype=torch.int64),
+        gather_drift=torch.zeros(k, dtype=torch.float32),
+        lockstep_evaluations=calls,
     )

@@ -627,7 +627,7 @@ def fuse(
     valid: torch.Tensor,  # (N,)
     images: torch.Tensor,  # (K, H, W, 3) uint8
     kf_poses: se3.SE3,  # batched (K,) camera->world
-    T_correction: se3.SE3,  # scalar correction (NID), identity if none
+    T_correction: se3.SE3,  # NID correction: scalar, or (K,) one a keyframe
     mask_images: Optional[torch.Tensor] = None,  # (K, H, W) int32
     *,
     top_k: int = 5,
@@ -642,7 +642,9 @@ def fuse(
     """Colorize the map from all keyframes and blend the top-K observations.
 
     The correction composes as ``T_c2w_optimized = T_c2w * T_correction``
-    (`PointCloudProcessor.cpp:507,516`). ``images`` (and ``mask_images``)
+    (`PointCloudProcessor.cpp:507,516`), a scalar correction with every
+    keyframe's pose and a (K,) one row by row (:func:`keyframe_pose`
+    composes a batch elementwise). ``images`` (and ``mask_images``)
     may live on the host: each keyframe's image is moved to the map's device
     as it is used. With masks, each point keeps the label of its visible
     observation of strictly highest score (`best_label`). Under the z-buffer

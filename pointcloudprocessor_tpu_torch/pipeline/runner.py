@@ -9,11 +9,15 @@ Port of `pointcloudprocessor_tpu/pipeline/runner.py` (stage sequence of
     -> colorize + top-K fuse -> [local color smoothing] -> save outputs
 
 Stages hand off device tensors on the ``device`` the caller names; nothing
-falls back to another device. Branches outside this slice raise
-NotImplementedError (see ROADMAP.md): per-keyframe refinement, re-culling
-between outer iterations, the manual initial guess, and the frozen-tap
-cache's partial refresh and wide window. With a mask folder, the
-mask path runs as the JAX runner's does (`runner.py:517-526, 585-649`).
+falls back to another device. The NID stage refines the shared correction,
+or with ``nid.per_keyframe`` one correction a keyframe in one lockstep
+solve (then, with ``nid.smooth_trajectory``, fused with the odometry by the
+pose graph); with ``nid.recull_every_outer_iter`` it re-culls the keyframes
+at the current correction between outer iterations (JAX `runner.py:
+370-482`). Branches outside the port raise NotImplementedError (see
+ROADMAP.md): the manual initial guess, and the frozen-tap cache's partial
+refresh and wide window. With a mask folder, the mask path runs as the JAX
+runner's does (`runner.py:517-526, 585-649`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from ..io import pcd
 from ..models import camera as cam
 from ..ops import fusion, hpr, mls, zbuffer
 from ..opt import nid as nid_mod
-from ..opt import refine
+from ..opt import pose_graph, refine
 from ..utils import profiling
 from ..utils.config import PipelineConfig
 from . import colorize, ingest, keyframes
@@ -49,20 +53,24 @@ class PipelineResult:
     num_colored_points: int = 0
     T_correction: Optional[se3.SE3] = None
     nid_value: float = float("nan")
+    # Objective evaluations of the NID stage, each one of every keyframe
+    # (per keyframe: the lockstep solve's; summed over re-cull passes).
     nid_evaluations: int = 0
-    nid_outer_iterations: int = 0
+    nid_outer_iterations: object = 0  # an int, or a list of one a keyframe
     timings: dict = field(default_factory=dict)
 
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise NotImplementedError for every configured branch the port does
     not run yet — never a silent fallback."""
+    # The cache options reach the solve only where the JAX runner forwards
+    # them: to the shared correction's frozen-tap solve, never to the
+    # per-keyframe solves (`runner.py:379-396`).
+    shared = not cfg.nid.per_keyframe
     unported = {
         "enable_manual_guess": cfg.enable_manual_guess,
-        "nid.per_keyframe": cfg.nid.per_keyframe,
-        "nid.recull_every_outer_iter": cfg.nid.recull_every_outer_iter,
-        "nid.frozen_partial_frac>0": cfg.nid.frozen_partial_frac > 0,
-        "nid.frozen_margin>0": cfg.nid.frozen_margin > 0,
+        "nid.frozen_partial_frac>0": shared and cfg.nid.frozen_partial_frac > 0,
+        "nid.frozen_margin>0": shared and cfg.nid.frozen_margin > 0,
     }
     on = [name for name, flag in unported.items() if flag]
     if on:
@@ -135,7 +143,9 @@ def _culls(camera, T_c2w: se3.SE3, points, valid, cfg: PipelineConfig):
     raise ValueError(f"culling.method must be 'zbuffer' or 'hpr', got {c.method!r}")
 
 
-def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = ""):
+def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = "",
+                        T_correction: Optional[se3.SE3] = None,
+                        bins_of: Optional[nid_mod.NIDKeyframe] = None):
     """Cull per keyframe and assemble the padded NIDKeyframe batch
     (`viewCullingAndSaveFilteredPcds` :178-224 + the loading in
     `estimate_pose_bfgs` :160-178, without the disk round-trip; the
@@ -144,15 +154,25 @@ def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = 
     A keyframe with more visible points than ``culled_capacity`` keeps an
     evenly spaced subset, the same indices as the JAX runner picks. Under
     ``culling.method="hpr"`` all the keyframes are culled in one batch
-    (:func:`_culls`)."""
+    (:func:`_culls`).
+
+    ``T_correction`` (scalar or (K,), JAX `runner.py:174-250`) re-culls at
+    the corrected poses ``T_c2w ∘ T_correction``
+    (`PointCloudProcessor.cpp:507`) for ``nid.recull_every_outer_iter``: the
+    visibility follows the correction, while the points stay in the raw
+    keyframe camera frame, so the refine composes its correction the same
+    way in every outer iteration. ``bins_of``: keyframes whose bin images
+    (and packed bin tiles) to reuse, since they do not depend on the pose:
+    no JPEG is decoded and no ``bin_pack`` runs."""
     device = map_cloud.points.device
     cap = cfg.culled_capacity
     bins = cfg.nid.bins
     norm_cloud = cl.normalize_intensity(map_cloud)
     poses = _camera_to_world(frames, kf_idx, _extrinsic_lidar_to_cam(cfg, device), device)
-    culls = _culls(camera, poses, norm_cloud.points, norm_cloud.valid, cfg)
+    cull_poses = poses if T_correction is None else se3.compose(poses, T_correction)
+    culls = _culls(camera, cull_poses, norm_cloud.points, norm_cloud.valid, cfg)
     pts_list, int_list, val_list, bin_list = [], [], [], []
-    for i, (pts_cam, mask) in zip(kf_idx, culls):
+    for j, (i, (pts_cam, mask)) in enumerate(zip(kf_idx, culls)):
         vis_idx = torch.nonzero(mask, as_tuple=True)[0]
         n_vis = vis_idx.numel()
         if n_vis > cap:
@@ -162,16 +182,21 @@ def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = 
         p = torch.zeros((cap, 3), dtype=torch.float32, device=device)
         it = torch.zeros((cap,), dtype=torch.float32, device=device)
         v = torch.zeros((cap,), dtype=torch.bool, device=device)
-        p[:n] = pts_cam[vis_idx]
+        if T_correction is None:
+            p[:n] = pts_cam[vis_idx]
+        else:  # the raw keyframe camera frame (JAX `_points_in_frame`, :169-171)
+            p[:n] = se3.transform_points(
+                se3.inverse(se3.SE3(poses.q[j], poses.t[j])), norm_cloud.points[vis_idx])
         it[:n] = norm_cloud.intensity[vis_idx]
         v[:n] = True
         pts_list.append(p)
         int_list.append(it)
         val_list.append(v)
-        # Quantized on the host, as the JAX runner does, and shipped as uint8.
-        gray = img_io.load_gray_normalized(frames[i].image_path)
-        b = np.clip((gray * bins).astype(np.int32), 0, bins - 1).astype(np.uint8)
-        bin_list.append(torch.from_numpy(b).to(device).to(torch.int32))
+        if bins_of is None:
+            # Quantized on the host, as the JAX runner does, and shipped as uint8.
+            gray = img_io.load_gray_normalized(frames[i].image_path)
+            b = np.clip((gray * bins).astype(np.int32), 0, bins - 1).astype(np.uint8)
+            bin_list.append(torch.from_numpy(b).to(device).to(torch.int32))
         if save_dir:
             ts = ingest.cpp_timestamp(frames[i].timestamp)
             pcd.write(
@@ -183,8 +208,39 @@ def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = 
         points=torch.stack(pts_list),
         intensity=torch.stack(int_list),
         valid=torch.stack(val_list),
-        bin_image=torch.stack(bin_list),
+        bin_image=torch.stack(bin_list) if bins_of is None else bins_of.bin_image,
+        bin_tiles=None if bins_of is None else bins_of.bin_tiles,
     )
+
+
+def _refine(cfg: PipelineConfig, camera, kfs, T0: se3.SE3, outer_iterations: int):
+    """One NID solve from ``T0``, with the options the JAX runner forwards
+    (`runner.py:377-410`): the per-keyframe solve takes none of the
+    schedule's (coarse phase, frozen taps, carried Hessian, ftol)."""
+    n = cfg.nid
+    common = dict(
+        bins=n.bins,
+        max_outer_iterations=outer_iterations,
+        max_inner_iterations=n.max_inner_iterations,
+        delta_trans_thresh=n.delta_trans_thresh,
+        delta_rot_thresh=float(np.radians(n.delta_rot_thresh_deg)),
+        trust_region_trans=n.trust_region_trans,
+        trust_region_rot=float(np.radians(n.trust_region_rot_deg)),
+    )
+    if n.per_keyframe:
+        return refine.refine_pose_per_keyframe(camera, kfs, T0, **common)
+    kw = {}
+    if n.coarse_outer_iterations:
+        kw.update(coarse_outer_iterations=n.coarse_outer_iterations, coarse_stride=n.coarse_stride)
+    if n.frozen_taps:
+        kw.update(frozen_taps=True, frozen_guard_frac=n.frozen_guard_frac)
+    return refine.refine_pose(camera, kfs, T0, carry_hessian=n.carry_hessian, ftol=n.ftol,
+                              **common, **kw)
+
+
+def _listed(x):
+    """A per-keyframe tensor as a list, a host value as itself (JSON)."""
+    return x.tolist() if isinstance(x, torch.Tensor) else x
 
 
 def process(cfg: PipelineConfig, device) -> PipelineResult:
@@ -283,6 +339,7 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
     if cfg.enable_nid_optimize and cfg.resume and os.path.exists(corr_path):
         with open(corr_path) as f:
             saved = json.load(f)
+        # (4,) and (3,), or (K, 4) and (K, 3) per keyframe.
         T_correction = se3.from_qt(
             torch.as_tensor(saved["quat_wxyz"], dtype=torch.float32, device=device),
             torch.as_tensor(saved["translation"], dtype=torch.float32, device=device),
@@ -290,45 +347,20 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
         result.nid_value = saved.get("nid", float("nan"))
         metrics.log("nid_resumed", path=corr_path)
     elif cfg.enable_nid_optimize:
-        # The schedule's options, forwarded as the JAX runner forwards them
-        # (`runner.py:377-410`).
-        kw = {}
-        if cfg.nid.coarse_outer_iterations:
-            kw.update(
-                coarse_outer_iterations=cfg.nid.coarse_outer_iterations,
-                coarse_stride=cfg.nid.coarse_stride,
-            )
-        if cfg.nid.frozen_taps:
-            kw.update(frozen_taps=True, frozen_guard_frac=cfg.nid.frozen_guard_frac)
         with timer.stage("nid_refine"):
-            res = refine.refine_pose(
-                camera,
-                kfs,
-                T_correction,
-                bins=cfg.nid.bins,
-                max_outer_iterations=cfg.nid.max_outer_iterations,
-                max_inner_iterations=cfg.nid.max_inner_iterations,
-                delta_trans_thresh=cfg.nid.delta_trans_thresh,
-                delta_rot_thresh=float(np.radians(cfg.nid.delta_rot_thresh_deg)),
-                trust_region_trans=cfg.nid.trust_region_trans,
-                trust_region_rot=float(np.radians(cfg.nid.trust_region_rot_deg)),
-                carry_hessian=cfg.nid.carry_hessian,
-                ftol=cfg.nid.ftol,
-                **kw,
-            )
-            T_correction = res.T_camera_lidar
-            result.nid_value = float(res.nid)
-        result.nid_evaluations = res.evaluations
-        result.nid_outer_iterations = res.outer_iterations
+            res, T_correction = _nid_stage(cfg, camera, map_cloud, frames, kf_idx, kfs,
+                                           T_correction, device, timer, metrics)
+            result.nid_value = float(res.nid.sum())
+        result.nid_outer_iterations = _listed(res.outer_iterations)
         with open(corr_path, "w") as f:
             json.dump(
                 {
                     "quat_wxyz": T_correction.q.tolist(),
                     "translation": T_correction.t.tolist(),
                     "nid": result.nid_value,
-                    "per_keyframe": False,
-                    "outer_iterations": res.outer_iterations,
-                    "converged": res.converged,
+                    "per_keyframe": bool(cfg.nid.per_keyframe),
+                    "outer_iterations": _listed(res.outer_iterations),
+                    "converged": _listed(res.converged),
                 },
                 f,
                 indent=2,
@@ -336,11 +368,12 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
         metrics.log(
             "nid_refined",
             nid=result.nid_value,
-            outer_iterations=res.outer_iterations,
-            converged=res.converged,
-            evaluations=res.evaluations,
-            gathers=res.gathers,
+            outer_iterations=_listed(res.outer_iterations),
+            converged=_listed(res.converged),
+            evaluations=_listed(res.evaluations),
+            gathers=_listed(res.gathers),
         )
+        result.nid_evaluations = res.lockstep_evaluations if cfg.nid.per_keyframe else res.evaluations
     del kfs
     result.T_correction = T_correction
 
@@ -393,6 +426,63 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
     metrics.log("outputs_saved", colored_points=result.num_colored_points)
 
 
+def _nid_stage(cfg, camera, map_cloud, frames, kf_idx, kfs, T_correction, device, timer,
+               metrics):
+    """The NID refinement (JAX `runner.py:370-460`): ``(RefineResult,
+    correction)``, the correction scalar or, under ``nid.per_keyframe``,
+    one a keyframe (K,). With ``nid.recull_every_outer_iter`` a host outer
+    loop of one-outer-iteration solves re-culls the keyframes at the
+    current correction before every pass after the first (reusing their
+    bin images) and stops once every lane's pass moved less than the outer
+    thresholds; the result's ``outer_iterations`` and ``converged`` are the
+    loop's and its ``evaluations`` (``lockstep_evaluations`` per keyframe)
+    the sum over the passes. With ``nid.per_keyframe`` and
+    ``nid.smooth_trajectory`` the pose graph then fuses the corrections
+    with the odometry chain."""
+    n = cfg.nid
+    if n.recull_every_outer_iter:
+        # The improvement the reference forgoes: it reloads the same culled
+        # clouds every outer iteration (visual_camera_calibration.cpp:160-167).
+        evaluations = lockstep = 0
+        # Packed once (one bin_pack), then handed to every re-cull.
+        kfs = nid_mod.prepare_keyframes(kfs)
+        for outer in range(n.max_outer_iterations):
+            if outer > 0:
+                with timer.stage("nid_recull"):
+                    kfs = build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg,
+                                              T_correction=T_correction, bins_of=kfs)
+            res = _refine(cfg, camera, kfs, T_correction, 1)
+            evaluations = evaluations + res.evaluations
+            lockstep += res.lockstep_evaluations
+            dt, dr = se3.delta_magnitudes(T_correction, res.T_camera_lidar)
+            T_correction = res.T_camera_lidar
+            converged = ((dt < n.delta_trans_thresh)
+                         & (dr < float(np.radians(n.delta_rot_thresh_deg)))).cpu()
+            metrics.log("nid_recull_outer", outer=outer + 1, max_dt=float(dt.max()),
+                        max_dr=float(dr.max()))
+            if bool(converged.all()):
+                break
+        res = res._replace(outer_iterations=outer + 1, evaluations=evaluations,
+                           lockstep_evaluations=lockstep,
+                           converged=converged if n.per_keyframe else bool(converged))
+    else:
+        res = _refine(cfg, camera, kfs, T_correction, n.max_outer_iterations)
+        T_correction = res.T_camera_lidar
+    if n.per_keyframe and n.smooth_trajectory:
+        # Fuse the independent corrections with the VO chain, then fold the
+        # smoothed trajectory back into corrections, so colorize keeps its
+        # one interface.
+        with timer.stage("pose_graph"):
+            c2w = _camera_to_world(frames, kf_idx, _extrinsic_lidar_to_cam(cfg, device), device)
+            pg = pose_graph.smooth_refined_trajectory(
+                c2w, T_correction, converged=res.converged,
+                abs_weight=n.smooth_abs_weight, odo_weight=n.smooth_odo_weight)
+            T_correction = se3.compose(se3.inverse(c2w), pg.poses)
+        metrics.log("pose_graph_smoothed", residual_norm=float(pg.residual_norm),
+                    initial_residual_norm=float(pg.initial_residual_norm))
+    return res, T_correction
+
+
 def _load_masks(frames, kf_idx, cfg) -> torch.Tensor:
     """(K, H, W) int32 host masks of the keyframes; a missing or unreadable
     PNG gives a zero mask (JAX `runner.py:517-526`)."""
@@ -427,7 +517,10 @@ def _save_mask_outputs(cfg, camera, map_cloud, frames, kf_idx, images, masks, po
             images[j].to(device),
             masks[j].to(device),
             se3.SE3(poses.q[j], poses.t[j]),
-            T_correction,
+            # Keyframe j's own row of a per-keyframe correction (JAX
+            # `runner.py:606-610`).
+            se3.SE3(T_correction.q[j], T_correction.t[j]) if T_correction.q.ndim == 2
+            else T_correction,
             saturation_scale=cfg.fusion.saturation_scale,
             brightness_scale=cfg.fusion.brightness_scale,
             mask_highlight_value=cfg.fusion.mask_highlight_value,

@@ -53,6 +53,7 @@ def test_port_imports_no_jax():
         "import pointcloudprocessor_tpu_torch.pipeline.runner\n"
         "import pointcloudprocessor_tpu_torch.cli\n"
         "import pointcloudprocessor_tpu_torch.utils.interop\n"
+        "import pointcloudprocessor_tpu_torch.opt.pose_graph\n"
         "import pointcloudprocessor_tpu_torch.ops.hpr\n"
         "import pointcloudprocessor_tpu_torch.ops.knn\n"
         "import pointcloudprocessor_tpu_torch.ops.voxel\n"
@@ -91,8 +92,6 @@ def test_cli_device_defaults_to_cuda():
     "path, value",
     [
         ("enable_manual_guess", True),
-        ("nid.per_keyframe", True),
-        ("nid.recull_every_outer_iter", True),
         ("nid.frozen_partial_frac", 0.25),
         ("nid.frozen_margin", 1),
     ],
@@ -107,6 +106,33 @@ def test_unported_branches_raise(path, value):
     setattr(obj, leaf, value)
     with pytest.raises(NotImplementedError, match=path.split(".")[-1].split("=")[0]):
         runner.check_supported(cfg)
+
+
+@pytest.mark.parametrize(
+    "options",
+    [
+        dict(per_keyframe=True),
+        dict(per_keyframe=True, smooth_trajectory=True),
+        dict(recull_every_outer_iter=True),
+        dict(recull_every_outer_iter=True, per_keyframe=True, frozen_taps=True),
+        dict(per_keyframe=True, frozen_partial_frac=0.25, frozen_margin=1),
+    ],
+    ids=["per_keyframe", "smoothed", "recull", "recull_per_keyframe", "cache_options_unread"],
+)
+def test_per_keyframe_and_recull_are_supported(options):
+    """Per-keyframe refinement, the pose-graph smoother and re-culling run in
+    the port (tests/test_torch_refine_per_keyframe.py,
+    tests/test_torch_pose_graph.py, tests/test_torch_recull.py). The
+    per-keyframe solve reads none of the cache options, as in the JAX
+    runner, so they pass under it and still raise without it."""
+    cfg = tcfg.PipelineConfig()
+    for key, value in options.items():
+        setattr(cfg.nid, key, value)
+    runner.check_supported(cfg)
+    if cfg.nid.frozen_partial_frac > 0:
+        cfg.nid.per_keyframe = False
+        with pytest.raises(NotImplementedError, match="frozen_partial_frac"):
+            runner.check_supported(cfg)
 
 
 def test_default_config_is_supported():
