@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for matmuls and cuDNN.
 2. Build: compiles the eight kernel libraries (csrc/nid_hist.cu: K1/K2,
-   csrc/tap_gather.cu: G1 tap_take, bin_pack and K3/K4, csrc/zbuffer.cu: K5 zmin and
+   csrc/tap_gather.cu: G1 tap_take, bin_pack, K3/K4, G2 wide_take, W1
+   wide_select and the block forms tap_take_blocks and wide_take_blocks, csrc/zbuffer.cu: K5 zmin and
    zbuffer_visible, csrc/colorize.cu: C1 colorize_scatter and
    colorize_update, csrc/hpr.cu: H1 hpr_support and H2 hpr_grid,
    csrc/smooth.cu: N1 smooth_local, csrc/mls.cu: M1 mls_moments,
@@ -81,6 +82,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    it before; peak device memory of each. K3 and K4 launch once per grouped
    take and fall back at least once; the final NIDs agree within 1e-3 and
    each recovers T0.
+6b. The frozen-tap cache's kernels (``phase_wide_cache``) on the scene's
+   8 x 262,144 points in map order, the cache gathered at T0, the pose
+   drifted by 1.5 and 4.5 px, at margins 1 and 2: G2 ``wide_take``
+   bit-equal to its twin (also on edge knots, a ragged n and a 4095 x 2999
+   image), W1 ``wide_select`` bit-equal to its twin and, on every point
+   live under both gates within the margin, to G1's direct take at the
+   drifted knots; the block forms ``tap_take_blocks`` and
+   ``wide_take_blocks`` bit-equal to their twins in place on the block
+   list of a real drift. One launch a call each; device and call times
+   beside the bound and the twin, G2's beside ``index_select`` on a wide
+   table built once. Then ``phase_partial_solve``: ``refine_pose`` under
+   the headline schedule with every refresh partial, bit-equal to the
+   full-refresh solve (pose bits, NID, evaluations, gathers), margin 2
+   beside margin 0 (NIDs within 1e-3; evaluations, gathers, wall and
+   device time, peak memory), and margin 2 with every refresh partial and
+   no coarse phase (G2's block form on a solve path). Then the smoke's
+   correspondence file: 12 scene points a keyframe for 4 keyframes and
+   their pixels through the planted correction (``write_picks``).
 7. K5/Z1: ``zmin_tiles`` (the K5 form, cells given) bit-equal to its twin
    at the probe's full size (999,424 points, 62,995 cells, ranges with
    negatives and zeros, 1% of cells out of range). The fused cull (a
@@ -249,6 +268,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches of each z-buffer kernel a build (the first and each re-cull),
    one bin_pack (the re-culls reuse the packed tiles), G1 at both shapes
    (each pass's gathers and final evaluation).
+14d. The cache options + manual guess path: the headline schedule with
+   ``nid.frozen_margin`` 2 and ``nid.frozen_partial_frac`` 0.25, and
+   ``enable_manual_guess`` on the smoke's correspondence file. Asserts the
+   NID correction within 1 cm / 1 degree of T0, each of the 4 manual poses
+   too, the NID at most the NID at T0 + 1e-3, one W1 launch a frozen
+   evaluation, G2 (or its block form) a gather and G1 only for the final
+   evaluation; prints the gathers, partial gathers, evaluations, the
+   launches and the ``nid_refine`` and ``manual_guess`` seconds.
 18. Tools at full scale: ``tools/colorize_anatomy`` (the eager stages and
    the production C1 fuse) and ``tools/zbuffer_probe``, each printing its
    JSON line; both must report non-null kernel times and exact masks /
@@ -260,7 +287,11 @@ small-map run (a call a cull batch), H2/N1's those of the HPR + smoothing
 run (H2's a call of a memset and four launches), M1/S1's those of the MLS
 run (each also carries the other paths' counts as ``launches_<path>``:
 the per-keyframe path's as ``launches_per_keyframe_path``, the re-cull
-path's as ``launches_recull_path``).
+path's as ``launches_recull_path``), G2's and W1's those of the cache
+options + manual guess run, G1's block form's those of the partial-refresh
+solve of phase 6b and G2's block form's those of its margin-2 solve with
+no coarse phase (each asserted at least 1). G2, W1 and the block forms
+carry margin 2's times as ``ms`` and margin 1's as ``m1_*``.
 The line before the last is a JSON object describing each kernel: ``ms``,
 ``plain_ms`` and ``library_ms`` are device times (a sleep kernel queued
 ahead of the start event hides the host's enqueue; where a twin's host side
@@ -968,7 +999,7 @@ def phase_lockstep(card, camera, kfs, nid, device="cuda"):
 
 
 def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=False, mls=False,
-                 eager=False, small=False):
+                 eager=False, small=False, picks=None):
     """``runner.process`` on the smoke scene under ``nid`` (with the mask
     folder if ``masks``; with HPR culling and local smoothing if ``hpr``;
     with the MLS map stage if ``mls``), the launch counts set to 0 just
@@ -998,7 +1029,12 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     "auto" takes H1: two ``hpr_support`` calls (the 8 NID culls, then the 8
     colorize culls), no H2, and each of the 16 masks bit-equal to the dense
     twin run on the CPU on the same inputs (:func:`check_dense_culls`); its
-    pose is printed, not gated. Prints the
+    pose is printed, not gated. With ``picks`` (a correspondence file) the
+    manual initial guess runs after the solve (:func:`check_manual`). Under
+    a frozen-tap margin the fine gathers are G2's (``wide_take``, its block
+    form ``wide_take_blocks`` for a partial refresh) and every frozen
+    evaluation one W1 ``wide_select``, G1 only the final evaluation; at
+    margin 0 a partial refresh is one ``tap_take_blocks``. Prints the
     solve's peak device memory above what was held at its entry. Returns
     (launches, summary): the pose, NID, evaluations, gathers, colored
     points, the colored cloud's SHA-256 and its (points, rgb), the
@@ -1019,6 +1055,8 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
 
     assert hpr or not small
     cfg = _config(root, nid, masks, hpr, mls, small)
+    if picks:
+        cfg.enable_manual_guess, cfg.correspondences_path = True, picks
     n_cull = cfg.culled_capacity
     shutil.rmtree(cfg.output_path, ignore_errors=True)
     kernels = (colorize.fuse, tap_gather.direct_take, tap_gather.pack_bins,
@@ -1176,16 +1214,30 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         # objective gathers (the coarse phase's, all of the plain schedule's);
         # with frozen taps so does each refresh of the cache, the first
         # included, and the final exact evaluation.
+        cache_kernels = ("tap_take_blocks", "wide_take", "wide_take_blocks", "wide_select")
         if nid.frozen_taps and not nid.per_keyframe:
             coarse = sum(c for n, c in launches["launches_by_n"]["nid_hist_fwd"].items()
                          if int(n) < n_cull)
-            fine = sum(r.gathers + 1 for _, r in solves)  # each pass's gathers and final
+            partial = sum(r.partial_gathers for _, r in solves)
+            full = sum(r.gathers for _, r in solves) - partial
+            # Each pass's final evaluation, and at margin 0 each full gather.
+            fine = passes + (0 if nid.frozen_margin else full)
             takes = coarse + fine
             by_n = launches["launches_by_n"]["tap_take"]
             assert by_n.get(str(n_cull), 0) == fine, launches
             assert by_n.get(str(n_cull // nid.coarse_stride), 0) == coarse, launches
+            if nid.frozen_margin:  # one W1 a frozen evaluation (each one K2 at the fine shape)
+                frozen = launches["launches_by_n"]["nid_hist_bwd"].get(str(n_cull), 0)
+                assert launches["wide_take"] == full >= 1, launches
+                assert launches["wide_take_blocks"] == partial, launches
+                assert launches["wide_select"] == frozen >= 1, launches
+                assert launches["tap_take_blocks"] == 0, launches
+            else:
+                assert launches["tap_take_blocks"] == partial, launches
+                assert launches["wide_take"] == launches["wide_select"] == 0, launches
         else:
             takes = launches["nid_hist_fwd"]
+            assert all(launches[name] == 0 for name in cache_kernels), launches
         if nid.per_keyframe:
             # One K1, one K2 and one G1 launch an evaluation of the lockstep
             # solve, each for all K keyframes.
@@ -1208,6 +1260,8 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
               f"{N_MAP} points kept in scans-crop_mls.pcd")
     if masks:
         check_mask_outputs(res, cfg.output_path, label)
+    if picks:
+        check_manual(card, label, res, cfg, solves, launches, T0, nid)
 
     # The written cloud: every colored point, colors in range, and the
     # colors carry the wall texture the images were rendered from. The bar
@@ -1249,6 +1303,39 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     else:
         assert corr > 0.8, corr
     return launches, summary
+
+
+def check_manual(card, label, res, cfg, solves, launches, T0, nid):
+    """The cache + manual guess path's gates: each pose of
+    manual_poses.json (one a picked keyframe) within 1 cm / 1 deg of the
+    planted T0, and the NID at most the NID at T0 on the solve's keyframes
+    + 1e-3. Prints the gathers, partial gathers, evaluations, the cache
+    kernels' launches and the nid_refine and manual_guess stages' seconds.
+    Runs after the path's counts are read (the NID at T0 launches G1 and
+    K1)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.opt import nid as nid_mod
+
+    with open(os.path.join(cfg.output_path, "manual_poses.json")) as f:
+        manual = json.load(f)
+    assert len(manual) == len(PICKED_KEYFRAMES), manual
+    for ts, pose in manual.items():
+        cm, deg = _pose_error(se3.SE3(torch.tensor(pose["quat_wxyz"]),
+                                      torch.tensor(pose["translation"])), T0)
+        print(f"{label}: manual pose of keyframe {ts}: error vs T0 {cm:.4f} cm / {deg:.4f} deg")
+        assert cm < 1.0 and deg < 1.0, (ts, cm, deg)
+    (camera, kfs, *_), r = solves[-1]
+    with torch.no_grad():
+        at_t0 = float(nid_mod.multi_nid_loss(camera, T0.to(kfs.points.device), kfs, nid.bins))
+    print(f"[{card}] {label}: NID {res.nid_value:.6f} (at T0 {at_t0:.6f}); evaluations "
+          f"{r.evaluations}; gathers {r.gathers} ({r.partial_gathers} partial); launches G2 "
+          f"{launches['wide_take']}, G2 block form {launches['wide_take_blocks']}, W1 "
+          f"{launches['wide_select']}, G1 {launches['tap_take']}, G1 block form "
+          f"{launches['tap_take_blocks']}; nid_refine {res.timings['nid_refine']:.3f} s, "
+          f"manual_guess {res.timings['manual_guess']:.3f} s")
+    assert res.nid_value <= at_t0 + 1e-3, (res.nid_value, at_t0)
 
 
 def check_dense_culls(card, label, culls):
@@ -1367,15 +1454,16 @@ def scene_keyframes(root, device="cuda"):
     return camera, runner.build_nid_keyframes(camera, cloud, frames, kf_idx, cfg)
 
 
-def _window_pixels(knot, w, h):
-    """Distinct pixels of the clipped 4x4 windows that the knots read,
-    summed over the keyframes (each reads its own image): rows and columns
-    -1..2 around the clipped anchor, each clamped into the image."""
+def _window_pixels(knot, w, h, lo=-1, hi=3):
+    """Distinct pixels of the clipped windows that the knots read, summed
+    over the keyframes (each reads its own image): rows and columns lo..hi-1
+    around the clipped anchor (-1..2: the 4x4 window; -1-m..2+m: the wide
+    window of margin m), each clamped into the image."""
     import torch
 
     u = torch.clamp(knot[..., 0].long(), 0, w - 1)
     v = torch.clamp(knot[..., 1].long(), 0, h - 1)
-    d = torch.arange(-1, 3, device=knot.device)
+    d = torch.arange(lo, hi, device=knot.device)
     total = 0
     for j in range(knot.shape[0]):
         cols = torch.clamp(u[j, :, None] + d, 0, w - 1)
@@ -1815,6 +1903,338 @@ def phase_grouped(card, camera, kfs, T0, device="cuda"):
     print(f"grouped path: final NIDs spread {spread:.2e} (tol 1e-3)")
     assert spread <= 1e-3, nids
     return counts
+
+
+# The frozen-tap cache's drifts: the planted correction moved along the
+# camera's x axis by this many pixels on the wall (bench_scene.WALL_Z).
+DRIFT_PX = (1.5, 4.5)
+MARGINS = (1, 2)
+# The cache + manual guess path: the headline schedule with the cache's
+# widest window and a partial refresh, and 12 picked pairs for 4 keyframes.
+CACHE_MANUAL = dict(HEADLINE, frozen_margin=2, frozen_partial_frac=0.25)
+PICKED_KEYFRAMES, PICKS_A_KEYFRAME = (0, 2, 4, 6), 12
+
+
+def _drifted(T0, px):
+    """T0 moved ``px`` pixels along u at the wall's depth."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.tools import bench_scene as bs
+
+    xi = torch.tensor([px * bs.WALL_Z / bs.focal(WIDTH), 0.0, 0.0, 0.0, 0.0, 0.0])
+    return se3.compose(T0, se3.exp(xi))
+
+
+def _block_list(drifted, cap):
+    """The (K, cap) int32 ids of the 128-point blocks holding a drifted
+    point, ascending, padded with nb (``opt/nid._refresh``'s list)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
+
+    k, n = drifted.shape
+    nb = n // tg.PARTIAL_BLOCK
+    dirty = torch.any(drifted.reshape(k, nb, tg.PARTIAL_BLOCK), dim=2)
+    iota = torch.arange(nb, dtype=torch.int32, device=drifted.device)
+    return torch.sort(torch.where(dirty, iota, nb), dim=1).values[:, :cap].contiguous()
+
+
+def _block_knots(knot, blocks):
+    """[(1, P_j, 2)] the knots of keyframe j's listed blocks (ids below nb)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
+
+    nb = knot.shape[1] // tg.PARTIAL_BLOCK
+    step = torch.arange(tg.PARTIAL_BLOCK, device=knot.device)
+    return [knot[j, (blocks[j][blocks[j] < nb].long()[:, None] * tg.PARTIAL_BLOCK
+                     + step).reshape(-1)][None] for j in range(knot.shape[0])]
+
+
+def phase_wide_cache(card, camera, kfs, T0, device="cuda"):
+    """G2 (``wide_take``), W1 (``wide_select``) and the block forms of G1
+    and G2 (``tap_take_blocks``, ``wide_take_blocks``) on the scene's 8
+    keyframes of 262,144 points (map order, as the frozen solve runs them),
+    the cache gathered at T0 and the pose drifted by 1.5 and 4.5 px; at
+    margins 1 and 2. G2 bit-equal to its twin (at T0, on edge knots, on a
+    ragged n and on a 4095 x 2999 image); W1 bit-equal to its twin at each
+    drift, and its taps and effective knots equal to G1's direct take at
+    the drifted knots on every point live under both gates within the
+    margin; each block form bit-equal to its twin, in place, on the block
+    list of a real drift (points drifted past the guard: >= 1 px for G1's,
+    >= m + 1 px for G2's). One launch a call each. Times each beside its
+    bound and its twin, and G2 beside ``index_select`` on a (K H W, 4 + 2m)
+    wide table built once. Returns the four records (margin 2's as ``ms``,
+    margin 1's as ``m1_*``)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
+    from pointcloudprocessor_tpu_torch.opt import nid
+
+    w, h = camera.width, camera.height
+    kp = nid.prepare_keyframes(kfs)
+    tiles = kp.bin_tiles
+    k, n = kp.points.shape[:2]
+    nb = n // tg.PARTIAL_BLOCK
+    _, kc, inl_c = nid._project_all(camera, T0.to(device), kp)
+    drift = {px: nid._project_all(camera, _drifted(T0, px).to(device), kp)[1:]
+             for px in DRIFT_PX}
+    base = {"route": "cuda", "source": f"{PKG}/csrc/tap_gather.cu", "max_abs_err": 0.0}
+    recs = {
+        "wide_take": dict(base, name="wide_take",
+                          replaces="pointcloudprocessor_tpu/opt/nid.py:637"),
+        "wide_select": dict(base, name="wide_select",
+                            replaces="pointcloudprocessor_tpu/opt/nid.py:653", library_ms=None),
+        "tap_take_blocks": dict(base, name="tap_take_blocks",
+                                replaces="pointcloudprocessor_tpu/opt/nid.py:606",
+                                library_ms=None),
+        "wide_take_blocks": dict(base, name="wide_take_blocks",
+                                 replaces="pointcloudprocessor_tpu/opt/nid.py:690",
+                                 library_ms=None),
+    }
+
+    def once(name, fn):
+        """fn() with the counts at 0; asserts one launch of ``name``."""
+        _reset_counts()
+        out = fn()
+        launched = _read_counts()[name]
+        assert device != "cuda" or launched == 1, (name, launched)
+        return out
+
+    def timed(rec, prefix, label, fn, twin, nbytes, library=None):
+        t = {"ms": _device_ms(fn, device), "call_ms": _median_ms(fn, device),
+             "plain_ms": _device_ms(twin, device) or _median_ms(twin, device)}
+        t["bound_ms"], t["bound_by"] = _bound(nbytes)
+        if library is not None:
+            t["library_ms"] = _device_ms(library, device)
+            t["library_call_ms"] = _median_ms(library, device)
+        rec.update({f"{prefix}{key}": v for key, v in t.items()})
+        share = f"{t['bound_ms'] / t['ms']:.2f}" if t["ms"] else "not measured"
+        print(f"[{card}] {rec['name']}, {label}: device {_ms(t['ms'])} ms, a call "
+              f"{_ms(t['call_ms'])}, twin {_ms(t['plain_ms'])}"
+              + (f", index_select on the wide table {_ms(t['library_ms'])}" if library else "")
+              + f"; bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {nbytes:.0f} B), at "
+              f"{share} of it")
+
+    rs = np.random.default_rng(SEED)
+    ends = np.asarray([0, 1, w - 1, w, -1, -7, 10**9, -10**9, 2**31 - 1, -2**31], np.int64)
+    uu, vv = np.meshgrid(ends, np.asarray([0, 1, h - 1, h, -1, 10**9, -2**31], np.int64))
+    edge = np.concatenate([np.stack([uu.ravel(), vv.ravel()], -1),
+                           rs.integers(-10**9, 10**9, (3001, 2))]).astype(np.int32)
+    edge = torch.from_numpy(np.stack([np.roll(edge, j, axis=0) for j in range(k)])).to(device)
+    odd_bins = kp.bin_image[:, : h - 1, : w - 1].contiguous()
+    odd_tiles = tg.pack_bins(odd_bins)
+    for m in MARGINS:
+        prefix = "" if m == 2 else f"m{m}_"
+        rows = 4 + 2 * m
+        # G2 against its twin.
+        wide = once("wide_take", lambda: tg.wide_take(tiles, kc, w, h, m))
+        assert torch.equal(wide, tg.wide_take_plain(tiles, kc, w, h, m)), f"G2 != twin, m {m}"
+        for label, args in (("edge knots", (tiles, edge, w, h)),
+                            (f"ragged n = {n - 77}", (tiles, kc[:, : n - 77].contiguous(), w, h)),
+                            (f"{w - 1} x {h - 1} image", (odd_tiles, kc, w - 1, h - 1)),
+                            (f"{w - 1} x {h - 1} image, edge knots", (odd_tiles, edge, w - 1,
+                                                                      h - 1))):
+            assert torch.equal(tg.wide_take(*args, m), tg.wide_take_plain(*args, m)), (label, m)
+        print(f"G2 wide_take, m = {m}: {tuple(wide.shape)} planes at T0 bit-equal to its twin; "
+              f"also on edge knots, a ragged n and a {w - 1} x {h - 1} image")
+        # The yardstick: index_select on the wide table, built once by G2 from
+        # every pixel's knot.
+        yy, xx = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
+                                indexing="ij")
+        every = torch.stack([xx, yy], -1).reshape(1, -1, 2).to(torch.int32).expand(k, -1, -1)
+        table = tg.wide_take(tiles, every.contiguous(), w, h, m).permute(0, 2, 1).reshape(-1, rows)
+        table = table.contiguous()
+        flat = (tg.anchors(kc, w, h).long()
+                + torch.arange(k, device=device)[:, None] * (h * w)).reshape(-1)
+        assert torch.equal(torch.index_select(table, 0, flat).reshape(k, n, rows),
+                           wide.permute(0, 2, 1)), "G2 != the wide table's rows"
+        pixels = _window_pixels(kc, w, h, lo=-1 - m, hi=3 + m)
+        timed(recs["wide_take"], prefix, f"m = {m}", lambda: tg.wide_take(tiles, kc, w, h, m),
+              lambda: tg.wide_take_plain(tiles, kc, w, h, m),
+              _nbytes(kc) + _nbytes(wide) + pixels / 2,
+              library=lambda: torch.index_select(table, 0, flat))
+        recs["wide_take"][f"{prefix}window_pixels"] = pixels
+        del table, flat, every, xx, yy
+        # W1 at each drift, and its exactness within the margin.
+        for px in DRIFT_PX:
+            kt, inl_t = drift[px]
+            taps, eff = once("wide_select", lambda: tg.wide_select(wide, kt, kc, m))
+            twin_taps, twin_eff = tg.wide_select_plain(wide, kt, kc, m)
+            assert torch.equal(taps, twin_taps) and torch.equal(eff, twin_eff), ("W1", m, px)
+            exact = tg.direct_take(tiles, kt, w, h)
+            within = inl_c & inl_t & ((kt.long() - kc.long()).abs().amax(-1) <= m)
+            assert torch.equal(taps[within], exact[within]), ("W1 != G1 within the margin", m, px)
+            assert torch.equal(eff[within], kt[within]), ("W1's knots", m, px)
+            print(f"W1 wide_select, m = {m}, drift {px} px: bit-equal to its twin; taps and knots "
+                  f"equal to G1's direct take at the drifted knots on all {int(within.sum())} "
+                  f"points live under both gates within the margin (of "
+                  f"{int((inl_c & inl_t).sum())} live under both)")
+            if px == DRIFT_PX[0]:
+                timed(recs["wide_select"], prefix, f"m = {m}, drift {px} px",
+                      lambda: tg.wide_select(wide, kt, kc, m),
+                      lambda: tg.wide_select_plain(wide, kt, kc, m),
+                      2 * _nbytes(kt) + 4 * 4 * k * n + _nbytes(taps, eff))
+        # G2's block form on the dirty list of the 4.5 px drift.
+        kt, inl_t = drift[DRIFT_PX[-1]]
+        shift = (kt.float() - kc.float()).abs().amax(-1)
+        blocks = _block_list((shift >= m + 1) & (inl_t | inl_c), nb)
+        got = once("wide_take_blocks",
+                   lambda: tg.wide_take_blocks(tiles, kt, blocks, wide.clone(), w, h, m))
+        want = tg.wide_take_blocks_plain(tiles, kt, blocks, wide.clone(), w, h, m)
+        assert torch.equal(got, want), ("G2 blocks != twin", m)
+        listed = int((blocks < nb).sum())
+        assert listed > 0
+        retaken = _block_knots(kt, blocks)
+        nbytes = (listed * tg.PARTIAL_BLOCK * (8 + 4 * rows) + _nbytes(blocks)
+                  + sum(_window_pixels(x, w, h, lo=-1 - m, hi=3 + m) for x in retaken) / 2)
+        print(f"G2's block form, m = {m}, drift {DRIFT_PX[-1]} px: {listed} of {k * nb} blocks "
+              "listed, bit-equal to its twin in place")
+        scratch = wide.clone()
+        timed(recs["wide_take_blocks"], prefix, f"m = {m}, {listed} blocks",
+              lambda: tg.wide_take_blocks(tiles, kt, blocks, scratch, w, h, m),
+              lambda: tg.wide_take_blocks_plain(tiles, kt, blocks, scratch, w, h, m), nbytes)
+        recs["wide_take_blocks"][f"{prefix}blocks_listed"] = listed
+        del wide, scratch, got, want
+    # G1's block form (margin 0) on the dirty list of the 1.5 px drift.
+    kt, inl_t = drift[DRIFT_PX[0]]
+    shift = (kt.float() - kc.float()).abs().amax(-1)
+    blocks = _block_list((shift >= 1) & (inl_t | inl_c), nb)
+    taps = tg.direct_take(tiles, kc, w, h)
+    got = once("tap_take_blocks", lambda: tg.tap_take_blocks(tiles, kt, blocks, taps.clone(), w, h))
+    assert torch.equal(got, tg.tap_take_blocks_plain(tiles, kt, blocks, taps.clone(), w, h))
+    listed = int((blocks < nb).sum())
+    nbytes = (listed * tg.PARTIAL_BLOCK * 16 + _nbytes(blocks)
+              + sum(_window_pixels(x, w, h) for x in _block_knots(kt, blocks)) / 2)
+    print(f"G1's block form, drift {DRIFT_PX[0]} px: {listed} of {k * nb} blocks listed, "
+          "bit-equal to its twin in place")
+    timed(recs["tap_take_blocks"], "", f"{listed} blocks",
+          lambda: tg.tap_take_blocks(tiles, kt, blocks, taps, w, h),
+          lambda: tg.tap_take_blocks_plain(tiles, kt, blocks, taps, w, h), nbytes)
+    recs["tap_take_blocks"]["blocks_listed"] = listed
+    return list(recs.values())
+
+
+def _solve_device_ms(fn, device):
+    """(result, wall s, device busy ms): ``fn()`` once on the host clock
+    with the card synchronized, its kernels' device time summed by
+    ``torch.profiler`` (CUDA activity only; None off the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) * 1e-3
+    return out, wall, busy
+
+
+def phase_partial_solve(card, camera, kfs, T0, device="cuda"):
+    """``refine_pose`` under the headline schedule on the scene's 8
+    keyframes, from the identity: with ``frozen_partial_frac`` 1.0 (every
+    refresh through G1's block form) against 0.0, the raster sort pinned
+    off for both, then margin 2 against margin 0. The partial solve is
+    bit-equal to the full-refresh one (pose bits, NID, evaluations and
+    gathers; JAX's ``test_refine_partial_refresh_solve_is_bit_identical``
+    on the card) with at least one partial gather; margin 2 reaches
+    margin 0's NID within 1e-3. Then margin 2 with every refresh partial and
+    no coarse phase, so that the fine phase outruns the margin and G2's
+    block form runs. Each within 1 cm / 1 deg of T0. The counts are set to
+    0 before each solve and read after it; prints each solve's evaluations,
+    gathers, launches, wall and device time and peak memory. Returns the
+    launches of the partial solve (G1's block form's path) and of the last
+    (G2's block form's)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.opt import refine
+
+    runs = (("full refresh", dict(frozen_partial_frac=0.0, sort_points=False)),
+            ("partial 1.0", dict(frozen_partial_frac=1.0, sort_points=False)),
+            ("margin 2", dict(frozen_margin=2, sort_points=False)),
+            # The fine phase from the identity, ~20-35 px from T0: the margin
+            # is outrun, and every refresh goes through G2's block form.
+            ("margin 2, partial 1.0, no coarse phase",
+             dict(frozen_margin=2, frozen_partial_frac=1.0, coarse_outer_iterations=0)))
+    out = {}
+    for label, kw in runs:
+        _reset_counts()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        res, wall, busy = _solve_device_ms(
+            lambda kw=kw: refine.refine_pose(camera, kfs, se3.identity(device),
+                                             **dict(HEADLINE, **kw)), device)
+        peak = ((torch.cuda.max_memory_allocated() - held) / 2**20 if device == "cuda"
+                else None)
+        counts = _read_counts()
+        err_cm, err_deg = _pose_error(res.T_camera_lidar, T0)
+        out[label] = (res, counts)
+        print(f"[{card}] partial / wide solve, {label}: NID {float(res.nid):.6f}; error "
+              f"{err_cm:.4f} cm / {err_deg:.4f} deg; evaluations {res.evaluations}; gathers "
+              f"{res.gathers} ({res.partial_gathers} partial); wall {wall:.3f} s, device busy "
+              f"{_ms(busy)} ms; peak memory above the keyframes "
+              f"{f'{peak:.1f} MiB' if peak is not None else 'not measured'}; launches "
+              + json.dumps({key: counts[key] for key in (
+                  "nid_hist_fwd", "nid_hist_bwd", "tap_take", "tap_take_blocks", "wide_take",
+                  "wide_take_blocks", "wide_select")}))
+        assert np.isfinite(float(res.nid)) and err_cm < 1.0 and err_deg < 1.0, label
+    (full, _), (part, pc), (wide, wc), (wide_part, wpc) = (out[label] for label, _ in runs)
+    assert torch.equal(full.T_camera_lidar.q, part.T_camera_lidar.q), "partial pose != full"
+    assert torch.equal(full.T_camera_lidar.t, part.T_camera_lidar.t), "partial pose != full"
+    assert float(full.nid) == float(part.nid) and full.evaluations == part.evaluations
+    assert full.gathers == part.gathers and part.partial_gathers >= 1, (full, part)
+    assert abs(float(wide.nid) - float(full.nid)) <= 1e-3, (float(wide.nid), float(full.nid))
+    if device == "cuda":
+        assert pc["tap_take_blocks"] == part.partial_gathers >= 1, pc
+        assert wc["wide_take"] + wc["wide_take_blocks"] == wide.gathers, wc
+        assert wc["wide_select"] >= 1 and wc["tap_take_blocks"] == 0, wc
+        assert wpc["wide_take_blocks"] == wide_part.partial_gathers >= 1, wpc
+    print(f"partial-refresh solve bit-equal to the full-refresh solve (pose, NID, {full.evaluations}"
+          f" evaluations, {full.gathers} gathers, {part.partial_gathers} of them partial); margin"
+          f" 2 NID {float(wide.nid):.6f} vs margin 0 {float(full.nid):.6f}")
+    return pc, wpc
+
+
+def write_picks(root, camera, kfs, T0, device="cuda"):
+    """The correspondence file of the cache + manual guess path:
+    PICKS_A_KEYFRAME pairs for each of PICKED_KEYFRAMES, scene points of the
+    keyframe's cull (its camera frame before the correction) and their
+    pixels through the planted correction T0. Returns its path."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.models import camera as cam
+    from pointcloudprocessor_tpu_torch.pipeline import ingest, keyframes
+    from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
+
+    cfg = _config(root, cfg_mod.NIDConfig())
+    frames = ingest.load_frames(cfg.odometry_path, cfg.images_folder)
+    kf_idx = keyframes.select(ingest.frames_trajectory(frames), cfg.keyframes)[:K]
+    rs = np.random.default_rng(SEED)
+    picks = {}
+    for j in PICKED_KEYFRAMES:
+        pts = kfs.points[j][kfs.valid[j]]
+        with torch.no_grad():
+            px = cam.project(camera, se3.transform_points(T0.to(device), pts))
+        ok = torch.nonzero(cam.in_image(camera, px)).reshape(-1).cpu().numpy()
+        sel = torch.from_numpy(rs.choice(ok, PICKS_A_KEYFRAME, replace=False)).to(device)
+        picks[ingest.cpp_timestamp(frames[kf_idx[j]].timestamp)] = {
+            "pixels": px[sel].tolist(), "points": pts[sel].tolist()}
+    path = os.path.join(root, "picks.json")
+    with open(path, "w") as f:
+        json.dump(picks, f)
+    return path
 
 
 # A second downsample factor for the cull between two of the main path's:
@@ -3792,6 +4212,10 @@ def main() -> int:
         kernels += phase_direct_take(card, camera, kfs, T0)
         kernels += phase_tap_gather(card, camera, kfs, T0)
         grouped = phase_grouped(card, camera, kfs, T0)
+        # The frozen-tap cache's kernels, then its solves.
+        kernels += phase_wide_cache(card, camera, kfs, T0)
+        partial_launches, wide_partial_launches = phase_partial_solve(card, camera, kfs, T0)
+        picks = write_picks(root, camera, kfs, T0)
         del kfs
         kernels += phase_zbuffer(card, root)
         kernels += phase_colorize(card, root, T0)
@@ -3832,6 +4256,11 @@ def main() -> int:
         recull_launches, _ = phase_runner(
             card, root, T0, cfg_mod.NIDConfig(**HEADLINE, recull_every_outer_iter=True),
             "re-cull path")
+        # The cache options + manual guess path: the headline schedule with
+        # the cache's margin 2 and partial refresh, and picked pairs for 4
+        # keyframes.
+        cache_launches, _ = phase_runner(card, root, T0, cfg_mod.NIDConfig(**CACHE_MANUAL),
+                                         "cache options + manual guess", picks=picks)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels += phase_mls(card)
@@ -3846,12 +4275,18 @@ def main() -> int:
     # each record also carries the other paths'.
     paths = {"zbuffer_path": launches, "hpr_path": hpr_launches, "mls_path": mls_launches,
              "small_map_path": small_launches, "per_keyframe_path": pk_launches,
-             "recull_path": recull_launches}
+             "recull_path": recull_launches, "cache_manual_path": cache_launches,
+             "partial_solve_path": partial_launches,
+             "wide_partial_solve_path": wide_partial_launches}
     own = {"hpr_support": "small_map_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
-           "mls_moments": "mls_path", "knn_select": "mls_path"}
+           "mls_moments": "mls_path", "knn_select": "mls_path", "wide_take": "cache_manual_path",
+           "wide_select": "cache_manual_path", "tap_take_blocks": "partial_solve_path",
+           "wide_take_blocks": "wide_partial_solve_path"}
     for k in kernels:
         mine = own.get(k["name"], "zbuffer_path")
         k["launches"] = paths[mine][k["name"]]
+        if mine in ("cache_manual_path", "partial_solve_path", "wide_partial_solve_path"):
+            assert k["launches"] >= 1, (k["name"], mine, paths[mine])
         for path, counts in paths.items():
             if path != mine:
                 k[f"launches_{path}"] = counts.get(k["name"], 0)

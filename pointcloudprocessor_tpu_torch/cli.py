@@ -32,6 +32,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--enableMLS", action="store_true", default=None)
     p.add_argument("--enableNIDOptimize", action="store_true", default=None)
     p.add_argument(
+        "--enableInitialGuessManual", action="store_true", default=None,
+        help="estimate per-keyframe poses from picked 2D-3D correspondences "
+        "(the reference's GUI path, `src/main.cpp:11-20`; here the picks "
+        "arrive via --correspondences JSON)",
+    )
+    p.add_argument(
+        "--correspondences", default=None, metavar="PICKS_JSON",
+        help="picked 2D-3D correspondence JSON for --enableInitialGuessManual "
+        "(schema: pipeline/manual_guess.py)",
+    )
+    p.add_argument(
         "--resume", action="store_true", default=None,
         help="reuse existing stage artifacts (scans-crop.pcd, nid_correction.json)",
     )
@@ -58,6 +69,8 @@ def config_from_args(args) -> PipelineConfig:
         "output_path": args.output_path,
         "enable_mls": args.enableMLS,
         "enable_nid_optimize": args.enableNIDOptimize,
+        "enable_manual_guess": args.enableInitialGuessManual,
+        "correspondences_path": args.correspondences,
         "resume": args.resume,
         "profile_trace_dir": args.profile_trace_dir,
     }

@@ -50,6 +50,29 @@
 // sectors an eighth written); bands of 2, 4, 8 and 16 tile rows by spans of
 // 16, 32, 64 and 128 tiles tried, 0.177-0.229 ms.
 //
+// The frozen-tap cache's kernels (opt/nid.multi_nid_loss_cached) replace
+// XLA ops of pointcloudprocessor_tpu/opt/nid.py that have no Pallas source;
+// they read the same packed tiles, and no wide table is built (JAX's is
+// (H*W, 4 + 2m) int32, 3.1 GB for 8 keyframes of 4096x3000 at m = 2):
+//   G2 wide_take         <- _gather_wide's jnp.take from build_wide_tap_table
+//                           (nid.py:630-638, :143-167): word r of a point's
+//                           window, row clamp(v + r - 1 - m), nibble j the
+//                           column clamp(u - 1 - m + j), planes (K, 4+2m, N).
+//                           A run of 6 or 8 columns can straddle two tiles,
+//                           so a point reads up to 2 x 2 tiles (4 sectors).
+//                           Bound: 8 B of knot and 4 (4 + 2m) B out a point
+//                           plus each distinct window pixel at 4 bits.
+//   G2's block form      <- _partial_refresh_wide (nid.py:670-696)
+//   G1's block form      <- _partial_refresh_taps (nid.py:566-613): both re-take
+//                           the points of a (K, cap) list of 128-point blocks
+//                           in place, ids past the last block dropped.
+//   W1 wide_select       <- _select_from_wide's where / shift chain
+//                           (nid.py:641-667) and the effective knot (:858-860):
+//                           one launch an evaluation. Bound: 16 B of knots, 16
+//                           B of selected words and 16 B out a point.
+// Each is one thread a point (a listed point for the block forms), a block
+// row a keyframe; W1 and G2 stream their planes.
+//
 // Replaces the two Pallas TPU kernels of pointcloudprocessor_tpu/ops/tap_gather.py
 // together with the XLA index arithmetic (the plan) around each of them:
 //   K3 tap_select    <- _select_kernel   (tap_gather.py:95, pallas_call at :165)
@@ -275,16 +298,12 @@ tap_streamed_kernel(const int* __restrict__ idx, const unsigned char* __restrict
 }
 
 constexpr int kStride = 5;  // pixels between bin-image tiles (ops/tap_gather.STRIDE)
+constexpr int kPartialBlock = 128;  // points a refresh block (ops/tap_gather.PARTIAL_BLOCK)
 
-__global__ void __launch_bounds__(kThreads)
-tap_take_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ knot,
-                int2* __restrict__ out, int n, int width, int height, int tw, long long plane) {
-  const long long kf = blockIdx.y;
-  const unsigned* __restrict__ img = tiles + kf * plane;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= n) return;
-  const long long p = kf * n + j;
-  const int2 kn = __ldcs(knot + p);  // (u, v)
+// The nibble-packed 4x4 window row of knot kn (u, v) clipped into the image,
+// read from the keyframe's packed tiles img (G1 and its block form).
+__device__ __forceinline__ int2 window_row(const unsigned* __restrict__ img, int2 kn, int width,
+                                           int height, int tw) {
   const int u = min(max(kn.x, 0), width - 1);
   const int v = min(max(kn.y, 0), height - 1);
   // The one tile that holds the window: its rows and columns clamped into
@@ -311,7 +330,144 @@ tap_take_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ kno
       for (int r = 0; r < 4; ++r) word[r >> 1] |= ((w[r] >> sh) & 0xfu) << (16 * (r & 1) + 4 * c);
     }
   }
-  __stcs(out + p, make_int2(static_cast<int>(word[0]), static_cast<int>(word[1])));
+  return make_int2(static_cast<int>(word[0]), static_cast<int>(word[1]));
+}
+
+__global__ void __launch_bounds__(kThreads)
+tap_take_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ knot,
+                int2* __restrict__ out, int n, int width, int height, int tw, long long plane) {
+  const long long kf = blockIdx.y;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= n) return;
+  const long long p = kf * n + j;
+  __stcs(out + p, window_row(tiles + kf * plane, __ldcs(knot + p), width, height, tw));
+}
+
+// G1's block form: thread i of keyframe kf re-takes point 128 b + i % 128 of
+// block b = blocks[kf][i / 128]; ids outside [0, n / 128) are padding and
+// dropped. The rows go in place into the cache's (k, n, 2) taps.
+__global__ void __launch_bounds__(kThreads)
+tap_take_blocks_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ knot,
+                       const int* __restrict__ blocks, int2* __restrict__ out, int n, int cap,
+                       int width, int height, int tw, long long plane) {
+  const long long kf = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= cap * kPartialBlock) return;
+  const int b = __ldg(blocks + kf * cap + i / kPartialBlock);
+  if (b < 0 || b >= n / kPartialBlock) return;
+  const long long p = kf * n + b * kPartialBlock + i % kPartialBlock;
+  out[p] = window_row(tiles + kf * plane, __ldg(knot + p), width, height, tw);
+}
+
+// G2's wide window of knot kn: word r nibble-packs, in nibble j, the bin at
+// row clamp(v + r - 1 - M) and column clamp(u - 1 - M + j) around the
+// clipped anchor (u, v), j < kRows = 4 + 2 M. Each coordinate is clamped
+// before its tile and nibble are chosen (the tiles hold 0 past the image).
+// The columns of every row lie in tile a = min(clamp(u - 1 - M) / 5, tw - 1)
+// and the tile after it: its nibbles 3..7 continue a's 8, so one 64-bit run
+// holds columns 5 a .. 5 a + 12 (a run of 8 starts at most 4 past 5 a). The
+// rows lie in one or two tile rows, so a point reads up to 2 x 2 tiles.
+template <int M>
+__device__ __forceinline__ void wide_window(const unsigned* __restrict__ img, int2 kn, int width,
+                                            int height, int th, int tw,
+                                            unsigned (&word)[4 + 2 * M]) {
+  constexpr int kRows = 4 + 2 * M;
+  const int u = min(max(kn.x, 0), width - 1);
+  const int v = min(max(kn.y, 0), height - 1);
+  const int x0 = u - 1 - M;
+  const int ta = min(max(x0, 0) / kStride, tw - 1);
+  const bool has_b = ta + 1 < tw;  // without it, every column lies in a
+  const int xa = kStride * ta;
+  const bool inside = x0 >= 0 && x0 + kRows <= width;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int y = min(max(v + r - 1 - M, 0), height - 1);
+    const int ty = min(y / kStride, th - 1);
+    const unsigned* __restrict__ row =
+        img + ((static_cast<long long>(ty) * tw + ta) << 3) + (y - kStride * ty);
+    const unsigned wa = __ldg(row);
+    const unsigned wb = has_b ? __ldg(row + 8) : 0u;
+    const unsigned long long run = wa | static_cast<unsigned long long>(wb >> 12) << 32;
+    unsigned w = 0u;
+    if (inside) {
+      w = static_cast<unsigned>(run >> (4 * (x0 - xa)));
+      if constexpr (kRows < 8) w &= (1u << (4 * kRows)) - 1u;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int x = min(max(x0 + j, 0), width - 1);
+        w |= static_cast<unsigned>((run >> (4 * (x - xa))) & 0xfu) << (4 * j);
+      }
+    }
+    word[r] = w;
+  }
+}
+
+// G2: one thread a point, a block row a keyframe; the planes (k, kRows, n)
+// written plane-major, each plane's words coalesced across the warp.
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+wide_take_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ knot,
+                 unsigned* __restrict__ out, int n, int width, int height, int th, int tw,
+                 long long plane) {
+  constexpr int kRows = 4 + 2 * M;
+  const long long kf = blockIdx.y;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= n) return;
+  unsigned word[kRows];
+  wide_window<M>(tiles + kf * plane, __ldcs(knot + kf * n + j), width, height, th, tw, word);
+  unsigned* __restrict__ dst = out + kf * kRows * n + j;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) __stcs(dst + static_cast<long long>(r) * n, word[r]);
+}
+
+// G2's block form: as tap_take_blocks_kernel, into the (k, kRows, n) planes.
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+wide_take_blocks_kernel(const unsigned* __restrict__ tiles, const int2* __restrict__ knot,
+                        const int* __restrict__ blocks, unsigned* __restrict__ out, int n,
+                        int cap, int width, int height, int th, int tw, long long plane) {
+  constexpr int kRows = 4 + 2 * M;
+  const long long kf = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= cap * kPartialBlock) return;
+  const int b = __ldg(blocks + kf * cap + i / kPartialBlock);
+  if (b < 0 || b >= n / kPartialBlock) return;
+  const int j = b * kPartialBlock + i % kPartialBlock;
+  unsigned word[kRows];
+  wide_window<M>(tiles + kf * plane, __ldg(knot + kf * n + j), width, height, th, tw, word);
+  unsigned* __restrict__ dst = out + kf * kRows * n + j;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) dst[static_cast<long long>(r) * n] = word[r];
+}
+
+// W1: the 4x4 sub-window at dk = clip(knot_true - knot_cache, -M, M) of each
+// point's cached wide window, and the effective knot knot_cache + dk. The
+// differences wrap as XLA's int32 arithmetic does (knots of points behind
+// the camera reach +-2^31): they are taken in uint32, where C++'s signed
+// overflow would be undefined. Row i of the sub-window is plane dv + M + i,
+// its 4 nibbles from nibble du + M: two rows make a word of the tap row.
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+wide_select_kernel(const unsigned* __restrict__ wide, const int2* __restrict__ knot_true,
+                   const int2* __restrict__ knot_cache, int2* __restrict__ taps,
+                   int2* __restrict__ eff, int n) {
+  constexpr int kRows = 4 + 2 * M;
+  const long long kf = blockIdx.y;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= n) return;
+  const long long p = kf * n + j;
+  const int2 kt = __ldcs(knot_true + p), kc = __ldcs(knot_cache + p);
+  const int du = min(max(static_cast<int>(static_cast<unsigned>(kt.x) - static_cast<unsigned>(kc.x)), -M), M);
+  const int dv = min(max(static_cast<int>(static_cast<unsigned>(kt.y) - static_cast<unsigned>(kc.y)), -M), M);
+  const unsigned sh = 4u * (du + M);
+  const unsigned* __restrict__ src = wide + (kf * kRows + dv + M) * n + j;
+  unsigned h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = (__ldcs(src + static_cast<long long>(i) * n) >> sh) & 0xffffu;
+  __stcs(taps + p, make_int2(static_cast<int>(h[0] | h[1] << 16), static_cast<int>(h[2] | h[3] << 16)));
+  __stcs(eff + p, make_int2(static_cast<int>(static_cast<unsigned>(kc.x) + static_cast<unsigned>(du)),
+                            static_cast<int>(static_cast<unsigned>(kc.y) + static_cast<unsigned>(dv))));
 }
 
 // bin_pack's block (sizes chosen on the card, see the header): a band of
@@ -462,6 +618,93 @@ int bin_pack(const void* bins, void* tiles, int k, int height, int width, void* 
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(bins), static_cast<unsigned*>(tiles), height, width, th, tw, spans,
       vec);
+  return cudaGetLastError();
+}
+
+// G1's block form: taps (k, n, 2) int32 re-taken in place at the knots (k,
+// n, 2) of the points of the listed blocks, blocks (k, cap) int32 of
+// 128-point block ids (ids outside [0, n / 128) dropped); n a multiple of
+// 128, 1 <= cap <= n / 128. One launch. Returns cudaGetLastError().
+int tap_take_blocks(const void* tiles, const void* knot, const void* blocks, void* taps, int k,
+                    int n, int cap, int width, int height, void* stream) {
+  if (k < 1 || k > 65535 || n < kPartialBlock || n % kPartialBlock || cap < 1 ||
+      cap > n / kPartialBlock || width < 1 || height < 1)
+    return cudaErrorInvalidValue;
+  const int tw = tiles_along(width);
+  const long long plane = static_cast<long long>(tiles_along(height)) * tw * 8;
+  const dim3 grid((cap * kPartialBlock + kThreads - 1) / kThreads, k);
+  tap_take_blocks_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(tiles), static_cast<const int2*>(knot),
+      static_cast<const int*>(blocks), static_cast<int2*>(taps), n, cap, width, height, tw, plane);
+  return cudaGetLastError();
+}
+
+// G2: wide (k, 4 + 2 margin, n) int32 window planes of the knots (k, n, 2)
+// int32 from the packed bin tiles, margin 1 or 2; knots 8-byte aligned.
+// One launch, none for n = 0. Returns cudaGetLastError().
+int wide_take(const void* tiles, const void* knot, void* wide, int k, int n, int width,
+              int height, int margin, void* stream) {
+  if (k < 1 || k > 65535 || n < 0 || width < 1 || height < 1 || margin < 1 || margin > 2)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const int th = tiles_along(height), tw = tiles_along(width);
+  const long long plane = static_cast<long long>(th) * tw * 8;
+  const dim3 grid((n + kThreads - 1) / kThreads, k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned* t = static_cast<const unsigned*>(tiles);
+  const int2* kn = static_cast<const int2*>(knot);
+  unsigned* out = static_cast<unsigned*>(wide);
+  if (margin == 1)
+    wide_take_kernel<1><<<grid, kThreads, 0, s>>>(t, kn, out, n, width, height, th, tw, plane);
+  else
+    wide_take_kernel<2><<<grid, kThreads, 0, s>>>(t, kn, out, n, width, height, th, tw, plane);
+  return cudaGetLastError();
+}
+
+// G2's block form: the planes wide (k, 4 + 2 margin, n) re-taken in place at
+// the points of the listed blocks, as tap_take_blocks. Returns
+// cudaGetLastError().
+int wide_take_blocks(const void* tiles, const void* knot, const void* blocks, void* wide, int k,
+                     int n, int cap, int width, int height, int margin, void* stream) {
+  if (k < 1 || k > 65535 || n < kPartialBlock || n % kPartialBlock || cap < 1 ||
+      cap > n / kPartialBlock || width < 1 || height < 1 || margin < 1 || margin > 2)
+    return cudaErrorInvalidValue;
+  const int th = tiles_along(height), tw = tiles_along(width);
+  const long long plane = static_cast<long long>(th) * tw * 8;
+  const dim3 grid((cap * kPartialBlock + kThreads - 1) / kThreads, k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned* t = static_cast<const unsigned*>(tiles);
+  const int2* kn = static_cast<const int2*>(knot);
+  const int* bl = static_cast<const int*>(blocks);
+  unsigned* out = static_cast<unsigned*>(wide);
+  if (margin == 1)
+    wide_take_blocks_kernel<1><<<grid, kThreads, 0, s>>>(t, kn, bl, out, n, cap, width, height,
+                                                         th, tw, plane);
+  else
+    wide_take_blocks_kernel<2><<<grid, kThreads, 0, s>>>(t, kn, bl, out, n, cap, width, height,
+                                                         th, tw, plane);
+  return cudaGetLastError();
+}
+
+// W1: taps (k, n, 2) and eff_knot (k, n, 2) int32 from the planes wide (k,
+// 4 + 2 margin, n) and the knots knot_true, knot_cache (k, n, 2); all 8-byte
+// aligned, margin 1 or 2. One launch, none for n = 0. Returns
+// cudaGetLastError().
+int wide_select(const void* wide, const void* knot_true, const void* knot_cache, void* taps,
+                void* eff_knot, int k, int n, int margin, void* stream) {
+  if (k < 1 || k > 65535 || n < 0 || margin < 1 || margin > 2) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const dim3 grid((n + kThreads - 1) / kThreads, k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned* w = static_cast<const unsigned*>(wide);
+  const int2* kt = static_cast<const int2*>(knot_true);
+  const int2* kc = static_cast<const int2*>(knot_cache);
+  if (margin == 1)
+    wide_select_kernel<1><<<grid, kThreads, 0, s>>>(w, kt, kc, static_cast<int2*>(taps),
+                                                    static_cast<int2*>(eff_knot), n);
+  else
+    wide_select_kernel<2><<<grid, kThreads, 0, s>>>(w, kt, kc, static_cast<int2*>(taps),
+                                                    static_cast<int2*>(eff_knot), n);
   return cudaGetLastError();
 }
 

@@ -103,3 +103,49 @@ def in_image_uv(camera: PinholeCamera, u: torch.Tensor, v: torch.Tensor) -> torc
     uf = torch.floor(u)
     vf = torch.floor(v)
     return (uf >= 0) & (uf < camera.width) & (vf >= 0) & (vf < camera.height)
+
+
+def in_image(camera: PinholeCamera, pixels: torch.Tensor) -> torch.Tensor:
+    """Bounds mask of pixels (..., 2) with the reference's integer-truncation
+    convention (`view_culling.cpp:284-288`; JAX `camera.py:147`)."""
+    return in_image_uv(camera, pixels[..., 0], pixels[..., 1])
+
+
+def undistort(camera: PinholeCamera, pt_d: torch.Tensor, iterations: int = 8) -> torch.Tensor:
+    """Invert plumb_bob distortion of normalized coords (..., 2) by a fixed
+    number of fixed-point steps, x <- (x_d - tangential(x)) / radial(x)
+    (JAX `camera.py:153-173`; the reference inverts the projection with
+    Nelder-Mead, `estimate_fov.cpp:17-34`)."""
+    k1, k2, p1, p2, k3 = camera.distortion.unbind(0)
+    x = pt_d
+    for _ in range(iterations):
+        xx, yy = x[..., 0], x[..., 1]
+        x2, y2, xy = xx * xx, yy * yy, xx * yy
+        r2 = x2 + y2
+        r_coeff = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+        dx = 2.0 * p1 * xy + p2 * (r2 + 2.0 * x2)
+        dy = p1 * (r2 + 2.0 * y2) + 2.0 * p2 * xy
+        x = torch.stack([(pt_d[..., 0] - dx) / r_coeff, (pt_d[..., 1] - dy) / r_coeff], dim=-1)
+    return x
+
+
+def bearing(camera: PinholeCamera, pixels: torch.Tensor) -> torch.Tensor:
+    """Unit bearing vectors of pixels (..., 2) (JAX `camera.py:176-183`; the
+    reference's `vlcal::estimate_direction`, `estimate_fov.cpp:17-34`)."""
+    fx, fy, cx, cy = camera.intrinsic.unbind(0)
+    pt_d = torch.stack([(pixels[..., 0] - cx) / fx, (pixels[..., 1] - cy) / fy], dim=-1)
+    pt_n = undistort(camera, pt_d)
+    d = torch.cat([pt_n, torch.ones_like(pt_n[..., :1])], dim=-1)
+    return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+
+
+def fov(camera: PinholeCamera) -> torch.Tensor:
+    """The largest view angle over the probes (0, 0), (W/2, 0), (0, H/2)
+    (JAX `camera.py:186-193`, `vlcal::estimate_camera_fov`,
+    `estimate_fov.cpp:36-51`)."""
+    corners = torch.tensor(
+        [[0.0, 0.0], [camera.width / 2.0, 0.0], [0.0, camera.height / 2.0]],
+        dtype=torch.float32, device=camera.intrinsic.device,
+    )
+    dirs = bearing(camera, corners)
+    return torch.max(torch.arccos(torch.clamp(dirs[..., 2], -1.0, 1.0)))

@@ -12,6 +12,16 @@ nibbles. On CUDA tensors it is one launch of G1 ``tap_take``;
 its twin :func:`direct_take_plain` is the same arithmetic in torch ops,
 equal to ``build_tap_table(bins)[anchor]`` bit for bit.
 
+The frozen-tap cache (`opt/nid.multi_nid_loss_cached`) adds four kernels
+over the same tiles, none of which the JAX package writes in Pallas: G2
+``wide_take`` (:func:`wide_take`, JAX's take from its wide table,
+`nid.py:630-638`), each point's (4+2m)^2 window at margin m as (K, 4+2m, N)
+planes; W1 ``wide_select`` (:func:`wide_select`, `nid.py:641-667`), the
+4x4 sub-window at each point's drift and its effective knot; and the block
+forms of G1 and G2 (:func:`tap_take_blocks`, :func:`wide_take_blocks`,
+`nid.py:566-613, 670-696`), which re-take the points of a list of 128-point
+blocks in place. Each is one launch, with a plain twin.
+
 Port of `pointcloudprocessor_tpu/ops/tap_gather.py`: an exact
 ``take(rows, idx)`` for every ``ok`` row (rows with ``~ok`` hold
 unspecified data, which the NID inlier gate zeroes downstream), for
@@ -78,7 +88,8 @@ _KERNEL_GROUP = {"tap_select": 16, "tap_streamed": 32}  # the groups the kernels
 # Launches of each CUDA kernel, grouped takes (any device) and the takes
 # that fell back to the per-row lookup, in this process (see
 # reset_launch_counts).
-launch_counts = {"tap_take": 0, "bin_pack": 0, "tap_select": 0, "tap_streamed": 0}
+launch_counts = {"tap_take": 0, "bin_pack": 0, "tap_select": 0, "tap_streamed": 0,
+                 "tap_take_blocks": 0, "wide_take": 0, "wide_take_blocks": 0, "wide_select": 0}
 call_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
 fallback_counts = {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
 
@@ -100,6 +111,14 @@ _SIGNATURES = {
     "tap_take": ([_PTR] * 3 + [_I32] * 4 + [_PTR], _I32),
     # bins, tiles, k, height, width, stream
     "bin_pack": ([_PTR] * 2 + [_I32] * 3 + [_PTR], _I32),
+    # tiles, knot, blocks, taps, k, n, cap, width, height, stream
+    "tap_take_blocks": ([_PTR] * 4 + [_I32] * 5 + [_PTR], _I32),
+    # tiles, knot, wide, k, n, width, height, margin, stream
+    "wide_take": ([_PTR] * 3 + [_I32] * 5 + [_PTR], _I32),
+    # tiles, knot, blocks, wide, k, n, cap, width, height, margin, stream
+    "wide_take_blocks": ([_PTR] * 4 + [_I32] * 6 + [_PTR], _I32),
+    # wide, knot_true, knot_cache, taps, eff_knot, k, n, margin, stream
+    "wide_select": ([_PTR] * 5 + [_I32] * 3 + [_PTR], _I32),
 }
 
 
@@ -307,6 +326,263 @@ def direct_take(tiles: torch.Tensor, knot: torch.Tensor, width: int, height: int
     if dev == "cuda":
         return direct_take_cuda(tiles, knot, width, height)
     raise NotImplementedError(f"direct_take: no kernel for device {tiles.device}")
+
+
+# ---------------------------------------------------------------------------
+# The frozen-tap cache's kernels: G1's block form, G2 (the wide take), its
+# block form, and W1 (the sub-window select)
+# ---------------------------------------------------------------------------
+
+MAX_MARGIN = 2  # a wide row of 4 + 2 m nibbles fits one 32-bit word
+PARTIAL_BLOCK = 128  # points a refresh block (the JAX package's _PARTIAL_BLOCK)
+
+
+def check_margin(margin: int) -> None:
+    """A wide window's margin is 1 or 2 (`nid.py:154` asserts it): its
+    rows of 4 + 2 m nibbles fill at most one int32 word."""
+    if not 1 <= margin <= MAX_MARGIN:
+        raise ValueError(f"the wide window's margin must be in 1..{MAX_MARGIN}, got {margin}")
+
+
+def wide_take_plain(tiles: torch.Tensor, knot: torch.Tensor, width: int, height: int,
+                    margin: int) -> torch.Tensor:
+    """The twin of G2: (K, 4 + 2m, N) int32 wide window planes of the (K, N,
+    2) knots, ``build_wide_tap_table(bins, m)[anchor]`` transposed
+    (`nid.py:143-167, 630-638`). Word r of point p nibble-packs, in nibble
+    j, the bin at row clamp(v + r - 1 - m) and column clamp(u - 1 - m + j)
+    around the clipped anchor (u, v), j = 0 .. 3 + 2m. Each coordinate is
+    clamped into the image before its tile and nibble are chosen: the
+    tiles hold 0 past the image, the table repeats its edge."""
+    _check_tiles(tiles, width, height)
+    check_margin(margin)
+    k, th, tw, _ = tiles.shape
+    rows = 4 + 2 * margin
+    flat = tiles.reshape(k, -1).to(torch.int64) & 0xFFFFFFFF
+    u = torch.clamp(knot[..., 0].to(torch.int64), 0, width - 1)
+    v = torch.clamp(knot[..., 1].to(torch.int64), 0, height - 1)
+    kf = torch.arange(k, device=tiles.device)[:, None]
+    cols = [torch.clamp(u - 1 - margin + j, 0, width - 1) for j in range(rows)]
+    tx = [torch.clamp(x // STRIDE, max=tw - 1) for x in cols]
+    planes = []
+    for r in range(rows):
+        y = torch.clamp(v + r - 1 - margin, 0, height - 1)
+        ty = torch.clamp(y // STRIDE, max=th - 1)
+        word = torch.zeros_like(u)
+        for j in range(rows):
+            w = flat[kf, (ty * tw + tx[j]) * TILE + y - STRIDE * ty]
+            word = word | (((w >> (4 * (cols[j] - STRIDE * tx[j]))) & 0xF) << (4 * j))
+        planes.append(bits_to_int32(word))
+    return torch.stack(planes, dim=1)
+
+
+def wide_select_plain(wide: torch.Tensor, knot_true: torch.Tensor, knot_cache: torch.Tensor,
+                      margin: int):
+    """The twin of W1: ``(taps (K, N, 2), eff_knot (K, N, 2))``, both int32,
+    from the (K, 4 + 2m, N) wide planes gathered at ``knot_cache``
+    (`nid.py:641-667` with `:858-860`). The window offset dk = clip(knot_true
+    - knot_cache, -m, m) is int32 arithmetic that wraps, as XLA's does, for
+    knots near +-2^31; the 4x4 sub-window at dk is the tap row at anchor
+    knot_cache + dk (bit for bit where both knots lie in the image), and
+    eff_knot = knot_cache + dk, wrapping too."""
+    check_margin(margin)
+    dk = torch.clamp(bits_to_int32(knot_true.to(torch.int64) - knot_cache.to(torch.int64)),
+                     -margin, margin).to(torch.int64)
+    dv = dk[..., 1] + margin  # (K, N) in [0, 2m]
+    sh = 4 * (dk[..., 0] + margin)
+    w = wide.to(torch.int64) & 0xFFFFFFFF
+    halves = [(torch.gather(w, 1, (dv + i)[:, None, :]).squeeze(1) >> sh) & 0xFFFF
+              for i in range(4)]
+    taps = torch.stack([bits_to_int32(halves[0] | (halves[1] << 16)),
+                        bits_to_int32(halves[2] | (halves[3] << 16))], dim=-1)
+    return taps, bits_to_int32(knot_cache.to(torch.int64) + dk)
+
+
+def _block_points(blocks: torch.Tensor, n: int):
+    """(points (K, cap*128), kept (K, cap*128)) of a (K, cap) block list:
+    the points of each listed 128-point block, and False for the padding
+    ids (nb), which are dropped (`nid.py:597-611`, ``mode="drop"``)."""
+    nb = n // PARTIAL_BLOCK
+    blk = blocks.to(torch.int64)
+    k, cap = blk.shape
+    step = torch.arange(PARTIAL_BLOCK, device=blocks.device)
+    pts = (torch.clamp(blk, max=nb - 1)[:, :, None] * PARTIAL_BLOCK + step).reshape(k, -1)
+    kept = (blk < nb)[:, :, None].expand(k, cap, PARTIAL_BLOCK).reshape(k, -1)
+    return pts, kept
+
+
+def tap_take_blocks_plain(tiles, knot, blocks, taps, width: int, height: int) -> torch.Tensor:
+    """The twin of G1's block form: ``taps`` (K, N, 2) with the points of
+    the listed blocks re-taken at ``knot`` in place (`nid.py:566-613`,
+    `_partial_refresh_taps`); returns ``taps``."""
+    _check_blocks(blocks, taps.shape[0], taps.shape[1])
+    k, n, _ = taps.shape
+    pts, kept = _block_points(blocks, n)
+    new = direct_take_plain(tiles, torch.gather(knot, 1, pts[..., None].expand(-1, -1, 2)),
+                            width, height)
+    kf = torch.arange(k, device=taps.device)[:, None].expand_as(pts)
+    taps[kf[kept], pts[kept]] = new[kept]
+    return taps
+
+
+def wide_take_blocks_plain(tiles, knot, blocks, wide, width: int, height: int,
+                           margin: int) -> torch.Tensor:
+    """The twin of G2's block form: ``wide`` (K, 4 + 2m, N) with the points
+    of the listed blocks re-taken at ``knot`` in place (`nid.py:670-696`,
+    `_partial_refresh_wide`); returns ``wide``."""
+    _check_blocks(blocks, wide.shape[0], wide.shape[2])
+    k, _, n = wide.shape
+    pts, kept = _block_points(blocks, n)
+    new = wide_take_plain(tiles, torch.gather(knot, 1, pts[..., None].expand(-1, -1, 2)),
+                          width, height, margin)
+    kf = torch.arange(k, device=wide.device)[:, None].expand_as(pts)
+    wide[kf[kept], :, pts[kept]] = new.permute(0, 2, 1)[kept]
+    return wide
+
+
+def _check_blocks(blocks: torch.Tensor, k: int, n: int) -> None:
+    nb = n // PARTIAL_BLOCK
+    if not (blocks.dtype == torch.int32 and blocks.dim() == 2 and blocks.shape[0] == k
+            and 1 <= blocks.shape[1] <= nb and n % PARTIAL_BLOCK == 0):
+        raise ValueError(
+            f"a block list is (K, cap) int32, 1 <= cap <= N / {PARTIAL_BLOCK}, N a multiple of "
+            f"{PARTIAL_BLOCK}; got {tuple(blocks.shape)} {blocks.dtype} for K = {k}, N = {n}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    """Contiguous int32 tensors on one CUDA device, 8-byte aligned."""
+    dev = tensors[0].device
+    if not all(t.device == dev and t.dtype == torch.int32 and t.is_contiguous()
+               and t.data_ptr() % 8 == 0 for t in tensors) or dev.type != "cuda":
+        raise ValueError(
+            f"{name}: takes contiguous 8-byte aligned int32 CUDA tensors on one device; got "
+            + ", ".join(f"{tuple(t.shape)} {t.dtype} on {t.device}" for t in tensors))
+
+
+def _check_knots(name: str, tiles, knot, width: int, height: int) -> None:
+    _check_cuda(name, tiles, knot)
+    _check_tiles(tiles, width, height)
+    k = tiles.shape[0]
+    if not (knot.dim() == 3 and knot.shape[0] == k and knot.shape[2] == 2
+            and 1 <= k <= 65_535 and knot.shape[1] < 2**31 and tiles.numel() // k < 2**31):
+        raise ValueError(f"{name}: knots must be (K, N, 2) for tiles (K, ...), 1 <= K <= "
+                         f"65,535; got {tuple(knot.shape)} for {tuple(tiles.shape)}")
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+
+
+def wide_take_cuda(tiles, knot, width: int, height: int, margin: int) -> torch.Tensor:
+    """G2 on the card: one launch of ``wide_take``, the same contract as
+    :func:`wide_take_plain`, bit for bit."""
+    check_margin(margin)
+    _check_knots("wide_take", tiles, knot, width, height)
+    k, n, _ = knot.shape
+    wide = torch.empty((k, 4 + 2 * margin, n), dtype=torch.int32, device=tiles.device)
+    if n == 0:
+        return wide
+    _launched("wide_take", _kernel("wide_take")(
+        tiles.data_ptr(), knot.data_ptr(), wide.data_ptr(), k, n, width, height, margin,
+        _stream(tiles.device)))
+    return wide
+
+
+def wide_select_cuda(wide, knot_true, knot_cache, margin: int):
+    """W1 on the card: one launch of ``wide_select`` for the taps and the
+    effective knots, the same contract as :func:`wide_select_plain`, bit for
+    bit."""
+    check_margin(margin)
+    _check_cuda("wide_select", wide, knot_true, knot_cache)
+    k, rows, n = wide.shape
+    if not (rows == 4 + 2 * margin and knot_true.shape == knot_cache.shape == (k, n, 2)
+            and 1 <= k <= 65_535):
+        raise ValueError(f"wide_select: planes (K, 4 + 2m, N) and knots (K, N, 2); got "
+                         f"{tuple(wide.shape)}, {tuple(knot_true.shape)}, "
+                         f"{tuple(knot_cache.shape)}, m = {margin}")
+    taps = torch.empty((k, n, 2), dtype=torch.int32, device=wide.device)
+    eff = torch.empty((k, n, 2), dtype=torch.int32, device=wide.device)
+    if n == 0:
+        return taps, eff
+    _launched("wide_select", _kernel("wide_select")(
+        wide.data_ptr(), knot_true.data_ptr(), knot_cache.data_ptr(), taps.data_ptr(),
+        eff.data_ptr(), k, n, margin, _stream(wide.device)))
+    return taps, eff
+
+
+def tap_take_blocks_cuda(tiles, knot, blocks, taps, width: int, height: int) -> torch.Tensor:
+    """G1's block form on the card: one launch of ``tap_take_blocks``, in
+    place, the same contract as :func:`tap_take_blocks_plain`, bit for bit."""
+    _check_knots("tap_take_blocks", tiles, knot, width, height)
+    _check_cuda("tap_take_blocks", tiles, blocks, taps)
+    _check_blocks(blocks, taps.shape[0], taps.shape[1])
+    k, n, _ = taps.shape
+    if tuple(knot.shape) != (k, n, 2):
+        raise ValueError(f"tap_take_blocks: knots {tuple(knot.shape)} for taps {tuple(taps.shape)}")
+    _launched("tap_take_blocks", _kernel("tap_take_blocks")(
+        tiles.data_ptr(), knot.data_ptr(), blocks.data_ptr(), taps.data_ptr(), k, n,
+        blocks.shape[1], width, height, _stream(tiles.device)))
+    return taps
+
+
+def wide_take_blocks_cuda(tiles, knot, blocks, wide, width: int, height: int,
+                          margin: int) -> torch.Tensor:
+    """G2's block form on the card: one launch of ``wide_take_blocks``, in
+    place, the same contract as :func:`wide_take_blocks_plain`, bit for bit."""
+    check_margin(margin)
+    _check_knots("wide_take_blocks", tiles, knot, width, height)
+    _check_cuda("wide_take_blocks", tiles, blocks, wide)
+    _check_blocks(blocks, wide.shape[0], wide.shape[2])
+    k, rows, n = wide.shape
+    if tuple(knot.shape) != (k, n, 2) or rows != 4 + 2 * margin:
+        raise ValueError(f"wide_take_blocks: knots {tuple(knot.shape)} for planes "
+                         f"{tuple(wide.shape)}, m = {margin}")
+    _launched("wide_take_blocks", _kernel("wide_take_blocks")(
+        tiles.data_ptr(), knot.data_ptr(), blocks.data_ptr(), wide.data_ptr(), k, n,
+        blocks.shape[1], width, height, margin, _stream(tiles.device)))
+    return wide
+
+
+def _dispatch(name: str, plain, cuda, device, *args):
+    if device.type == "cpu":
+        return plain(*args)
+    if device.type == "cuda":
+        return cuda(*args)
+    raise NotImplementedError(f"{name}: no kernel for device {device}")
+
+
+def wide_take(tiles, knot, width: int, height: int, margin: int) -> torch.Tensor:
+    """(K, 4 + 2m, N) int32 wide window planes at the (K, N, 2) knots from
+    the packed bin tiles: the twin on CPU tensors, G2 on CUDA ones."""
+    return _dispatch("wide_take", wide_take_plain, wide_take_cuda, tiles.device,
+                     tiles, knot, width, height, margin)
+
+
+def wide_select(wide, knot_true, knot_cache, margin: int):
+    """(taps, eff_knot) of the wide planes at the current knots: the twin on
+    CPU tensors, W1 on CUDA ones."""
+    return _dispatch("wide_select", wide_select_plain, wide_select_cuda, wide.device,
+                     wide, knot_true, knot_cache, margin)
+
+
+def tap_take_blocks(tiles, knot, blocks, taps, width: int, height: int) -> torch.Tensor:
+    """Re-takes the tap rows of the listed 128-point blocks in place: the
+    twin on CPU tensors, G1's block form on CUDA ones."""
+    return _dispatch("tap_take_blocks", tap_take_blocks_plain, tap_take_blocks_cuda,
+                     tiles.device, tiles, knot, blocks, taps, width, height)
+
+
+def wide_take_blocks(tiles, knot, blocks, wide, width: int, height: int,
+                     margin: int) -> torch.Tensor:
+    """Re-takes the wide planes of the listed 128-point blocks in place: the
+    twin on CPU tensors, G2's block form on CUDA ones."""
+    return _dispatch("wide_take_blocks", wide_take_blocks_plain, wide_take_blocks_cuda,
+                     tiles.device, tiles, knot, blocks, wide, width, height, margin)
 
 
 class GroupedSelect(NamedTuple):

@@ -18,11 +18,14 @@ hpp:61; `hist_points` a plain vector, hpp:49).
 
 The JAX package's `vmap` over keyframes is a written-out leading K
 dimension. Beside the exact objective this module holds the frozen-tap
-cache (:class:`TapCache`, :func:`multi_nid_loss_cached`; margin 0 and no
-partial refresh), the raster sort that makes gathers near-monotone, and the
-grouped gathers over the row table (`ops/tap_gather`: kernels K3/K4). Its
-``lax.cond`` branches are Python branches on host values: each costs one
-device sync.
+cache (:class:`TapCache`, :func:`multi_nid_loss_cached`) with its wide
+window (the cache holds each point's (4+2m)^2 window, taken by kernel G2,
+and every evaluation selects the 4x4 sub-window with kernel W1) and its
+partial refresh (the block forms of G1 and G2 re-take only the drifted
+128-point blocks, in place), the raster sort that makes gathers
+near-monotone, and the grouped gathers over the row table
+(`ops/tap_gather`: kernels K3/K4). Its ``lax.cond`` branches are Python
+branches on host values: each costs one device sync.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ class NIDKeyframe:
     slab S (H*W a multiple of S); ``tap_slabs`` is the JAX package's
     plane-concat slab layout (:func:`build_tap_slabs`), built only on
     request. All are attached once per solve by :func:`prepare_keyframes`.
+    ``wide_margin`` m (0, 1 or 2) makes the frozen-tap cache hold each
+    point's (4+2m)^2 window (JAX's ``tap_wide`` table, `nid.py:84-91`); no
+    table is built: kernel G2 takes the windows from ``bin_tiles``.
     """
 
     points: torch.Tensor  # (K, N, 3) in the keyframe CAMERA frame (pre-correction)
@@ -74,6 +80,7 @@ class NIDKeyframe:
     tap_rows: Optional[torch.Tensor] = None  # (K, H*W, 2) int32 packed nibbles (grouped)
     tap_slabs: Optional[torch.Tensor] = None  # (K, H*W/S, 2S) int32
     slab_width: Optional[int] = None  # S; None: no grouped gather
+    wide_margin: int = 0  # m of the frozen cache's wide window; 0: 4x4 rows
 
 
 def check_bins(bins: int) -> None:
@@ -133,7 +140,7 @@ def build_tap_slabs(bin_image: torch.Tensor, slab: int) -> torch.Tensor:
 
 
 def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool = False,
-                      grouped: bool = False) -> NIDKeyframe:
+                      grouped: bool = False, wide_margin: int = 0) -> NIDKeyframe:
     """Attach the pose-independent gather sources (`nid.py:187-237`): the
     packed bin tiles of the direct take (``tap_gather.pack_bins``, one
     ``bin_pack`` launch for all keyframes on the card) and the slab width of
@@ -141,8 +148,15 @@ def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool = False,
     (``grouped`` or ``build_slabs``) also builds the (K, H*W, 2) tap-row
     table that K3/K4 read, and ``build_slabs`` the JAX package's
     plane-concat slab table, which the port's gathers do not read. A grouped-gather request
-    that no slab width can serve warns. Idempotent; called by the optimizer
-    at solve entry."""
+    that no slab width can serve warns. ``wide_margin`` m in 1..2 sets the
+    keyframes' wide window for the frozen-tap cache (`nid.py:187-209`; a
+    margin already set stays, as JAX keeps an attached ``tap_wide``), 0
+    none; any other m raises ValueError (JAX asserts 1 <= m <= 2,
+    `nid.py:154`). Idempotent; called by the optimizer at solve entry."""
+    if wide_margin:
+        tap_gather.check_margin(wide_margin)
+        if not kfs.wide_margin:
+            kfs = replace(kfs, wide_margin=wide_margin)
     if kfs.bin_tiles is None:
         kfs = replace(kfs, bin_tiles=tap_gather.pack_bins(kfs.bin_image))
     _, h, w = kfs.bin_image.shape
@@ -337,37 +351,87 @@ class TapCache(NamedTuple):
     gathered at. :func:`multi_nid_loss_cached` reuses them until anchors
     measurably drift, then re-gathers. No reference analogue (the reference
     re-reads image values per point per evaluation, `nid_cost.hpp:78-92`).
+    A partial refresh rewrites ``taps`` in place: the cache threads through
+    a solve, and the one it replaces is not read again.
     """
 
-    taps: torch.Tensor  # (K, N, 2) int32 nibble-packed window rows
+    taps: torch.Tensor  # (K, N, 2) int32 packed rows, or (K, 4+2m, N) wide planes
     knot: torch.Tensor  # (K, N, 2) int32 anchor knots at gather time
     inlier: torch.Tensor  # (K, N) f32 0/1 gate at gather time
     refreshes: int  # gathers made, the first included
-    partials: int  # refreshes served by a partial re-gather (always 0 here)
+    partials: int  # refreshes served by a partial re-gather
     drift_accum: torch.Tensor  # () f32 sum of the drifted fraction at refreshes
 
 
-def _unported_cache_options(partial_frac: float = 0.0, margin: int = 0) -> None:
-    if partial_frac > 0 or margin > 0:
-        raise NotImplementedError(
-            "the frozen-tap cache's partial refresh (frozen_partial_frac > 0) and "
-            "wide window (frozen_margin > 0) are not ported to PyTorch yet; "
-            "see ROADMAP.md"
-        )
+def _wide_margin_of(kfs: NIDKeyframe) -> int:
+    """The margin of the keyframes' wide window (0: 4x4 rows; `nid.py:
+    616-620`)."""
+    return kfs.wide_margin
+
+
+def _take(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor,
+          inlier: torch.Tensor, use_grouped) -> torch.Tensor:
+    """A full gather of the cache: the (K, 4+2m, N) wide planes (G2, JAX's
+    `_gather_wide`, `nid.py:630-638`) under a margin, else the tap rows."""
+    margin = _wide_margin_of(kfs)
+    if margin:
+        return tap_gather.wide_take(kfs.bin_tiles, knot, camera.width, camera.height, margin)
+    return _gather_taps(camera, kfs, knot, inlier, use_grouped)
 
 
 def make_tap_cache(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
                    kfs: NIDKeyframe, use_grouped=None) -> TapCache:
     """A fresh gather at ``T_camera_lidar`` (`nid.py:699-721`; kfs must
     carry the packed bin tiles, and for a grouped gather the tap-row table:
-    see :func:`prepare_keyframes`)."""
+    see :func:`prepare_keyframes`). Under a wide margin the cache holds the
+    (K, 4+2m, N) wide planes instead of (K, N, 2) rows."""
     with torch.no_grad():
         proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
-        taps = _gather_taps(camera, kfs, knot, inl, use_grouped)
+        taps = _take(camera, kfs, knot, inl, use_grouped)
     return TapCache(
         taps, knot, inl.to(proj.dtype), 1, 0,
         torch.zeros((), dtype=torch.float32, device=proj.device),
     )
+
+
+def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, knot_true, inl_true,
+             inl_true_f, drifted, frac1, use_grouped, partial_frac: float) -> TapCache:
+    """The cache re-gathered at ``knot_true`` (the ``fresh`` branch of
+    `nid.py:796-846`). With ``partial_frac`` > 0 and N a whole number of
+    128-point blocks, cap = round(nb * partial_frac) blocks a keyframe: when
+    no keyframe has more than cap blocks holding a drifted point (one host
+    read), only those blocks are re-taken, in place, by G1's or G2's block
+    form over the (K, cap) block list, ascending and padded with nb (JAX's
+    ``sort(where(dirty, iota, nb))[:cap]``). After such a refresh at margin
+    0 every point is re-centred (`:832-833`, as JAX does it: a point outside
+    both gates on a clean block keeps its old row under its new knot); under
+    a margin only the points of the re-taken blocks are (`:821-822`)."""
+    k, n = kfs.points.shape[:2]
+    margin = _wide_margin_of(kfs)
+    block = tap_gather.PARTIAL_BLOCK
+    nb = n // block if n % block == 0 else 0
+    cap = int(round(nb * partial_frac)) if partial_frac > 0 else 0
+    partial = False
+    if 0 < cap <= nb:
+        dirty = torch.any(drifted.reshape(k, nb, block), dim=2)
+        partial = int(torch.amax(torch.sum(dirty, dim=1))) <= cap  # one device sync
+    if not partial:
+        taps, knot, inl = _take(camera, kfs, knot_true, inl_true, use_grouped), knot_true, inl_true_f
+    else:
+        iota = torch.arange(nb, dtype=torch.int32, device=dirty.device)
+        blocks = torch.sort(torch.where(dirty, iota, nb), dim=1).values[:, :cap].contiguous()
+        w, h = camera.width, camera.height
+        if margin:
+            taps = tap_gather.wide_take_blocks(kfs.bin_tiles, knot_true, blocks, c.taps, w, h,
+                                               margin)
+            in_dirty = dirty[:, :, None].expand(k, nb, block).reshape(k, n)
+            knot = torch.where(in_dirty[..., None], knot_true, c.knot)
+            inl = torch.where(in_dirty, inl_true_f, c.inlier)
+        else:
+            taps = tap_gather.tap_take_blocks(kfs.bin_tiles, knot_true, blocks, c.taps, w, h)
+            knot, inl = knot_true, inl_true_f
+    return TapCache(taps, knot, inl, c.refreshes + 1, c.partials + int(partial),
+                    c.drift_accum + frac1)
 
 
 def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
@@ -375,21 +439,26 @@ def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
                           guard_frac: float = 0.25, allow_refresh: bool = True,
                           use_grouped=None, partial_frac: float = 0.0):
     """Sum of per-keyframe NIDs with a guarded frozen-tap gather
-    (`nid.py:724-879`, margin 0). Returns ``(loss, cache')``.
+    (`nid.py:724-879`). Returns ``(loss, cache')``.
 
     Equal to :func:`multi_nid_loss` whenever the gather is fresh; between
-    refreshes, points whose anchor drifted a pixel evaluate the previous
-    window's cubic extended one knot past its span. The guard re-gathers
-    when more than ``guard_frac`` of the live points drifted >= 1 px or more
-    than 0.1% drifted >= 2 px, and ``s`` is clipped to [-1.5, 2.5] so a
-    not-yet-refreshed far point cannot poison the histogram.
-    ``allow_refresh`` False suppresses the refresh (the caller will discard
-    the value). The refresh decision is a host branch: one device sync."""
-    _unported_cache_options(partial_frac)
+    refreshes, points whose anchor drifted past the cached window evaluate
+    its cubic extended past its span. With the keyframes' wide margin m
+    (0: 4x4 rows) the guard re-gathers when more than ``guard_frac`` of the
+    live points drifted >= m + 1 px or more than 0.1% drifted >= m + 2 px,
+    and ``s`` is clipped to [-1.5, 2.5] so a not-yet-refreshed far point
+    cannot poison the histogram. Under a margin every evaluation selects
+    each point's 4x4 sub-window at its offset from the cached knot, clipped
+    to +-m (W1: the exact tap row for every point within the margin).
+    ``partial_frac`` > 0 lets a refresh re-take only the drifted blocks
+    (:func:`_refresh`). ``allow_refresh`` False suppresses the refresh (the
+    caller will discard the value). The refresh decision is a host branch:
+    one device sync, and one more to choose a partial refresh."""
     check_bins(bins)
     if kfs.bin_tiles is None:
         raise ValueError("call prepare_keyframes first")
     proj, knot_true, inl_true = _project_all(camera, T_camera_lidar, kfs)
+    margin = _wide_margin_of(kfs)
 
     with torch.no_grad():
         # f32 on purpose: behind-camera knots reach ~1e9, and int32
@@ -398,19 +467,20 @@ def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
         shift = torch.amax(torch.abs(knot_true.float() - cache.knot.float()), dim=-1)
         care = inl_true | (cache.inlier > 0)
         n_care = torch.clamp(torch.sum(care), min=1).to(torch.float32)
-        frac1 = torch.sum((shift >= 1.0) & care) / n_care
-        frac2 = torch.sum((shift >= 2.0) & care) / n_care
+        # A margin-m window serves exact sub-windows up to m px of drift.
+        thr = float(margin + 1)
+        drifted = (shift >= thr) & care
+        frac1 = torch.sum(drifted) / n_care
+        frac2 = torch.sum((shift >= thr + 1.0) & care) / n_care
         if allow_refresh and bool((frac1 > guard_frac) | (frac2 > 0.001)):
-            cache = TapCache(
-                _gather_taps(camera, kfs, knot_true, inl_true, use_grouped),
-                knot_true,
-                inl_true.to(proj.dtype),
-                cache.refreshes + 1,
-                cache.partials,
-                cache.drift_accum + frac1,
-            )
+            cache = _refresh(camera, kfs, cache, knot_true, inl_true, inl_true.to(proj.dtype),
+                             drifted, frac1, use_grouped, partial_frac)
+        if margin:
+            taps, eff_knot = tap_gather.wide_select(cache.taps, knot_true, cache.knot, margin)
+        else:
+            taps, eff_knot = cache.taps, cache.knot
 
     # The clip bound lies outside everything the guard lets through, so
     # live gradients are unaffected.
-    s = torch.clamp(proj - cache.knot.to(proj.dtype), -1.5, 2.5)
-    return _sum_nid(cache.taps, s, kfs.intensity, cache.inlier, bins), cache
+    s = torch.clamp(proj - eff_knot.to(proj.dtype), -1.5, 2.5)
+    return _sum_nid(taps, s, kfs.intensity, cache.inlier, bins), cache

@@ -21,8 +21,7 @@ With no reference analogue, as in the JAX package: a coarse-to-fine
 schedule, the frozen-tap cache (`opt/nid.multi_nid_loss_cached`), the
 raster sort and the grouped gathers. The JAX package's `lax.while_loop`s
 and `lax.cond`s are Python loops and branches on host values: each branch
-costs one device sync. The cache's partial refresh and wide window are not
-ported yet and raise NotImplementedError (ROADMAP.md).
+costs one device sync.
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ class RefineResult(NamedTuple):
     converged: bool
     evaluations: int  # total objective (value+grad) evaluations
     gathers: int = 0  # tap-table gathers (frozen_taps only; 0 otherwise)
-    partial_gathers: int = 0  # gathers served by a partial refresh (not ported: 0)
+    partial_gathers: int = 0  # gathers served by a partial refresh (a subset of gathers)
     gather_drift: float = 0.0  # sum of the drifted fraction at each refresh
     # Objective calls of refine_pose_per_keyframe's lockstep solve, each one
     # evaluation of every keyframe (0 from refine_pose).
@@ -99,6 +98,7 @@ class _Outer(NamedTuple):
     done: bool
     evals: int
     gathers: int
+    pgathers: int  # partial refreshes among the gathers
     drift: torch.Tensor  # () f32
     H: torch.Tensor  # carried inverse-Hessian metric (carry_hessian)
 
@@ -135,18 +135,24 @@ def refine_pose(
     guarded frozen-tap objective (the cache is built once per phase and
     carried across outer iterations; ``frozen_guard_frac`` is its guard),
     and the returned ``nid`` is a fresh exact evaluation at the final pose.
-    ``sort_points`` (None: on when a grouped gather runs) raster-sorts the
-    points once at ``T_init``; ``use_grouped_gather`` True / "streamed"
+    With ``frozen_taps``, ``frozen_margin`` m (0..2) caches (4+2m)^2 windows
+    and moves the guard to m+1 / m+2 px, and ``frozen_partial_frac`` > 0
+    lets refreshes re-take only the drifted 128-point blocks
+    (`opt/nid.multi_nid_loss_cached`); without ``frozen_taps`` both are
+    inert, as in the JAX package. ``sort_points`` (None: on when a grouped
+    gather runs or a partial refresh can, `refine.py:179-189`) raster-sorts
+    the points once at ``T_init``; ``use_grouped_gather`` True / "streamed"
     selects the grouped gathers (kernels K3 / K4). ``carry_hessian``
     warm-starts each inner BFGS with the previous solve's inverse Hessian;
     ``ftol`` is the inner solves' relative function-decrease exit (0
     disables)."""
-    _nid._unported_cache_options(frozen_partial_frac, frozen_margin)
     if sort_points is None:
-        # The raster sort makes the grouped gathers' rows near-monotone;
-        # without them it is a sort per solve and a summation-order change.
-        sort_points = bool(use_grouped_gather)
-    kfs = _nid.prepare_keyframes(kfs, grouped=bool(use_grouped_gather))
+        # The raster sort makes the grouped gathers' rows near-monotone and
+        # drift block-coherent for the partial refresh; without either it
+        # is a sort per solve and a summation-order change.
+        sort_points = bool(use_grouped_gather) or (frozen_taps and frozen_partial_frac > 0)
+    kfs = _nid.prepare_keyframes(kfs, grouped=bool(use_grouped_gather),
+                                 wide_margin=frozen_margin if frozen_taps else 0)
     if sort_points:
         kfs = _nid.sort_by_raster(camera, T_init, kfs)
     dtype, device = T_init.t.dtype, T_init.t.device
@@ -168,7 +174,7 @@ def refine_pose(
             def loss(T, cache):
                 return _nid.multi_nid_loss_cached(
                     camera, T, phase_kfs, cache, bins, guard_frac=frozen_guard_frac,
-                    use_grouped=phase_grouped,
+                    use_grouped=phase_grouped, partial_frac=frozen_partial_frac,
                 )
 
             # Built once per phase and carried across outer iterations:
@@ -196,6 +202,7 @@ def refine_pose(
                 # The cache counts this phase's gathers; the phase-entry
                 # total keeps earlier phases' gathers.
                 gathers=init.gathers + cache.refreshes if use_frozen else st.gathers,
+                pgathers=init.pgathers + cache.partials if use_frozen else st.pgathers,
                 drift=init.drift + cache.drift_accum if use_frozen else st.drift,
                 H=res.H if carry_hessian else st.H,
             )
@@ -208,6 +215,7 @@ def refine_pose(
         done=False,
         evals=0,
         gathers=0,
+        pgathers=0,
         drift=torch.zeros((), dtype=torch.float32, device=device),
         H=eye6,
     )
@@ -242,7 +250,7 @@ def refine_pose(
         converged=final.done,
         evaluations=final.evals,
         gathers=final.gathers,
-        partial_gathers=0,
+        partial_gathers=final.pgathers,
         gather_drift=float(final.drift),
     )
 

@@ -14,10 +14,11 @@ or with ``nid.per_keyframe`` one correction a keyframe in one lockstep
 solve (then, with ``nid.smooth_trajectory``, fused with the odometry by the
 pose graph); with ``nid.recull_every_outer_iter`` it re-culls the keyframes
 at the current correction between outer iterations (JAX `runner.py:
-370-482`). Branches outside the port raise NotImplementedError (see
-ROADMAP.md): the manual initial guess, and the frozen-tap cache's partial
-refresh and wide window. With a mask folder, the mask path runs as the JAX
-runner's does (`runner.py:517-526, 585-649`).
+370-482`). The shared correction's frozen-tap solve takes the cache's wide
+window and partial refresh (`runner.py:384-390`). With picked 2D-3D
+correspondences the manual initial guess overrides the correction of each
+keyframe that has picks (`runner.py:491-512`). With a mask folder, the mask
+path runs as the JAX runner's does (`runner.py:517-526, 585-649`).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..opt import nid as nid_mod
 from ..opt import pose_graph, refine
 from ..utils import profiling
 from ..utils.config import PipelineConfig
-from . import colorize, ingest, keyframes
+from . import colorize, ingest, keyframes, manual_guess
 
 
 @dataclass
@@ -61,23 +62,14 @@ class PipelineResult:
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise NotImplementedError for every configured branch the port does
-    not run yet — never a silent fallback."""
-    # The cache options reach the solve only where the JAX runner forwards
-    # them: to the shared correction's frozen-tap solve, never to the
-    # per-keyframe solves (`runner.py:379-396`).
-    shared = not cfg.nid.per_keyframe
-    unported = {
-        "enable_manual_guess": cfg.enable_manual_guess,
-        "nid.frozen_partial_frac>0": shared and cfg.nid.frozen_partial_frac > 0,
-        "nid.frozen_margin>0": shared and cfg.nid.frozen_margin > 0,
-    }
-    on = [name for name, flag in unported.items() if flag]
-    if on:
-        raise NotImplementedError(
-            f"pointcloudprocessor_tpu_torch does not run {', '.join(on)} yet "
-            "(see ROADMAP.md); use pointcloudprocessor_tpu for these branches"
-        )
+    """Raise for a configured value that no branch can run, before any stage
+    starts: an unknown MLS upsampling method, or a frozen-tap margin
+    outside 0..2 where the solve reads it (the JAX package asserts 1 <= m <=
+    2 where it builds the wide table, `nid.py:154`). Every branch of the
+    JAX runner runs in the port."""
+    n = cfg.nid
+    if n.frozen_taps and not n.per_keyframe and not 0 <= n.frozen_margin <= 2:
+        raise ValueError(f"nid.frozen_margin must be in 0..2, got {n.frozen_margin}")
     if cfg.enable_mls and cfg.mls.upsampling.lower() not in mls.UPSAMPLING:
         raise ValueError(f"unknown MLS upsampling method: {cfg.mls.upsampling!r}")
 
@@ -216,7 +208,8 @@ def build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir: str = 
 def _refine(cfg: PipelineConfig, camera, kfs, T0: se3.SE3, outer_iterations: int):
     """One NID solve from ``T0``, with the options the JAX runner forwards
     (`runner.py:377-410`): the per-keyframe solve takes none of the
-    schedule's (coarse phase, frozen taps, carried Hessian, ftol)."""
+    schedule's (coarse phase, frozen taps and the cache's margin and
+    partial refresh, carried Hessian, ftol)."""
     n = cfg.nid
     common = dict(
         bins=n.bins,
@@ -233,7 +226,8 @@ def _refine(cfg: PipelineConfig, camera, kfs, T0: se3.SE3, outer_iterations: int
     if n.coarse_outer_iterations:
         kw.update(coarse_outer_iterations=n.coarse_outer_iterations, coarse_stride=n.coarse_stride)
     if n.frozen_taps:
-        kw.update(frozen_taps=True, frozen_guard_frac=n.frozen_guard_frac)
+        kw.update(frozen_taps=True, frozen_guard_frac=n.frozen_guard_frac,
+                  frozen_partial_frac=n.frozen_partial_frac, frozen_margin=n.frozen_margin)
     return refine.refine_pose(camera, kfs, T0, carry_hessian=n.carry_hessian, ftol=n.ftol,
                               **common, **kw)
 
@@ -376,6 +370,21 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
         result.nid_evaluations = res.lockstep_evaluations if cfg.nid.per_keyframe else res.evaluations
     del kfs
     result.T_correction = T_correction
+
+    # 5b. Optional manual initial guess from picked 2D-3D pairs
+    # (applyInitialGuessManual, :166-176; JAX `runner.py:491-512`): each
+    # keyframe's manual pose, where it has one, takes precedence over the
+    # NID correction, as in the colorization branch at :510-519. The
+    # result keeps the NID correction, as the JAX runner's does.
+    if cfg.enable_manual_guess and cfg.correspondences_path:
+        with timer.stage("manual_guess"):
+            manual, have = manual_guess.estimate_keyframe_corrections(
+                camera, frames, kf_idx, cfg.correspondences_path, cfg.pnp)
+            have_t = torch.as_tensor(have, dtype=torch.bool, device=device)
+            T_correction = se3.SE3(q=torch.where(have_t[:, None], manual.q, T_correction.q),
+                                   t=torch.where(have_t[:, None], manual.t, T_correction.t))
+            manual_guess.save_corrections_json(
+                os.path.join(cfg.output_path, "manual_poses.json"), frames, kf_idx, manual, have)
 
     # 6. Colorize + fuse (pcdColorizationAndSmooth, :474-631).
     with timer.stage("colorize_fuse"):

@@ -1,5 +1,5 @@
-"""PyTorch port: config tree, import isolation, CLI, unported and newly
-ported branches and the kernel build's failure mode."""
+"""PyTorch port: config tree, import isolation, CLI, the newly ported
+branches and the kernel build's failure mode."""
 
 import dataclasses
 import json
@@ -60,6 +60,8 @@ def test_port_imports_no_jax():
         "import pointcloudprocessor_tpu_torch.ops.mls\n"
         "import pointcloudprocessor_tpu_torch.ops.sor\n"
         "import pointcloudprocessor_tpu_torch.tools.bench_scene\n"
+        "import pointcloudprocessor_tpu_torch.opt.pnp\n"
+        "import pointcloudprocessor_tpu_torch.pipeline.manual_guess\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pointcloudprocessor_tpu'\n"
         "       or m.startswith('pointcloudprocessor_tpu.')]\n"
@@ -97,14 +99,22 @@ def test_cli_device_defaults_to_cuda():
     ],
 )
 def test_unported_branches_raise(path, value):
-    """Branches outside the slice raise, never fall back."""
+    """The three branches that raised NotImplementedError until they were
+    ported (the manual guess, the frozen-tap cache's partial refresh and
+    wide window) pass the check now, with frozen taps on. What still
+    raises, before any stage, is a margin no branch can run: outside 0..2
+    the shared solve refuses it with ValueError (JAX asserts 1 <= m <= 2,
+    `nid.py:154`)."""
     cfg = tcfg.PipelineConfig()
+    cfg.nid.frozen_taps = True
     obj = cfg
     *parents, leaf = path.split(".")
     for p in parents:
         obj = getattr(obj, p)
     setattr(obj, leaf, value)
-    with pytest.raises(NotImplementedError, match=path.split(".")[-1].split("=")[0]):
+    runner.check_supported(cfg)
+    cfg.nid.frozen_margin = 3
+    with pytest.raises(ValueError, match="frozen_margin"):
         runner.check_supported(cfg)
 
 
@@ -124,15 +134,22 @@ def test_per_keyframe_and_recull_are_supported(options):
     the port (tests/test_torch_refine_per_keyframe.py,
     tests/test_torch_pose_graph.py, tests/test_torch_recull.py). The
     per-keyframe solve reads none of the cache options, as in the JAX
-    runner, so they pass under it and still raise without it."""
+    runner, so even a margin outside 0..2 passes under it; the shared solve
+    runs the options (tests/test_torch_wide_cache.py) and refuses that
+    margin."""
     cfg = tcfg.PipelineConfig()
     for key, value in options.items():
         setattr(cfg.nid, key, value)
     runner.check_supported(cfg)
     if cfg.nid.frozen_partial_frac > 0:
+        cfg.nid.frozen_taps = True
+        cfg.nid.frozen_margin = 5
+        runner.check_supported(cfg)
         cfg.nid.per_keyframe = False
-        with pytest.raises(NotImplementedError, match="frozen_partial_frac"):
+        with pytest.raises(ValueError, match="frozen_margin"):
             runner.check_supported(cfg)
+        cfg.nid.frozen_margin = 1
+        runner.check_supported(cfg)
 
 
 def test_default_config_is_supported():

@@ -143,8 +143,12 @@ def test_cached_loss_no_refresh_when_not_allowed():
     T1 = tse3.compose(Tt, tse3.exp(torch.tensor([8.0 * 5.0 / 120.0, 0, 0, 0, 0, 0])))
     _, c2 = tnid.multi_nid_loss_cached(ct, T1, kt, cache, allow_refresh=False)
     assert c2 is cache
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnid.multi_nid_loss_cached(ct, T1, kt, cache, partial_frac=0.5)
+    # The partial refresh runs now; N = 4000 is no whole number of 128-point
+    # blocks, so its refresh is the full gather (nb = 0, `nid.py:786-788`).
+    l3, c3 = tnid.multi_nid_loss_cached(ct, T1, kt, cache, partial_frac=0.5)
+    l4, c4 = tnid.multi_nid_loss_cached(ct, T1, kt, cache)
+    assert c3.refreshes == c4.refreshes == 2 and c3.partials == c4.partials == 0
+    assert float(l3) == float(l4)
 
 
 def test_minimize_cached_threads_cache_like_jax():

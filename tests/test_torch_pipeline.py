@@ -29,6 +29,7 @@ from pointcloudprocessor_tpu_torch.pipeline import runner as trunner
 from pointcloudprocessor_tpu_torch.utils import config as tcfg
 from pointcloudprocessor_tpu_torch.utils import interop
 
+from test_nid import nid_scene
 from test_pipeline_e2e import small_config, write_dataset
 
 CPU = "cpu"
@@ -155,14 +156,26 @@ def test_refine_pose_matches_jax(slice_runs):
 
 
 def test_refine_unported_options_raise():
-    kfs = interop.nid_keyframes(np.zeros((1, 4, 3)), np.zeros((1, 4)), np.ones((1, 4), bool),
-                                np.zeros((1, 8, 8), np.int32), CPU)
-    camera = interop.camera((10.0, 10.0, 4.0, 4.0), (0.0,) * 5, 8, 8, CPU)
+    """The frozen-tap cache's options that raised until they were ported run
+    now: partial refresh and wide window with frozen taps, and inert
+    without them, as in the JAX package; a margin outside 0..2 under frozen
+    taps still raises, as ValueError (JAX asserts 1 <= m <= 2,
+    `nid.py:154`)."""
+    cj = jrunner.cam.PinholeCamera(jnp.asarray([60.0, 60.0, 32.0, 24.0]), jnp.zeros(5), 64, 48)
+    pts, inten, img = nid_scene(cj, n_side=16)  # 256 points: two refresh blocks
+    bins = np.asarray(jnid.quantize_image(jnp.asarray(img), 16))
+    kfs = interop.nid_keyframes(pts[None], inten[None], np.ones((1, 256), bool), bins[None], CPU)
+    camera = interop.camera((60.0, 60.0, 32.0, 24.0), (0.0,) * 5, 64, 48, CPU)
+    T0 = tse3.exp(torch.tensor([0.01, -0.01, 0.0, 0.0, 0.002, 0.0]))
     for kw in (dict(frozen_taps=True, frozen_partial_frac=0.25),
                dict(frozen_taps=True, frozen_margin=1),
                dict(frozen_partial_frac=0.25), dict(frozen_margin=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trefine.refine_pose(camera, kfs, tse3.identity(CPU), **kw)
+        res = trefine.refine_pose(camera, kfs, T0, max_outer_iterations=1,
+                                  max_inner_iterations=4, **kw)
+        assert np.isfinite(float(res.nid)) and res.partial_gathers <= res.gathers
+        assert (res.gathers >= 1) == ("frozen_taps" in kw)
+    with pytest.raises(ValueError, match="margin"):
+        trefine.refine_pose(camera, kfs, T0, frozen_taps=True, frozen_margin=3)
 
 
 def test_resume_reuses_artifacts_and_traces(slice_runs, tmp_path):

@@ -226,8 +226,9 @@ def test_counts_and_device_dispatch():
     ttg.grouped_take_slabbed(*args, slab=512)
     ttg.grouped_take_streamed(*args, slab=512)
     assert ttg.call_counts == {"grouped_take_slabbed": 1, "grouped_take_streamed": 1}
-    assert ttg.launch_counts == {"tap_take": 0, "bin_pack": 0, "tap_select": 0,
-                                 "tap_streamed": 0}
+    assert ttg.launch_counts == dict.fromkeys(
+        ("tap_take", "bin_pack", "tap_select", "tap_streamed", "tap_take_blocks", "wide_take",
+         "wide_take_blocks", "wide_select"), 0)
     assert ttg.fallback_counts == {"grouped_take_slabbed": 0, "grouped_take_streamed": 0}
     with pytest.raises(ValueError, match="CUDA"):
         ttg.grouped_select_slabbed_cuda(*args, slab=512)

@@ -221,8 +221,9 @@ def test_direct_take_dispatch():
     knot = torch.from_numpy(_knots("mixed", 2))
     ttg.reset_launch_counts()
     ttg.direct_take(tiles, knot, W, H)
-    assert ttg.launch_counts == {"tap_take": 0, "bin_pack": 0, "tap_select": 0,
-                                 "tap_streamed": 0}
+    assert ttg.launch_counts == dict.fromkeys(
+        ("tap_take", "bin_pack", "tap_select", "tap_streamed", "tap_take_blocks", "wide_take",
+         "wide_take_blocks", "wide_select"), 0)
     with pytest.raises(ValueError, match="CUDA"):
         ttg.direct_take_cuda(tiles, knot, W, H)
     with pytest.raises(ValueError, match="CUDA"):
