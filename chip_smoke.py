@@ -1030,7 +1030,9 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     colorize culls), no H2, and each of the 16 masks bit-equal to the dense
     twin run on the CPU on the same inputs (:func:`check_dense_culls`); its
     pose is printed, not gated. With ``picks`` (a correspondence file) the
-    manual initial guess runs after the solve (:func:`check_manual`). Under
+    manual initial guess runs after the solve (:func:`check_manual`), and
+    the solve runs twice more on its own inputs under ``torch.profiler``,
+    bit-equal, printing its wall and device-busy time. Under
     a frozen-tap margin the fine gathers are G2's (``wide_take``, its block
     form ``wide_take_blocks`` for a partial refresh) and every frozen
     evaluation one W1 ``wide_select``, G1 only the final evaluation; at
@@ -1086,7 +1088,7 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
             return out
 
         hpr_ops.hpr_mask_dense_batch = dense_batch
-    tables, peaks = [], []
+    tables, peaks, solve_kw = [], [], []
 
     def prepare(*args, **kw):  # what the solve's keyframes carry
         out = wrapped[0](*args, **kw)
@@ -1102,6 +1104,7 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
                 torch.cuda.reset_peak_memory_stats()
                 held = torch.cuda.memory_allocated()
             out = fn(*args, **kw)
+            solve_kw.append(kw)
             if device == "cuda":
                 torch.cuda.synchronize()
                 peaks.append((torch.cuda.max_memory_allocated() - held) / 2**20)
@@ -1262,6 +1265,23 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
         check_mask_outputs(res, cfg.output_path, label)
     if picks:
         check_manual(card, label, res, cfg, solves, launches, T0, nid)
+        # The path's solve again on its own inputs under torch.profiler (not
+        # inside the path, whose stage times the profiler would inflate):
+        # the same result, its wall and device-busy time and launches.
+        (args, r), kw = solves[-1], solve_kw[-1]
+        for _ in range(2):
+            _reset_counts()
+            again, wall_s, busy_ms, n_dev = _solve_device_ms(lambda: wrapped[1](*args, **kw),
+                                                             device)
+            counts = _read_counts()
+            assert torch.equal(again.T_camera_lidar.q, r.T_camera_lidar.q), label
+            assert float(again.nid) == float(r.nid) and again.gathers == r.gathers, label
+            assert all(counts[key] == launches[key] for key in (
+                "wide_take", "wide_take_blocks", "wide_select")), (counts, launches)
+            print(f"[{card}] {label}: its solve again: wall {wall_s:.3f} s, device busy "
+                  f"{_ms(busy_ms)} ms in {n_dev} device events (torch.profiler); G2 launches "
+                  f"{counts['wide_take']}, its block form {counts['wide_take_blocks']}, W1 "
+                  f"{counts['wide_select']}")
 
     # The written cloud: every colored point, colors in range, and the
     # colors carry the wall texture the images were rendered from. The bar
@@ -1963,10 +1983,14 @@ def phase_wide_cache(card, camera, kfs, T0, device="cuda"):
     the drifted knots on every point live under both gates within the
     margin; each block form bit-equal to its twin, in place, on the block
     list of a real drift (points drifted past the guard: >= 1 px for G1's,
-    >= m + 1 px for G2's). One launch a call each. Times each beside its
-    bound and its twin, and G2 beside ``index_select`` on a (K H W, 4 + 2m)
-    wide table built once. Returns the four records (margin 2's as ``ms``,
-    margin 1's as ``m1_*``)."""
+    >= m + 1 px for G2's). G2 also bit-equal at every pixel of one
+    keyframe, on the scene's image, the 4095 x 2999 one and a 4093 x 2998
+    one (each side 3 mod 5); the addressing model ``wide_take_plan`` equal
+    to G2 on the scene's knots, with its sectors and 16-byte loads a point.
+    One launch a call each. Times each beside its bound and its twin, G2
+    beside ``index_select`` on a (K H W, 4 + 2m) wide table built once.
+    Returns the four records (margin 2's as ``ms``, margin 1's as
+    ``m1_*``)."""
     import torch
 
     from pointcloudprocessor_tpu_torch.ops import tap_gather as tg
@@ -2025,27 +2049,56 @@ def phase_wide_cache(card, camera, kfs, T0, device="cuda"):
     edge = torch.from_numpy(np.stack([np.roll(edge, j, axis=0) for j in range(k)])).to(device)
     odd_bins = kp.bin_image[:, : h - 1, : w - 1].contiguous()
     odd_tiles = tg.pack_bins(odd_bins)
+    # Each side 3 mod 5: the last tile column and row hold 3 columns and
+    # rows of the image.
+    w3, h3 = w - 3, h - 2
+    tiles3 = tg.pack_bins(kp.bin_image[:1, :h3, :w3].contiguous())
+    yy, xx = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
+                            indexing="ij")
+    every = torch.stack([xx, yy], -1).reshape(1, -1, 2).to(torch.int32)
+    del xx, yy
+
     for m in MARGINS:
         prefix = "" if m == 2 else f"m{m}_"
         rows = 4 + 2 * m
         # G2 against its twin.
         wide = once("wide_take", lambda: tg.wide_take(tiles, kc, w, h, m))
         assert torch.equal(wide, tg.wide_take_plain(tiles, kc, w, h, m)), f"G2 != twin, m {m}"
-        for label, args in (("edge knots", (tiles, edge, w, h)),
-                            (f"ragged n = {n - 77}", (tiles, kc[:, : n - 77].contiguous(), w, h)),
-                            (f"{w - 1} x {h - 1} image", (odd_tiles, kc, w - 1, h - 1)),
-                            (f"{w - 1} x {h - 1} image, edge knots", (odd_tiles, edge, w - 1,
-                                                                      h - 1))):
-            assert torch.equal(tg.wide_take(*args, m), tg.wide_take_plain(*args, m)), (label, m)
+        checks = (("edge knots", (tiles, edge, w, h)),
+                  (f"ragged n = {n - 77}", (tiles, kc[:, : n - 77].contiguous(), w, h)),
+                  (f"{w - 1} x {h - 1} image", (odd_tiles, kc, w - 1, h - 1)),
+                  (f"{w - 1} x {h - 1} image, edge knots", (odd_tiles, edge, w - 1, h - 1)),
+                  (f"every pixel of keyframe 0", (tiles[:1], every, w, h)),
+                  (f"every pixel of keyframe 0, {w - 1} x {h - 1} image",
+                   (odd_tiles[:1], every[:, : (h - 1) * w], w - 1, h - 1)),
+                  (f"every pixel of keyframe 0, {w3} x {h3} image",
+                   (tiles3, every[:, : h3 * w], w3, h3)))
+        for label, args in checks:
+            got = once("wide_take", lambda: tg.wide_take(*args, m))
+            assert torch.equal(got, tg.wide_take_plain(*args, m)), (label, m)
+            del got
+        # The addressing model on the scene's knots: its planes, and what a
+        # point reads under it.
+        planes, sectors, loads, read = tg.wide_take_plan(tiles, kc, w, h, m)
+        assert torch.equal(planes, wide), f"the addressing model != G2, m {m}"
+        counts = {"sectors_a_point": float(sectors.double().mean()),
+                  "sectors_max": int(sectors.max()),
+                  "loads16_a_point": float(loads.double().mean()), "loads16_max": int(loads.max()),
+                  "distinct_sectors": sum(int(torch.unique(r[r >= 0]).numel()) for r in read)}
+        del planes, sectors, loads, read
         print(f"G2 wide_take, m = {m}: {tuple(wide.shape)} planes at T0 bit-equal to its twin; "
-              f"also on edge knots, a ragged n and a {w - 1} x {h - 1} image")
+              f"also on edge knots, a ragged n, a {w - 1} x {h - 1} image and every pixel of "
+              f"keyframe 0 of it, the scene's and a {w3} x {h3} image; the addressing model "
+              f"equal to G2: "
+              f"{counts['sectors_a_point']:.4f} sectors a point (max {counts['sectors_max']}), "
+              f"{counts['loads16_a_point']:.4f} 16-byte loads (max {counts['loads16_max']}); "
+              f"{counts['distinct_sectors']} distinct sectors over the {k} keyframes "
+              f"({counts['distinct_sectors'] * 32 / 1e6:.1f} MB of the tiles' "
+              f"{_nbytes(tiles) / 1e6:.1f})")
         # The yardstick: index_select on the wide table, built once by G2 from
         # every pixel's knot.
-        yy, xx = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
-                                indexing="ij")
-        every = torch.stack([xx, yy], -1).reshape(1, -1, 2).to(torch.int32).expand(k, -1, -1)
-        table = tg.wide_take(tiles, every.contiguous(), w, h, m).permute(0, 2, 1).reshape(-1, rows)
-        table = table.contiguous()
+        table = tg.wide_take(tiles, every.expand(k, -1, -1).contiguous(), w, h, m)
+        table = table.permute(0, 2, 1).reshape(-1, rows).contiguous()
         flat = (tg.anchors(kc, w, h).long()
                 + torch.arange(k, device=device)[:, None] * (h * w)).reshape(-1)
         assert torch.equal(torch.index_select(table, 0, flat).reshape(k, n, rows),
@@ -2056,7 +2109,8 @@ def phase_wide_cache(card, camera, kfs, T0, device="cuda"):
               _nbytes(kc) + _nbytes(wide) + pixels / 2,
               library=lambda: torch.index_select(table, 0, flat))
         recs["wide_take"][f"{prefix}window_pixels"] = pixels
-        del table, flat, every, xx, yy
+        recs["wide_take"].update({f"{prefix}{key}": v for key, v in counts.items()})
+        del table, flat
         # W1 at each drift, and its exactness within the margin.
         for px in DRIFT_PX:
             kt, inl_t = drift[px]
@@ -2117,25 +2171,26 @@ def phase_wide_cache(card, camera, kfs, T0, device="cuda"):
 
 
 def _solve_device_ms(fn, device):
-    """(result, wall s, device busy ms): ``fn()`` once on the host clock
-    with the card synchronized, its kernels' device time summed by
-    ``torch.profiler`` (CUDA activity only; None off the card)."""
+    """(result, wall s, device busy ms, device events): ``fn()`` once on the
+    host clock with the card synchronized, its kernels' device time summed
+    by ``torch.profiler`` (CUDA activity only; None off the card), and the
+    count of device events summed (a short count shows events the profiler
+    dropped)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if device != "cuda":
         t0 = time.perf_counter()
         out = fn()
-        return out, time.perf_counter() - t0, None
+        return out, time.perf_counter() - t0, None, None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) * 1e-3
-    return out, wall, busy
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, wall, sum(e.time_range.elapsed_us() for e in dev) * 1e-3, len(dev)
 
 
 def phase_partial_solve(card, camera, kfs, T0, device="cuda"):
@@ -2172,7 +2227,7 @@ def phase_partial_solve(card, camera, kfs, T0, device="cuda"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
-        res, wall, busy = _solve_device_ms(
+        res, wall, busy, n_dev = _solve_device_ms(
             lambda kw=kw: refine.refine_pose(camera, kfs, se3.identity(device),
                                              **dict(HEADLINE, **kw)), device)
         peak = ((torch.cuda.max_memory_allocated() - held) / 2**20 if device == "cuda"
@@ -2183,7 +2238,7 @@ def phase_partial_solve(card, camera, kfs, T0, device="cuda"):
         print(f"[{card}] partial / wide solve, {label}: NID {float(res.nid):.6f}; error "
               f"{err_cm:.4f} cm / {err_deg:.4f} deg; evaluations {res.evaluations}; gathers "
               f"{res.gathers} ({res.partial_gathers} partial); wall {wall:.3f} s, device busy "
-              f"{_ms(busy)} ms; peak memory above the keyframes "
+              f"{_ms(busy)} ms in {n_dev} device events; peak memory above the keyframes "
               f"{f'{peak:.1f} MiB' if peak is not None else 'not measured'}; launches "
               + json.dumps({key: counts[key] for key in (
                   "nid_hist_fwd", "nid_hist_bwd", "tap_take", "tap_take_blocks", "wide_take",

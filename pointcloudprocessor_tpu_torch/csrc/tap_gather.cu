@@ -58,8 +58,8 @@
 //                           (nid.py:630-638, :143-167): word r of a point's
 //                           window, row clamp(v + r - 1 - m), nibble j the
 //                           column clamp(u - 1 - m + j), planes (K, 4+2m, N).
-//                           A run of 6 or 8 columns can straddle two tiles,
-//                           so a point reads up to 2 x 2 tiles (4 sectors).
+//                           The window lies in at most 2 x 2 tiles (4
+//                           sectors), and the kernel reads no other.
 //                           Bound: 8 B of knot and 4 (4 + 2m) B out a point
 //                           plus each distinct window pixel at 4 bits.
 //   G2's block form      <- _partial_refresh_wide (nid.py:670-696)
@@ -72,6 +72,29 @@
 //                           B of selected words and 16 B out a point.
 // Each is one thread a point (a listed point for the block forms), a block
 // row a keyframe; W1 and G2 stream their planes.
+//
+// G2, what bounds it and its design. The points come in map order, so the
+// 32 lanes of a warp read 32 unrelated tiles, and the keyframe in flight
+// (15.7 MB packed) stays in L2: the scattered load requests a point set the
+// time. The first design (step 0) chose the tile row per row of the window
+// and read tiles a and a + 1 for every row, one 4-byte load each: 16
+// requests a point at m = 2 and 12 at m = 1, over up to 2 x 3 tiles, at
+// ~0.0145 ms a request a point for 8 x 262,144 points. This design, (a),
+// chooses the tile row and column once a point (wide_plan), reads only the
+// 16-byte halves of the at most 2 x 2 tiles that hold a needed row
+// (ld.global.nc.v4: 5.73 a point at m = 2 and 3.34 at m = 1 on the scene's
+// knots, 8 and 6 at most; ops/tap_gather.wide_take_plan counts them) and
+// picks each row's words from registers by selects. Measured (chip_smoke.py
+// phase 6b, PERF.md §6: 8 x 262,144 map-order knots, H100 80GB HBM3 at
+// 700 W): 0.091 ms at m = 2 and 0.070 at m = 1 against step 0's 0.231 and
+// 0.179, at 0.39 of the bound. Measured in the same runs and dropped, with
+// step 0: (b), each needed sector read once by the warp and staged in
+// shared memory (3.22 and 1.95 requests a point), 0.098 and 0.085; (c),
+// lane pairs reading whole sectors and swapping halves by shuffles, 0.093
+// and 0.072: so fewer requests no longer buy time. What is left, not
+// measured apart: the tiles' first reads from DRAM (a call reads most
+// sectors of the 8 keyframes' 126 MB; chip_smoke.py counts them), the ~3.2
+// L2 sectors a point and the planes' stores.
 //
 // Replaces the two Pallas TPU kernels of pointcloudprocessor_tpu/ops/tap_gather.py
 // together with the XLA index arithmetic (the plan) around each of them:
@@ -363,43 +386,114 @@ tap_take_blocks_kernel(const unsigned* __restrict__ tiles, const int2* __restric
 // row clamp(v + r - 1 - M) and column clamp(u - 1 - M + j) around the
 // clipped anchor (u, v), j < kRows = 4 + 2 M. Each coordinate is clamped
 // before its tile and nibble are chosen (the tiles hold 0 past the image).
-// The columns of every row lie in tile a = min(clamp(u - 1 - M) / 5, tw - 1)
-// and the tile after it: its nibbles 3..7 continue a's 8, so one 64-bit run
-// holds columns 5 a .. 5 a + 12 (a run of 8 starts at most 4 past 5 a). The
-// rows lie in one or two tile rows, so a point reads up to 2 x 2 tiles.
+
+// The row word of the window whose nibble j is column clamp(x0 + j), cut
+// from tile a's row word wa and tile a + 1's wb (xa = 5 a): wb's nibbles
+// 3..7 continue wa's 8, so the 64-bit run holds columns xa .. xa + 12.
+template <int M>
+__device__ __forceinline__ unsigned cut_row(unsigned wa, unsigned wb, int x0, int xa, int width) {
+  constexpr int kRows = 4 + 2 * M;
+  const unsigned long long run = wa | static_cast<unsigned long long>(wb >> 12) << 32;
+  unsigned w = 0u;
+  if (x0 >= 0 && x0 + kRows <= width) {
+    w = static_cast<unsigned>(run >> (4 * (x0 - xa)));
+    if constexpr (kRows < 8) w &= (1u << (4 * kRows)) - 1u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int x = min(max(x0 + j, 0), width - 1);
+      w |= static_cast<unsigned>((run >> (4 * (x - xa))) & 0xfu) << (4 * j);
+    }
+  }
+  return w;
+}
+
+// What the window needs, chosen once a point. Its rows lie in tile row ty0
+// = clamp(v - 1 - M) / 5, which holds rows 5 ty0 .. 5 ty0 + 7, and only
+// where the last clamped row passes 5 ty0 + 7 in tile row ty0 + 1 (rows up
+// to 5 ty0 + 12: the first row is at most 4 past 5 ty0, the last at most 7
+// past the first). Its columns lie in tile a = clamp(u - 1 - M) / 5 and
+// only where the last clamped column passes 5 a + 7 in tile a + 1. So a
+// point reads at most 2 x 2 tiles (4 sectors). Row r of the window is row
+// 5 ty0 + d_r, d_r = clamp(v + r - 1 - M) - 5 ty0 in [d0, dl], at most r + 4.
+struct WidePlan {
+  int v;           // the clipped anchor's row
+  int x0, xa;      // the first column u - 1 - M (before its clamp), 5 a
+  int ty0, d0, dl;  // the first tile row; the first and last rows less 5 ty0
+  int tile;        // word of tile (ty0, a) in the keyframe's plane
+  bool has_b;      // tile a + 1 holds a needed column
+  bool row2;       // tile row ty0 + 1 holds a needed row
+};
+
+template <int M>
+__device__ __forceinline__ WidePlan wide_plan(int2 kn, int width, int height, int th, int tw) {
+  constexpr int kRows = 4 + 2 * M;
+  WidePlan p;
+  const int u = min(max(kn.x, 0), width - 1);
+  p.v = min(max(kn.y, 0), height - 1);
+  const int y0 = max(p.v - 1 - M, 0), yl = min(p.v + 2 + M, height - 1);
+  p.ty0 = min(y0 / kStride, th - 1);
+  p.d0 = y0 - kStride * p.ty0;
+  p.dl = yl - kStride * p.ty0;
+  p.x0 = u - 1 - M;
+  const int ta = min(max(p.x0, 0) / kStride, tw - 1);
+  p.xa = kStride * ta;
+  p.has_b = min(p.x0 + kRows - 1, width - 1) - p.xa > 7;
+  p.row2 = p.dl > 7;
+  p.tile = (p.ty0 * tw + ta) << 3;
+  return p;
+}
+
+// d_r: row r of the window less 5 ty0.
+template <int M>
+__device__ __forceinline__ int window_row_d(const WidePlan& p, int r, int height) {
+  return min(max(p.v + r - 1 - M, 0), height - 1) - kStride * p.ty0;
+}
+
+__device__ __forceinline__ uint4 load16(const unsigned* __restrict__ p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// One tile column's needed 16-byte halves as a column e of 13 row words:
+// e[d] is row 5 ty0 + d, words 0..7 of the tile in tile row ty0, then words
+// 3..7 of the one below (tw * 8 words on). Halves not needed stay 0; no
+// row d_r reads one.
+__device__ __forceinline__ void load_column(const unsigned* __restrict__ t, const WidePlan& p,
+                                            bool needed, int below, unsigned (&e)[13]) {
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 lo0 = needed && p.d0 <= 3 ? load16(t) : z;
+  const uint4 hi0 = needed && p.dl >= 4 ? load16(t + 4) : z;
+  const uint4 lo1 = needed && p.dl >= 8 ? load16(t + below) : z;
+  const uint4 hi1 = needed && p.dl >= 9 ? load16(t + below + 4) : z;
+  const unsigned col[13] = {lo0.x, lo0.y, lo0.z, lo0.w, hi0.x, hi0.y, hi0.z,
+                            hi0.w, lo1.w, hi1.x, hi1.y, hi1.z, hi1.w};
+#pragma unroll
+  for (int d = 0; d < 13; ++d) e[d] = col[d];
+}
+
+// e[d] for d <= hi, by a chain of selects (e stays in registers).
+__device__ __forceinline__ unsigned pick(const unsigned (&e)[13], int d, int hi) {
+  unsigned w = e[0];
+#pragma unroll
+  for (int k = 1; k < 13; ++k)
+    if (k <= hi) w = d == k ? e[k] : w;
+  return w;
+}
+
+// The window: each lane reads its own tiles' needed halves
+// (ld.global.nc.v4) and picks each row's words from registers.
 template <int M>
 __device__ __forceinline__ void wide_window(const unsigned* __restrict__ img, int2 kn, int width,
                                             int height, int th, int tw,
                                             unsigned (&word)[4 + 2 * M]) {
-  constexpr int kRows = 4 + 2 * M;
-  const int u = min(max(kn.x, 0), width - 1);
-  const int v = min(max(kn.y, 0), height - 1);
-  const int x0 = u - 1 - M;
-  const int ta = min(max(x0, 0) / kStride, tw - 1);
-  const bool has_b = ta + 1 < tw;  // without it, every column lies in a
-  const int xa = kStride * ta;
-  const bool inside = x0 >= 0 && x0 + kRows <= width;
+  const WidePlan p = wide_plan<M>(kn, width, height, th, tw);
+  unsigned ea[13], eb[13];
+  load_column(img + p.tile, p, true, 8 * tw, ea);
+  load_column(img + p.tile + 8, p, p.has_b, 8 * tw, eb);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int y = min(max(v + r - 1 - M, 0), height - 1);
-    const int ty = min(y / kStride, th - 1);
-    const unsigned* __restrict__ row =
-        img + ((static_cast<long long>(ty) * tw + ta) << 3) + (y - kStride * ty);
-    const unsigned wa = __ldg(row);
-    const unsigned wb = has_b ? __ldg(row + 8) : 0u;
-    const unsigned long long run = wa | static_cast<unsigned long long>(wb >> 12) << 32;
-    unsigned w = 0u;
-    if (inside) {
-      w = static_cast<unsigned>(run >> (4 * (x0 - xa)));
-      if constexpr (kRows < 8) w &= (1u << (4 * kRows)) - 1u;
-    } else {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const int x = min(max(x0 + j, 0), width - 1);
-        w |= static_cast<unsigned>((run >> (4 * (x - xa))) & 0xfu) << (4 * j);
-      }
-    }
-    word[r] = w;
+  for (int r = 0; r < 4 + 2 * M; ++r) {
+    const int d = window_row_d<M>(p, r, height);
+    word[r] = cut_row<M>(pick(ea, d, r + 4), pick(eb, d, r + 4), p.x0, p.xa, width);
   }
 }
 

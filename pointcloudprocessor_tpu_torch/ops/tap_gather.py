@@ -375,6 +375,75 @@ def wide_take_plain(tiles: torch.Tensor, knot: torch.Tensor, width: int, height:
     return torch.stack(planes, dim=1)
 
 
+def wide_take_plan(tiles: torch.Tensor, knot: torch.Tensor, width: int, height: int,
+                   margin: int):
+    """G2's addressing in torch ops (the tests' and ``chip_smoke.py``'s
+    model of the kernel; :func:`wide_take_plain` stays the twin):
+    ``(planes, sectors, loads, read)``, the (K, 4 + 2m, N) int32 planes of
+    :func:`wide_take_plain` built as the kernel reads them, (K, N) int32
+    counts a point of the 32-byte tiles (sectors) it reads and of the
+    16-byte halves of them it needs, and (K, N, 4) int64 the tiles it reads
+    (index in the keyframe's (TH * TW) tiles; -1 where it reads none), in
+    the order (ty0, a), (ty0, a + 1), (ty0 + 1, a), (ty0 + 1, a + 1).
+
+    The window's rows lie in tile row ty0 = clamp(v - 1 - m) // 5 and,
+    only where the last clamped row passes 5 ty0 + 7, in ty0 + 1; its
+    columns in tile a = clamp(u - 1 - m) // 5 and, only where the last
+    clamped column passes 5 a + 7, in a + 1: at most 2 x 2 tiles. Row r,
+    d_r = clamp(v + r - 1 - m) - 5 ty0 (0 <= d_r <= r + 4), is word d_r of
+    tile row ty0 up to 7, else word d_r - 5 of ty0 + 1. A half that is not
+    needed reads as the complement of its words, so that a word taken from
+    one changes the planes."""
+    _check_tiles(tiles, width, height)
+    check_margin(margin)
+    k, th, tw, _ = tiles.shape
+    rows = 4 + 2 * margin
+    flat = tiles.reshape(k, -1).to(torch.int64) & 0xFFFFFFFF
+    u = torch.clamp(knot[..., 0].to(torch.int64), 0, width - 1)
+    v = torch.clamp(knot[..., 1].to(torch.int64), 0, height - 1)
+    y0 = torch.clamp(v - 1 - margin, min=0)
+    ty0 = torch.clamp(y0 // STRIDE, max=th - 1)
+    d0 = y0 - STRIDE * ty0
+    dl = torch.clamp(v + 2 + margin, max=height - 1) - STRIDE * ty0
+    x0 = u - 1 - margin
+    ta = torch.clamp(torch.clamp(x0, min=0) // STRIDE, max=tw - 1)
+    has_b = torch.clamp(x0 + rows - 1, max=width - 1) - STRIDE * ta > 7
+    row2 = dl > 7
+    # The halves needed, (tile row ty0 + t, half h): rows d0..dl less 5 t.
+    need = {(0, 0): d0 <= 3, (0, 1): dl >= 4, (1, 0): dl >= 8, (1, 1): dl >= 9}
+    kf = torch.arange(k, device=tiles.device)[:, None]
+
+    def word(t, c, w):
+        read = row2 if t else torch.ones_like(row2)
+        read = read & has_b if c else read
+        val = flat[kf, torch.where(read, ((ty0 + t) * tw + ta + c) * TILE + w, 0)]
+        needed = read & torch.where(w < 4, need[t, 0], need[t, 1])
+        return torch.where(needed, val, val ^ 0xFFFFFFFF)
+
+    cols = [torch.clamp(x0 + j, 0, width - 1) - STRIDE * ta for j in range(rows)]
+    assert all(bool(((c >= 0) & (c <= 12)).all()) for c in cols), "a column outside a, a + 1"
+    planes = []
+    for r in range(rows):
+        d = torch.clamp(v + r - 1 - margin, 0, height - 1) - STRIDE * ty0
+        assert bool(((d >= 0) & (d <= min(12, r + 4))).all()), f"row {r} outside ty0, ty0 + 1"
+        below = d > 7
+        w = d - STRIDE * below.to(torch.int64)
+        wa = torch.where(below, word(1, 0, w), word(0, 0, w))
+        wb = torch.where(has_b, torch.where(below, word(1, 1, w), word(0, 1, w)), 0)
+        run = wa | ((wb >> 12) << 32)
+        out = torch.zeros_like(u)
+        for j, c in enumerate(cols):
+            out = out | (((run >> (4 * c)) & 0xF) << (4 * j))
+        planes.append(bits_to_int32(out))
+    tiles_read = 1 + has_b.to(torch.int32)
+    sectors = (1 + row2.to(torch.int32)) * tiles_read
+    halves = sum(n.to(torch.int32) for n in need.values())
+    every = torch.ones_like(row2)
+    read = torch.stack([torch.where(r, (ty0 + t) * tw + ta + c, -1) for t, c, r in (
+        (0, 0, every), (0, 1, has_b), (1, 0, row2), (1, 1, row2 & has_b))], dim=-1)
+    return torch.stack(planes, dim=1), sectors, halves * tiles_read, read
+
+
 def wide_select_plain(wide: torch.Tensor, knot_true: torch.Tensor, knot_cache: torch.Tensor,
                       margin: int):
     """The twin of W1: ``(taps (K, N, 2), eff_knot (K, N, 2))``, both int32,
