@@ -276,6 +276,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    evaluation, G2 (or its block form) a gather and G1 only for the final
    evaluation; prints the gathers, partial gathers, evaluations, the
    launches and the ``nid_refine`` and ``manual_guess`` seconds.
+14e. The distributed path (``phase_distributed``): ``parallel/`` over NCCL
+   at a world of 1 (``mesh.init_distributed`` without torchrun's
+   environment, a (1, 1) mesh on the card) on the scene's 8 x 262,144
+   keyframes and 1M-point map: ``refine_pose_sharded`` under the headline
+   schedule, ``fuse_sharded`` with masks, ``refine_per_keyframe_sharded``
+   (1 x 10) and ``optimize_sharded`` on its corrections, each in turns
+   serial, sharded, sharded, serial and bit for bit against its serial
+   port path (``refine_pose``, ``refine_pose_per_keyframe``,
+   ``pose_graph.optimize``, ``colorize.fuse``), with equal K1 / K2 / G1 /
+   B1 / C1 launches and the walls printed; a CPU tensor on the NCCL mesh
+   raises.
 18. Tools at full scale: ``tools/colorize_anatomy`` (the eager stages and
    the production C1 fuse) and ``tools/zbuffer_probe``, each printing its
    JSON line; both must report non-null kernel times and exact masks /
@@ -287,7 +298,8 @@ small-map run (a call a cull batch), H2/N1's those of the HPR + smoothing
 run (H2's a call of a memset and four launches), M1/S1's those of the MLS
 run (each also carries the other paths' counts as ``launches_<path>``:
 the per-keyframe path's as ``launches_per_keyframe_path``, the re-cull
-path's as ``launches_recull_path``), G2's and W1's those of the cache
+path's as ``launches_recull_path``, the distributed path's sharded runs'
+as ``launches_distributed_path``), G2's and W1's those of the cache
 options + manual guess run, G1's block form's those of the partial-refresh
 solve of phase 6b and G2's block form's those of its margin-2 solve with
 no coarse phase (each asserted at least 1). G2, W1 and the block forms
@@ -4231,6 +4243,142 @@ def phase_tools(device="cuda"):
         assert anatomy["full"] is not None and anatomy["full_plain"] is not None, anatomy
 
 
+DIST_PER_KEYFRAME = dict(max_outer_iterations=1, max_inner_iterations=10)
+DIST_COUNTS = ("nid_hist_fwd", "nid_hist_bwd", "tap_take", "bin_pack", "colorize_scatter",
+               "colorize_update")
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    a, b = (torch.as_tensor(x) for x in (a, b))
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+def phase_distributed(card, root, T0, device="cuda"):
+    """``parallel/`` over NCCL at a world of 1 (Gloo on the CPU): the
+    sharded headline solve, per-keyframe solve, pose graph and fuse on the
+    scene, each run in turns serial, sharded, sharded, serial and each
+    bit-equal to its serial port path, with the same kernel launches.
+    Returns the sharded paths' launches, summed over their first runs; the
+    process group is destroyed on the way out."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.opt import pose_graph, refine
+    from pointcloudprocessor_tpu_torch.parallel import fusion_shard, nid_shard
+    from pointcloudprocessor_tpu_torch.parallel import mesh as mesh_lib
+    from pointcloudprocessor_tpu_torch.parallel import pose_graph_shard
+    from pointcloudprocessor_tpu_torch.pipeline import colorize
+
+    mesh_lib.init_distributed()
+    try:
+        mesh = mesh_lib.make_mesh(1, 1)
+        want_backend = "nccl" if device == "cuda" else "gloo"
+        assert dist.get_backend() == want_backend and dist.get_world_size() == 1, mesh
+        print(f"[{card}] distributed: {mesh}, backend {dist.get_backend()}")
+        if device == "cuda":
+            try:
+                mesh_lib.all_reduce(torch.zeros(1), mesh.get_group(mesh_lib.KF_AXIS))
+            except ValueError as e:
+                print(f"distributed: a CPU tensor on the NCCL mesh raises: {e}")
+            else:
+                raise AssertionError("a CPU tensor rode the NCCL group")
+        sharded_counts = {}
+
+        def turns(label, serial, sharded, fields):
+            """Serial, sharded, sharded, serial: every result's ``fields``
+            bit-equal to the first's, the launches equal; returns the
+            first result and the four walls."""
+            runs = []
+            for turn, is_sharded in enumerate((False, True, True, False)):
+                _reset_counts()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = (sharded if is_sharded else serial)()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _read_counts()
+                if turn == 1:
+                    for k, v in counts.items():
+                        if isinstance(v, int):
+                            sharded_counts[k] = sharded_counts.get(k, 0) + v
+                runs.append((out, wall, {k: counts[k] for k in DIST_COUNTS}))
+            (ref, _, ref_counts), walls = runs[0], [w for _, w, _ in runs]
+            for out, _, counts in runs[1:]:
+                for field in fields:
+                    got, want = out, ref
+                    for name in field.split("."):
+                        got, want = getattr(got, name), getattr(want, name)
+                    assert _bits_equal(got, want), (label, field)
+                if device == "cuda":
+                    assert counts == ref_counts, (label, counts, ref_counts)
+            print(f"[{card}] distributed: {label} bit-equal sharded / serial; walls (s) serial "
+                  f"{walls[0]:.3f} / {walls[3]:.3f}, sharded {walls[1]:.3f} / {walls[2]:.3f}; "
+                  f"launches each {json.dumps(ref_counts)}")
+            return ref, walls
+
+        camera, kfs = scene_keyframes(root, device)
+        local = mesh_lib.shard_keyframes(mesh, kfs)
+        start = se3.identity(device)
+        ref, _ = turns(
+            "headline solve",
+            lambda: refine.refine_pose(camera, kfs, start, **HEADLINE),
+            lambda: nid_shard.refine_pose_sharded(camera, local, start, mesh, **HEADLINE),
+            ("T_camera_lidar.q", "T_camera_lidar.t", "nid", "evaluations", "gathers"))
+        err_cm, err_deg = _pose_error(ref.T_camera_lidar, T0)
+        print(f"[{card}] distributed: headline NID {float(ref.nid):.6f}, {ref.evaluations} "
+              f"evaluations, {ref.gathers} gathers, error {err_cm:.4f} cm / {err_deg:.4f} deg")
+        assert np.isfinite(float(ref.nid)) and err_cm < 1.0 and err_deg < 1.0
+
+        # The per-keyframe solve, then the pose graph on its corrections.
+        pk_local = mesh_lib.shard_keyframes(mesh, kfs, split_points=False)
+        pk, _ = turns(
+            "per-keyframe solve",
+            lambda: refine.refine_pose_per_keyframe(camera, kfs, start, **DIST_PER_KEYFRAME),
+            lambda: nid_shard.refine_per_keyframe_sharded(camera, pk_local, start, mesh,
+                                                          **DIST_PER_KEYFRAME),
+            ("T_camera_lidar.q", "T_camera_lidar.t", "nid", "outer_iterations", "converged",
+             "evaluations", "lockstep_evaluations"))
+        del kfs, local, pk_local
+        T_corr = T0.to(device)
+        cfg, camera, cloud, poses, _, images, masks, culling = _c1_scene(root, T_corr, device)
+        meas = se3.compose(poses, pk.T_camera_lidar)
+        odo = pose_graph.relative_measurements(poses)
+        kw = dict(abs_weight=pk.converged.to(device=device, dtype=torch.float32),
+                  odo_weight=10.0, iterations=8)
+        pg, _ = turns(
+            "pose graph", lambda: pose_graph.optimize(poses, odo, meas, **kw),
+            lambda: pose_graph_shard.optimize_sharded(mesh, poses, odo, meas, **kw),
+            ("poses.q", "poses.t", "residual_norm", "initial_residual_norm"))
+        print(f"[{card}] distributed: per-keyframe lockstep evaluations "
+              f"{pk.lockstep_evaluations}; pose graph residual {float(pg.residual_norm):.6f} "
+              f"(initial {float(pg.initial_residual_norm):.6f})")
+
+        # The fuse with masks, at T0.
+        mask_stack = torch.stack(masks)
+        fused, _ = turns(
+            "fuse", lambda: colorize.fuse(camera, cloud.points, cloud.valid, images, poses,
+                                          T_corr, mask_stack, **culling),
+            lambda: fusion_shard.fuse_sharded(
+                camera, mesh_lib.shard_pt(mesh, cloud.points),
+                mesh_lib.shard_pt(mesh, cloud.valid), mesh_lib.shard_kf(mesh, images),
+                se3.SE3(mesh_lib.shard_kf(mesh, poses.q), mesh_lib.shard_kf(mesh, poses.t)),
+                T_corr, mesh, mesh_lib.shard_kf(mesh, mask_stack), **culling),
+            ("rgb", "colored", "best_label", "observation_count"))
+        print(f"[{card}] distributed: fuse {int(fused.colored.sum())} colored")
+        if device == "cuda":
+            assert all(sharded_counts[k] >= 1 for k in DIST_COUNTS), sharded_counts
+        print(f"[{card}] distributed: sharded paths' launches (first sharded run of each) "
+              + json.dumps({k: sharded_counts[k] for k in DIST_COUNTS}))
+        return sharded_counts
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, PKG)):
         print(f"chip_smoke.py: {PKG}/ not found beside this script; run it from a "
@@ -4316,6 +4464,9 @@ def main() -> int:
         # keyframes.
         cache_launches, _ = phase_runner(card, root, T0, cfg_mod.NIDConfig(**CACHE_MANUAL),
                                          "cache options + manual guess", picks=picks)
+        # The distributed path: parallel/ over NCCL at a world of 1, each
+        # sharded path bit-equal to its serial one.
+        dist_launches = phase_distributed(card, root, T0)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels += phase_mls(card)
@@ -4332,7 +4483,8 @@ def main() -> int:
              "small_map_path": small_launches, "per_keyframe_path": pk_launches,
              "recull_path": recull_launches, "cache_manual_path": cache_launches,
              "partial_solve_path": partial_launches,
-             "wide_partial_solve_path": wide_partial_launches}
+             "wide_partial_solve_path": wide_partial_launches,
+             "distributed_path": dist_launches}
     own = {"hpr_support": "small_map_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
            "mls_moments": "mls_path", "knn_select": "mls_path", "wide_take": "cache_manual_path",
            "wide_select": "cache_manual_path", "tap_take_blocks": "partial_solve_path",

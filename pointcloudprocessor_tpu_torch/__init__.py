@@ -14,6 +14,7 @@ Package layout:
     ops/       z-buffer, NID histogram kernels (K1/K2) + twins, fusion
     opt/       NID objective, BFGS, pose refinement
     pipeline/  ingest, keyframes, colorize + fuse, orchestration
+    parallel/  the (kf, pt) mesh on torch.distributed: sharded NID, fuse, pose graph
     io/        PCD / odometry / image readers and writers (host side)
     utils/     config tree, profiling, numpy interop
     csrc/      CUDA sources;  kernels/  their build and ctypes binding

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import se3
+
 
 @dataclass
 class PointCloud:
@@ -74,6 +76,13 @@ def make(points, device, intensity=None, rgb=None, mask_label=None, normals=None
     )
 
 
+def transform(cloud: PointCloud, T: se3.SE3) -> PointCloud:
+    """Rigidly transform the cloud's points and normals (`cloud.py:92-97`,
+    `pcl::transformPointCloud` at `PointCloudProcessor.cpp:521`)."""
+    normals = None if cloud.normals is None else se3.quat_rotate(T.q, cloud.normals)
+    return cloud.replace(points=se3.transform_points(T, cloud.points), normals=normals)
+
+
 def and_valid(cloud: PointCloud, mask: torch.Tensor) -> PointCloud:
     """Narrow the validity mask."""
     return cloud.replace(valid=cloud.valid & mask)
@@ -119,3 +128,25 @@ def compact(cloud: PointCloud) -> PointCloud:
         mask_label=take(cloud.mask_label),
         normals=take(cloud.normals),
     )
+
+
+def pad_to(cloud: PointCloud, capacity: int) -> PointCloud:
+    """Pad to a fixed capacity (`cloud.py:154-177`): the new rows are zeros,
+    ``valid`` False, on the cloud's device. A sharded fuse takes a map whose
+    size the point axis of the mesh divides: pad to that."""
+    n = cloud.points.shape[0]
+    if n == capacity:
+        return cloud
+    if n > capacity:
+        raise ValueError(f"cloud size {n} exceeds capacity {capacity}")
+
+    def pad(a):
+        if a is None:
+            return None
+        out = torch.zeros((capacity,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
+        out[:n] = a
+        return out
+
+    return PointCloud(points=pad(cloud.points), intensity=pad(cloud.intensity),
+                      valid=pad(cloud.valid), rgb=pad(cloud.rgb),
+                      mask_label=pad(cloud.mask_label), normals=pad(cloud.normals))

@@ -395,7 +395,8 @@ def make_tap_cache(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
 
 
 def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, knot_true, inl_true,
-             inl_true_f, drifted, frac1, use_grouped, partial_frac: float) -> TapCache:
+             inl_true_f, drifted, frac1, use_grouped, partial_frac: float,
+             all_partial=int) -> TapCache:
     """The cache re-gathered at ``knot_true`` (the ``fresh`` branch of
     `nid.py:796-846`). With ``partial_frac`` > 0 and N a whole number of
     128-point blocks, cap = round(nb * partial_frac) blocks a keyframe: when
@@ -405,7 +406,9 @@ def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, knot_true
     ``sort(where(dirty, iota, nb))[:cap]``). After such a refresh at margin
     0 every point is re-centred (`:832-833`, as JAX does it: a point outside
     both gates on a clean block keeps its old row under its new knot); under
-    a margin only the points of the re-taken blocks are (`:821-822`)."""
+    a margin only the points of the re-taken blocks are (`:821-822`).
+    ``all_partial(flag) -> int`` makes the count of partial refreshes (a
+    sharded cache counts one only where every rank's was partial)."""
     k, n = kfs.points.shape[:2]
     margin = _wide_margin_of(kfs)
     block = tap_gather.PARTIAL_BLOCK
@@ -430,7 +433,7 @@ def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, knot_true
         else:
             taps = tap_gather.tap_take_blocks(kfs.bin_tiles, knot_true, blocks, c.taps, w, h)
             knot, inl = knot_true, inl_true_f
-    return TapCache(taps, knot, inl, c.refreshes + 1, c.partials + int(partial),
+    return TapCache(taps, knot, inl, c.refreshes + 1, c.partials + all_partial(int(partial)),
                     c.drift_accum + frac1)
 
 
@@ -454,6 +457,33 @@ def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     (:func:`_refresh`). ``allow_refresh`` False suppresses the refresh (the
     caller will discard the value). The refresh decision is a host branch:
     one device sync, and one more to choose a partial refresh."""
+    return cached_objective(camera, T_camera_lidar, kfs, cache, bins, guard_frac, allow_refresh,
+                            use_grouped, partial_frac, LOCAL)
+
+
+class Reductions(NamedTuple):
+    """How :func:`cached_objective` combines what it counts and sums over
+    the shards of a keyframe batch: ``counts`` the (3,) int64 guard counts
+    (care, drifted past the margin, past it by one more pixel),
+    ``all_partial`` a refresh's partial flag, ``sum_nid`` the histograms
+    into the summed NID (:func:`_sum_nid`'s signature). :data:`LOCAL` is one
+    process holding the whole batch; `parallel/nid_shard` reduces each over
+    the mesh."""
+
+    counts: object
+    all_partial: object
+    sum_nid: object
+
+
+LOCAL = Reductions(counts=lambda c: c, all_partial=int, sum_nid=_sum_nid)
+
+
+def cached_objective(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3, kfs: NIDKeyframe,
+                     cache: TapCache, bins: int, guard_frac: float, allow_refresh: bool,
+                     use_grouped, partial_frac: float, reduce: Reductions):
+    """:func:`multi_nid_loss_cached` with its reductions given: the guard
+    reads the counts ``reduce.counts`` returns, so that every shard of a
+    sharded batch takes the same refresh branch."""
     check_bins(bins)
     if kfs.bin_tiles is None:
         raise ValueError("call prepare_keyframes first")
@@ -466,15 +496,17 @@ def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
         # but the arithmetic still runs).
         shift = torch.amax(torch.abs(knot_true.float() - cache.knot.float()), dim=-1)
         care = inl_true | (cache.inlier > 0)
-        n_care = torch.clamp(torch.sum(care), min=1).to(torch.float32)
         # A margin-m window serves exact sub-windows up to m px of drift.
         thr = float(margin + 1)
         drifted = (shift >= thr) & care
-        frac1 = torch.sum(drifted) / n_care
-        frac2 = torch.sum((shift >= thr + 1.0) & care) / n_care
+        counts = reduce.counts(torch.stack(
+            [torch.sum(care), torch.sum(drifted), torch.sum((shift >= thr + 1.0) & care)]))
+        n_care = torch.clamp(counts[0], min=1).to(torch.float32)
+        frac1 = counts[1] / n_care
+        frac2 = counts[2] / n_care
         if allow_refresh and bool((frac1 > guard_frac) | (frac2 > 0.001)):
             cache = _refresh(camera, kfs, cache, knot_true, inl_true, inl_true.to(proj.dtype),
-                             drifted, frac1, use_grouped, partial_frac)
+                             drifted, frac1, use_grouped, partial_frac, reduce.all_partial)
         if margin:
             taps, eff_knot = tap_gather.wide_select(cache.taps, knot_true, cache.knot, margin)
         else:
@@ -483,4 +515,4 @@ def multi_nid_loss_cached(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     # The clip bound lies outside everything the guard lets through, so
     # live gradients are unaffected.
     s = torch.clamp(proj - eff_knot.to(proj.dtype), -1.5, 2.5)
-    return _sum_nid(taps, s, kfs.intensity, cache.inlier, bins), cache
+    return reduce.sum_nid(taps, s, kfs.intensity, cache.inlier, bins), cache

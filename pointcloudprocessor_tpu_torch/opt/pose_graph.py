@@ -162,6 +162,17 @@ def optimize(
     value scaled by ``anchor_weight``, which fixes the gauge however many
     nodes ``abs_weight`` masks. A fixed ``iterations`` count; each step's
     system is solved by :func:`solve_block_tridiagonal`."""
+    return gauss_newton(poses, odo_meas, abs_meas, abs_weight, odo_weight, anchor_weight,
+                        damping, iterations, absolute_blocks)
+
+
+def gauss_newton(poses: se3.SE3, odo_meas: se3.SE3, abs_meas: se3.SE3, abs_weight, odo_weight,
+                 anchor_weight: float, damping: float, iterations: int,
+                 unary) -> PoseGraphResult:
+    """:func:`optimize` with the measurement factors' assembly given:
+    ``unary(poses, meas, weight)`` returns what :func:`absolute_blocks`
+    does (`parallel/pose_graph_shard` assembles them a keyframe shard a
+    rank); node 0's anchor prior stays :func:`absolute_blocks`."""
     k = poses.q.shape[0]
     dtype, device = poses.q.dtype, poses.q.device
     odo_w = torch.as_tensor(odo_weight, dtype=dtype, device=device).expand(k - 1)
@@ -171,7 +182,7 @@ def optimize(
     eye = torch.eye(6, dtype=dtype, device=device)
     P = poses
     for _ in range(iterations):
-        Hd_a, b_a = absolute_blocks(P, abs_meas, abs_weight)
+        Hd_a, b_a = unary(P, abs_meas, abs_weight)
         Hd_anchor, b_anchor = absolute_blocks(_row(P, slice(0, 1)), anchor, anchor_w)
         Hd_o, Hu, b_o, _ = _between_blocks(P, odo_meas, odo_w)
         diag = Hd_a + Hd_o

@@ -27,6 +27,7 @@ costs one device sync.
 from __future__ import annotations
 
 from dataclasses import replace
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -125,6 +126,8 @@ def refine_pose(
     use_grouped_gather=None,
     carry_hessian: bool = False,
     ftol: float = 0.0,
+    loss_fn=None,
+    frozen_impl=None,
 ) -> RefineResult:
     """Optimize the shared camera<-lidar correction over keyframes.
 
@@ -145,7 +148,21 @@ def refine_pose(
     selects the grouped gathers (kernels K3 / K4). ``carry_hessian``
     warm-starts each inner BFGS with the previous solve's inverse Hessian;
     ``ftol`` is the inner solves' relative function-decrease exit (0
-    disables)."""
+    disables).
+
+    ``loss_fn(camera, T, kfs, bins)`` replaces the exact objective in the
+    coarse phase, the fine phase and the final exact evaluation, and
+    ``frozen_impl``, a pair ``(make_cache(camera, T, kfs),
+    cached_loss(camera, T, kfs, cache, bins, guard_frac=...))``, the
+    frozen-tap cache (`refine.py:109-114, 190-226`; the sharded objective of
+    `parallel/nid_shard` brings both). ``frozen_taps`` with a custom loss
+    requires ``frozen_impl``, and a custom loss takes no grouped gather."""
+    if loss_fn is not None:
+        if frozen_taps and frozen_impl is None:
+            raise ValueError("frozen_taps with a custom loss_fn requires frozen_impl")
+        if use_grouped_gather:
+            raise ValueError("a custom loss_fn takes the direct take: use_grouped_gather must "
+                             "be off")
     if sort_points is None:
         # The raster sort makes the grouped gathers' rows near-monotone and
         # drift block-coherent for the partial refresh; without either it
@@ -169,21 +186,31 @@ def refine_pose(
             ftol=ftol,
         )
 
+    def exact(phase_grouped):
+        if loss_fn is not None:
+            return loss_fn
+        return partial(_nid.multi_nid_loss, use_grouped=phase_grouped)
+
     def solve_phase(init: _Outer, phase_kfs, max_iters, use_frozen, phase_grouped) -> _Outer:
         if use_frozen:
+            make_cache, cached_loss = frozen_impl or (
+                partial(_nid.make_tap_cache, use_grouped=phase_grouped),
+                partial(_nid.multi_nid_loss_cached, use_grouped=phase_grouped,
+                        partial_frac=frozen_partial_frac),
+            )
+
             def loss(T, cache):
-                return _nid.multi_nid_loss_cached(
-                    camera, T, phase_kfs, cache, bins, guard_frac=frozen_guard_frac,
-                    use_grouped=phase_grouped, partial_frac=frozen_partial_frac,
-                )
+                return cached_loss(camera, T, phase_kfs, cache, bins, guard_frac=frozen_guard_frac)
 
             # Built once per phase and carried across outer iterations:
             # knots are stored absolute, so the guard alone decides when
             # the pose has moved enough to re-gather.
-            cache = _nid.make_tap_cache(camera, init.T, phase_kfs, use_grouped=phase_grouped)
+            cache = make_cache(camera, init.T, phase_kfs)
         else:
+            phase_loss = exact(phase_grouped)
+
             def loss(T, cache):
-                return _nid.multi_nid_loss(camera, T, phase_kfs, bins, use_grouped=phase_grouped), cache
+                return phase_loss(camera, T, phase_kfs, bins), cache
 
             cache = None
         objective = _guarded_objective(trust_region_trans, trust_region_rot, loss)
@@ -240,9 +267,7 @@ def refine_pose(
         # The exact full-resolution objective at the final pose, not the
         # last surrogate value (one extra forward evaluation).
         with torch.no_grad():
-            nid_final = _nid.multi_nid_loss(
-                camera, final.T, kfs, bins, use_grouped=use_grouped_gather
-            )
+            nid_final = exact(use_grouped_gather)(camera, final.T, kfs, bins)
     return RefineResult(
         T_camera_lidar=final.T,
         nid=nid_final,

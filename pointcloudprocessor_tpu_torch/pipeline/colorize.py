@@ -621,7 +621,7 @@ class FusionResult(NamedTuple):
 
 
 @torch.no_grad()
-def fuse(
+def fuse_state(
     camera: cam.PinholeCamera,
     points_world: torch.Tensor,  # (N, 3)
     valid: torch.Tensor,  # (N,)
@@ -638,24 +638,11 @@ def fuse(
     brightness_scale: float = 1.0,
     reference_compat_orientation: bool = False,
     **culling,
-) -> FusionResult:
-    """Colorize the map from all keyframes and blend the top-K observations.
-
-    The correction composes as ``T_c2w_optimized = T_c2w * T_correction``
-    (`PointCloudProcessor.cpp:507,516`), a scalar correction with every
-    keyframe's pose and a (K,) one row by row (:func:`keyframe_pose`
-    composes a batch elementwise). ``images`` (and ``mask_images``)
-    may live on the host: each keyframe's image is moved to the map's device
-    as it is used. With masks, each point keeps the label of its visible
-    observation of strictly highest score (`best_label`). Under the z-buffer
-    the keyframes' depth keys come first, for up to ``SCATTER_VIEWS`` of
-    them at once (:func:`depth_keys`: on the card one memset and one
-    ``colorize_scatter`` launch), and under HPR their masks
-    (:func:`hpr_masks`: on the card one H2 call); then each keyframe is one
-    :func:`fuse_keyframe` against its row. With ``plain`` each keyframe is
-    its twin :func:`fuse_keyframe_plain` with its own cull, on any device
-    (the eager path C1 replaces); ``culling`` as for
-    :func:`fuse_keyframe`."""
+) -> FuseState:
+    """The :class:`FuseState` that :func:`fuse` blends: every keyframe's
+    observations fused into the top-K registers, the count and, with masks,
+    the best score and its label. Arguments as for :func:`fuse`;
+    `parallel/fusion_shard` merges the states of keyframe shards."""
     device = points_world.device
     labelled = mask_images is not None
     state = init_fuse_state(points_world.shape[0], device, top_k, labelled)
@@ -679,6 +666,42 @@ def fuse(
                  reference_compat_orientation=reference_compat_orientation,
                  keys=None if keys is None else keys[j - start],
                  vis=None if vis is None else vis[j - start], **culling)
+    return state
+
+
+@torch.no_grad()
+def fuse(
+    camera: cam.PinholeCamera,
+    points_world: torch.Tensor,  # (N, 3)
+    valid: torch.Tensor,  # (N,)
+    images: torch.Tensor,  # (K, H, W, 3) uint8
+    kf_poses: se3.SE3,  # batched (K,) camera->world
+    T_correction: se3.SE3,  # NID correction: scalar, or (K,) one a keyframe
+    mask_images: Optional[torch.Tensor] = None,  # (K, H, W) int32
+    **kwargs,
+) -> FusionResult:
+    """Colorize the map from all keyframes and blend the top-K observations.
+
+    The correction composes as ``T_c2w_optimized = T_c2w * T_correction``
+    (`PointCloudProcessor.cpp:507,516`), a scalar correction with every
+    keyframe's pose and a (K,) one row by row (:func:`keyframe_pose`
+    composes a batch elementwise). ``images`` (and ``mask_images``)
+    may live on the host: each keyframe's image is moved to the map's device
+    as it is used. With masks, each point keeps the label of its visible
+    observation of strictly highest score (`best_label`). Under the z-buffer
+    the keyframes' depth keys come first, for up to ``SCATTER_VIEWS`` of
+    them at once (:func:`depth_keys`: on the card one memset and one
+    ``colorize_scatter`` launch), and under HPR their masks
+    (:func:`hpr_masks`: on the card one H2 call); then each keyframe is one
+    :func:`fuse_keyframe` against its row. With ``plain`` each keyframe is
+    its twin :func:`fuse_keyframe_plain` with its own cull, on any device
+    (the eager path C1 replaces); ``culling`` as for
+    :func:`fuse_keyframe`. Keywords: those of :func:`fuse_state` (``top_k``,
+    ``plain``, ``optimal_distance``, ``score_floor``, ``saturation_scale``,
+    ``brightness_scale``, ``reference_compat_orientation`` and the culling
+    options)."""
+    state = fuse_state(camera, points_world, valid, images, kf_poses, T_correction, mask_images,
+                       **kwargs)
     rgb, colored = fusion.blend_topk(state.topk)
     return FusionResult(
         rgb=rgb,
