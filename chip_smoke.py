@@ -51,6 +51,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    + 1 on the scene); prints the solve's peak device memory. Then the same
    run through the twins of C1 (``fuse(plain=True)``), G1 and the packer:
    the same pose, NID, counts and colored cloud, byte for byte.
+4b. The tools path (``phase_tools_path``), on the headline run's own
+   outputs, the launch counts set to 0 before and read after the tools: ``tools/nid_diagnostics`` on keyframe 0's
+   ``<ts>_beforeNID.pcd`` (262,144 points) against its 4096x3000 JPEG
+   with the scene's intrinsics (one ``bin_pack``, one ``tap_take`` and
+   one ``nid_hist_fwd`` launch at K = 1, no ``nid_hist_bwd``); its NID
+   equal bit for bit to ``multi_nid_loss`` of the same keyframe as a batch
+   of one, and within 1e-5 (tests/test_torch_nid.py's tolerance) of the
+   same report through the twins of B1, G1 and K1 on the card.
+   ``tools/crack_width.process`` on the dumps of keyframes
+   ``TOOLS_CRACK_KEYFRAMES``, each with a synthetic 4096x3000 crack mask
+   (a band ``CRACK_BAND_PX`` wide, ``CRACK_LENGTH_PX`` long, across the
+   wall): one ``knn_select`` (S1) launch a frame; S1's indices and flags
+   bit-equal to its twin's (``chunked_radius_neighbors`` on the same card
+   tensors), and the results JSON and normal masks equal to the same
+   ``process`` with S1's twin (whose numpy morphology, the same on both
+   runs, is replayed from the first run). ``tools/visualize overlay`` of
+   keyframe 0's dump at 4096x3000: two card runs bit-equal; against the CPU
+   run the differing pixels printed, those under a point whose projected
+   pixel differs between the devices counted apart. ``tools/vo_interp`` on
+   the scene's odometry: its times and positions (host f64) equal as text
+   to the CPU run's, its quaternions (the slerp's f32 arccos and sin on the
+   card) within 2 f32 ulp and the 8th decimal's rounding, the fields that
+   differ counted;
+   ``tools/pick_tool`` on keyframe 0. Each tool's wall is printed with the
+   card's name and power limit (crack_width's split into the normals on
+   the card and the host's numpy stages).
 5. G1 and its packer (``phase_direct_take``) on the scene's keyframes in
    map order, as the headline's solve takes them: ``bin_pack`` bit-equal
    to its twin (also at 4095x2999, 1x1, 9x8, 13x21 and 97x401 and on an
@@ -299,7 +325,8 @@ run (H2's a call of a memset and four launches), M1/S1's those of the MLS
 run (each also carries the other paths' counts as ``launches_<path>``:
 the per-keyframe path's as ``launches_per_keyframe_path``, the re-cull
 path's as ``launches_recull_path``, the distributed path's sharded runs'
-as ``launches_distributed_path``), G2's and W1's those of the cache
+as ``launches_distributed_path``, the tools path's as
+``launches_tools_path``), G2's and W1's those of the cache
 options + manual guess run, G1's block form's those of the partial-refresh
 solve of phase 6b and G2's block form's those of its margin-2 solve with
 no coarse phase (each asserted at least 1). G2, W1 and the block forms
@@ -1146,6 +1173,13 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     launches = _read_counts()
     with open(os.path.join(cfg.output_path, "metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
+    costs = [e for e in events if e["event"].startswith("cost_estimate_")]
+    assert [e["event"] for e in costs] == ["cost_estimate_nid", "cost_estimate_colorize"], costs
+    if label == "headline schedule":
+        for e in costs:
+            print(f"{label}: {e['event']}: {e['flops']:.4g} flop, {e['bytes']:.4g} B, "
+                  f"{e['bound']}-bound, speed of light {e['speed_of_light_s']} s at the "
+                  "H100's peaks (utils/profiling)")
     refined = [e for e in events if e["event"] == "nid_refined"][-1]
     recull = [e for e in events if e["event"] == "nid_recull_outer"]
     smoothed = [e for e in events if e["event"] == "pose_graph_smoothed"]
@@ -3560,6 +3594,30 @@ M1_OPS_SLOT, M1_OPS_IN, M1_OPS_POINT = 10, 113, 350
 S1_OPS_SLOT, S1_INT_OPS_CMP = 10, 2
 
 
+def _s1_bound(grid, pts, radius, k, exclude_self=False):
+    """S1's bound on the grid's own points as queries, K = ``k``: (bound_ms,
+    bound_by, bytes, f32 operations, integer operations, compares, slots a
+    query, in-radius a query, queries over k). Bytes: the schedule and the
+    counts read, each bucket's occupied slots, points and queries, the
+    query's cell, and idx / dist / ok written (9 B a neighbor); operations:
+    S1_OPS_SLOT a candidate slot, S1_INT_OPS_CMP a compare of the
+    selection (the overflow's scan and a sort of the kept)."""
+    import torch
+
+    n = pts.shape[0]
+    cap = grid.buckets.shape[1]
+    slots, inr = _slots_and_in_radius(grid, pts, pts, radius, exclude_self=exclude_self)
+    over = inr > k
+    nbytes = (4 * 2 * n + 4 * int(torch.clamp(grid.counts, max=cap).sum()) + 12 * n + 12 * n
+              + 4 * n + 9 * k * n)
+    ops = S1_OPS_SLOT * int(slots.sum())
+    kept = torch.clamp(inr, max=k).double()
+    compares = int(inr[over].sum()) + float((kept * torch.log2(kept.clamp(min=1))).sum())
+    int_ops = S1_INT_OPS_CMP * compares
+    b_ms, by = _bound(nbytes, ops, int_ops)
+    return b_ms, by, nbytes, ops, int_ops, compares, slots, inr, over
+
+
 def _slots_and_in_radius(grid, pts, queries, radius, exclude_self=False):
     """(occupied candidate slots a query, in-radius candidates a query),
     counted with torch ops in chunks, for the bounds."""
@@ -4040,15 +4098,8 @@ def phase_sor(card, device="cuda"):
     dev_t = {k: _device_ms(fn, device) for k, fn in fns.items() if k != "twin"}
     call_t = {k: _call_ms(fn, device, reps=3 if k == "twin" else 20)
               for k, fn in fns.items() if k != "kernel again"}
-    slots, inr = _slots_and_in_radius(grid, pts, pts, 0.25, exclude_self=True)
-    over = inr > 60
-    nbytes = (4 * 2 * n + 4 * int(torch.clamp(grid.counts, max=60).sum()) + 12 * n + 12 * n
-              + 4 * n + 9 * 60 * n)
-    ops = S1_OPS_SLOT * int(slots.sum())
-    kept = torch.clamp(inr, max=60).double()
-    compares = int(inr[over].sum()) + float((kept * torch.log2(kept.clamp(min=1))).sum())
-    int_ops = S1_INT_OPS_CMP * compares
-    b_ms, by = _bound(nbytes, ops, int_ops)
+    b_ms, by, nbytes, ops, int_ops, compares, slots, inr, over = _s1_bound(
+        grid, pts, 0.25, 60, exclude_self=True)
     t_k = dev_t.get("kernel")
     share = f"{b_ms / t_k:.3f}" if t_k else "not measured"
     print(f"[{card}] S1 device ms: " + ", ".join(f"{k} {_ms(v)}" for k, v in dev_t.items())
@@ -4243,6 +4294,349 @@ def phase_tools(device="cuda"):
         assert anatomy["full"] is not None and anatomy["full_plain"] is not None, anatomy
 
 
+# The crack_width phase: the keyframes whose dumps it measures, and the
+# synthetic crack each carries (a band across the wall: the host's numpy
+# skeleton and structure tensor cost ~5 and ~2.5 s a 4096x3000 frame).
+TOOLS_CRACK_KEYFRAMES = (0, 1)
+CRACK_BAND_PX, CRACK_LENGTH_PX = 5, 1200
+
+
+def _crack_mask(j):
+    """A crack mask of the scene's image size for keyframe ``j``: a band
+    CRACK_BAND_PX wide and CRACK_LENGTH_PX long (at most a third of the
+    width), at a slope of 0.15 from (0.34 W, (0.23 + 0.1 j) H): from (1392,
+    690 + 300 j) at 4096x3000."""
+    mask = np.zeros((HEIGHT, WIDTH), np.uint8)
+    x0, y0 = int(0.34 * WIDTH), int((0.23 + 0.1 * j) * HEIGHT)
+    xs = np.arange(x0, x0 + min(CRACK_LENGTH_PX, WIDTH // 3))
+    ys = (y0 + 0.15 * (xs - x0)).astype(np.int64)
+    for d in range(-(CRACK_BAND_PX // 2), CRACK_BAND_PX - CRACK_BAND_PX // 2):
+        mask[ys + d, xs] = 255
+    return mask
+
+
+class _MorphologyReplay:
+    """Records what the numpy morphology of ``tools/crack_width`` returns
+    in one ``process`` run and replays it in a later run on the same masks
+    (it runs on the host, the same on both runs), so that a twin run of
+    the device stages costs no second skeleton."""
+
+    NAMES = ("distance_transform", "skeletonize", "structure_tensor_directions")
+
+    def __init__(self):
+        self.seen = {}
+
+    def _key(self, name, args):
+        import hashlib
+
+        return (name,) + tuple(hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+                               if isinstance(a, np.ndarray) else repr(a) for a in args)
+
+    def run(self, replay):
+        import contextlib
+
+        from pointcloudprocessor_tpu_torch.ops import morphology
+
+        originals = {n: getattr(morphology, n) for n in self.NAMES}
+
+        def wrap(name):
+            def fn(*args, **kw):
+                key = self._key(name, args + tuple(sorted(kw.items())))
+                if replay:
+                    return self.seen[key]
+                self.seen[key] = out = originals[name](*args, **kw)
+                return out
+            return fn
+
+        @contextlib.contextmanager
+        def ctx():
+            for n in self.NAMES:
+                setattr(morphology, n, wrap(n))
+            try:
+                yield
+            finally:
+                for n, f in originals.items():
+                    setattr(morphology, n, f)
+
+        return ctx()
+
+
+def phase_tools_path(card, root, device="cuda"):
+    """The offline tools on the headline run's outputs (phase 4b). Returns
+    the launch counts of the tools' run."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.io import pcd
+    from pointcloudprocessor_tpu_torch.models import camera as cam
+    from pointcloudprocessor_tpu_torch.ops import knn, nid_hist, tap_gather
+    from pointcloudprocessor_tpu_torch.opt import nid as nid_mod
+    from pointcloudprocessor_tpu_torch.pipeline import ingest, keyframes
+    from pointcloudprocessor_tpu_torch.tools import (crack_width, nid_diagnostics, pick_tool,
+                                                     visualize, vo_interp)
+    from pointcloudprocessor_tpu_torch.utils import config as cfg_mod
+    from pointcloudprocessor_tpu_torch.utils.numeric import to_int32
+
+    cfg = _config(root, cfg_mod.NIDConfig())
+    frames = ingest.load_frames(cfg.odometry_path, cfg.images_folder)
+    kf_idx = keyframes.select(ingest.frames_trajectory(frames), cfg.keyframes)[:K]
+    stems = [ingest.cpp_timestamp(frames[i].timestamp) for i in kf_idx]
+    dumps = os.path.join(cfg.output_path, "filtered_pcd")
+    dump = [os.path.join(dumps, f"{ts}_beforeNID.pcd") for ts in stems]
+    image0 = frames[kf_idx[0]].image_path
+    intr, dist = list(cfg.camera.intrinsic), list(cfg.camera.distortion)
+    work = os.path.join(root, "tools")
+    crack_root, twin_root = os.path.join(work, "crack"), os.path.join(work, "crack_twin")
+    for r in (crack_root, twin_root):
+        for sub in ("filtered_pcd", "mask_select"):
+            os.makedirs(os.path.join(r, sub), exist_ok=True)
+        for j in TOOLS_CRACK_KEYFRAMES:
+            shutil.copyfile(dump[j], os.path.join(r, "filtered_pcd", f"{stems[j]}.pcd"))
+            _write_png(os.path.join(r, "mask_select", f"{stems[j]}.png"), _crack_mask(j))
+    pick_dir = os.path.join(work, "picks")
+    os.makedirs(pick_dir, exist_ok=True)
+    shutil.copyfile(dump[0], os.path.join(pick_dir, os.path.basename(dump[0])))
+    stamps = os.path.join(work, "stamps.txt")
+    t_odom = np.loadtxt(cfg.odometry_path, ndmin=2)[:, 0]
+    with open(stamps, "w") as f:
+        for t in np.linspace(t_odom[0] - 0.05, t_odom[-1] + 0.05, 71):
+            f.write(f"{t:.6f}\n")
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    estimate_normals = crack_width.estimate_normals
+    normals_s = []
+
+    def timed_normals(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        out = estimate_normals(*args, **kw)
+        sync()
+        normals_s.append(time.perf_counter() - t)
+        return out
+
+    replay = _MorphologyReplay()
+    walls = {}
+    _reset_counts()
+    t = time.perf_counter()
+    report = nid_diagnostics.analyze(dump[0], image0, 16, intr, device=device)
+    sync()
+    walls["nid_diagnostics"] = time.perf_counter() - t
+    crack_width.estimate_normals = timed_normals
+    try:
+        t = time.perf_counter()
+        with replay.run(replay=False):
+            results = crack_width.process(crack_root, intr, dist, WIDTH, HEIGHT, device=device)
+        walls["crack_width"] = time.perf_counter() - t
+    finally:
+        crack_width.estimate_normals = estimate_normals
+    t = time.perf_counter()
+    overlay_png = os.path.join(work, "overlay.png")
+    assert visualize.main(["overlay", "--cloud", dump[0], "--image", image0, "--intrinsic",
+                           *map(str, intr), "--output", overlay_png, "--device", device]) == 0
+    walls["visualize_overlay"] = time.perf_counter() - t
+    t = time.perf_counter()
+    odom_out = os.path.join(work, f"vo_{device}.txt")
+    assert vo_interp.main(["--odometry", cfg.odometry_path, "--timestamps", stamps,
+                           "--output", odom_out, "--device", device]) == 0
+    walls["vo_interp"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ts_list = pick_tool.generate(pick_dir, cfg.images_folder, intr, dist,
+                                 os.path.join(work, "picks.html"), device=device)
+    walls["pick_tool"] = time.perf_counter() - t
+    launches = _read_counts()
+
+    # What the tools' run launched.
+    n_frames = len(TOOLS_CRACK_KEYFRAMES)
+    print(f"[{card}] tools path: launches {launches}")
+    if device == "cuda":
+        want = {"bin_pack": 1, "tap_take": 1, "nid_hist_fwd": 1, "nid_hist_bwd": 0,
+                "knn_select": n_frames}
+        assert all(launches[k] == v for k, v in want.items()), (want, launches)
+        assert launches["launches_by_n"]["nid_hist_fwd"] == {str(N_CULL): 1}, launches
+        others = [k for k, v in launches.items()
+                  if k not in want and isinstance(v, int) and v and not k.endswith("_calls")]
+        assert not others, (others, launches)
+    print(f"[{card}] tools path: nid_diagnostics on {os.path.basename(dump[0])}: "
+          f"{report['num_points']} points, {report['num_projected']} projected, NID "
+          f"{report['nid']!r}; wall {walls['nid_diagnostics']:.3f} s")
+    assert report["num_points"] == N_CULL and report["num_projected"] > N_CULL // 2, report
+
+    # nid_diagnostics against multi_nid_loss at K = 1 and against the twins.
+    _, _, kf = nid_diagnostics.keyframe(dump[0], image0, 16, device)
+    camera = cam.create_camera("pinhole", intr, (0,) * 5, WIDTH, HEIGHT, device)
+    with torch.no_grad():
+        multi = float(nid_mod.multi_nid_loss(camera, se3.identity(device), kf, 16))
+    assert multi == report["nid"], (multi, report["nid"])
+    kernels = (tap_gather.direct_take, tap_gather.pack_bins, nid_hist.joint_histogram)
+    tap_gather.direct_take = tap_gather.direct_take_plain
+    tap_gather.pack_bins = tap_gather.pack_bins_plain
+    nid_hist.joint_histogram = nid_hist.joint_histogram_plain
+    try:
+        twin = nid_diagnostics.analyze(dump[0], image0, 16, intr, device=device)
+    finally:
+        tap_gather.direct_take, tap_gather.pack_bins, nid_hist.joint_histogram = kernels
+    nid_twin = twin.pop("nid")
+    assert {k: v for k, v in report.items() if k != "nid"} == twin, (report, twin)
+    print(f"[{card}] tools path: nid_diagnostics NID {report['nid']!r} = multi_nid_loss at "
+          f"K = 1 {multi!r}; through the twins of B1 / G1 / K1 {nid_twin!r} (|diff| "
+          f"{abs(nid_twin - report['nid']):.3g})")
+    assert abs(nid_twin - report["nid"]) <= 1e-5, (nid_twin, report["nid"])
+    if device == "cuda":
+        _tools_kernel_times(card, camera, kf, pcd.read(dump[0]).points)
+
+    # crack_width: S1 against its twin, then the whole process through it.
+    with open(results) as f:
+        measured = json.load(f)
+    for j in TOOLS_CRACK_KEYFRAMES:
+        pts = torch.from_numpy(pcd.read(dump[j]).points).to(device)
+        idx, ok = crack_width.neighbors(pts)
+        n = pts.shape[0]
+        grid = knn.build(pts, torch.ones((n,), dtype=torch.bool, device=device), 0.1,
+                         max(2 * n, 1024), 64)
+        t_idx, _, t_ok = knn.chunked_radius_neighbors(grid, pts, pts, 0.1, 60, 16384)
+        assert torch.equal(idx, t_idx) and torch.equal(ok, t_ok), j
+        cnt = ok.sum(1).float()
+        print(f"[{card}] tools path: S1 on keyframe {j}'s {n} points: indices and flags "
+              f"bit-equal to its twin; in-radius neighbors median {float(cnt.median()):.0f}, "
+              f"{int((cnt < 3).sum())} points with fewer than 3")
+    search = knn.radius_search
+    knn.radius_search = lambda grid, p, q, r, k, chunk_size=65536, exclude_self=False, order=None: (
+        knn.chunked_radius_neighbors(grid, p, q, r, k, chunk_size, exclude_self))
+    try:
+        t = time.perf_counter()
+        with replay.run(replay=True):
+            twin_results = crack_width.process(twin_root, intr, dist, WIDTH, HEIGHT,
+                                               device=device)
+        twin_wall = time.perf_counter() - t
+    finally:
+        knn.radius_search = search
+    with open(twin_results) as f:
+        assert json.load(f) == measured
+    for ts in (stems[j] for j in TOOLS_CRACK_KEYFRAMES):
+        rel = os.path.join("norm_masks", f"{ts}_norm.png")
+        with open(os.path.join(crack_root, rel), "rb") as a, \
+                open(os.path.join(twin_root, rel), "rb") as b:
+            assert a.read() == b.read(), rel
+    widths = [m["crack_width_mm"] for m in measured if m["crack_width_mm"] is not None]
+    assert len(widths) >= 2 * n_frames, measured
+    host_s = walls["crack_width"] - sum(normals_s)
+    print(f"[{card}] tools path: crack_width on {n_frames} frames: {len(measured)} "
+          f"measurements, width median {np.median(widths):.2f} mm; wall "
+          f"{walls['crack_width']:.3f} s = normals on the {device} "
+          f"{', '.join(f'{s:.3f}' for s in normals_s)} s + host {host_s:.3f} s; results "
+          f"JSON and normal masks equal to the run through S1's twin ({twin_wall:.3f} s, "
+          "morphology replayed)")
+
+    # visualize: twice on the card, once on the CPU.
+    def run_overlay(dev):
+        with torch.no_grad():
+            return visualize.overlay(dump[0], image0, intr, device=dev).cpu()
+
+    a = run_overlay(device)
+    b = run_overlay(device)
+    assert torch.equal(a, b), "two overlays on the card differ"
+    c = run_overlay("cpu")
+    pts = torch.from_numpy(pcd.read(dump[0]).points)
+    uv = {}
+    for dev in (device, "cpu"):
+        px = cam.project(cam.create_camera("pinhole", intr, (0,) * 5, WIDTH, HEIGHT, dev),
+                         pts.to(dev))
+        uv[dev] = to_int32(px).cpu()
+    moved = torch.any(uv[device] != uv["cpu"], dim=1)
+    differ = torch.any(a != c, dim=-1)
+    touched = torch.zeros((HEIGHT, WIDTH), dtype=torch.bool)
+    for dev in (device, "cpu"):
+        u, v = uv[dev][moved, 0].long(), uv[dev][moved, 1].long()
+        inside = (u >= 0) & (u < WIDTH) & (v >= 0) & (v < HEIGHT)
+        touched[v[inside], u[inside]] = True
+    print(f"[{card}] tools path: visualize overlay {WIDTH}x{HEIGHT}, {pts.shape[0]} points: two "
+          f"{device} runs bit-equal; against the CPU run {int(differ.sum())} pixels differ, "
+          f"{int((differ & touched).sum())} of them under the {int(moved.sum())} points whose "
+          f"projected pixel differs between the devices, {int((differ & ~touched).sum())} "
+          f"elsewhere; largest difference {float((a - c).abs().max()):.3g}; wall "
+          f"{walls['visualize_overlay']:.3f} s (PNG write included)")
+
+    # vo_interp: the card's file against the CPU's.
+    cpu_out = os.path.join(work, "vo_cpu.txt")
+    assert vo_interp.main(["--odometry", cfg.odometry_path, "--timestamps", stamps,
+                           "--output", cpu_out, "--device", "cpu"]) == 0
+    with open(odom_out) as f1, open(cpu_out) as f2:
+        rows = [(a.split(), b.split()) for a, b in zip(f1.read().splitlines(),
+                                                     f2.read().splitlines())]
+    assert len(rows) == 71 and all(a[:4] == b[:4] for a, b in rows), "times / positions"
+    q_dev = np.asarray([a[4:] for a, _ in rows], np.float64)
+    q_cpu = np.asarray([b[4:] for _, b in rows], np.float64)
+    # The quaternions: the slerp's f32 arccos / sin on the card against the
+    # CPU's (times and positions are host f64, equal as text).
+    # A field may differ by 2 f32 ulp of its value and the 8th decimal's rounding.
+    diff = np.abs(q_dev - q_cpu)
+    ulp = np.spacing(np.maximum(np.abs(q_dev), np.abs(q_cpu)).astype(np.float32))
+    fields = int((diff > 0).sum())
+    print(f"[{card}] tools path: vo_interp 71 stamps: times and positions equal as text to the "
+          f"CPU run's; {fields} of {q_dev.size} quaternion fields differ, by at most "
+          f"{diff.max():.3g}; byte-equal {fields == 0}; wall {walls['vo_interp']:.3f} s")
+    assert (diff <= 2 * ulp.astype(np.float64) + 1.01e-8).all(), diff.max()
+    assert ts_list == [stems[0]], ts_list
+    print(f"[{card}] tools path: walls (s) " + json.dumps(
+        {k: round(v, 3) for k, v in walls.items()}))
+    return launches
+
+
+def _tools_kernel_times(card, camera, kf, points):
+    """Device times of the tools path's kernels on its own inputs (not
+    counted as its launches): B1, G1 and K1 at K = 1 on keyframe 0's dump
+    and image, S1 on its points as crack_width calls it; each beside its
+    bound, computed as the main path's records compute it."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.ops import knn, nid_hist, tap_gather
+    from pointcloudprocessor_tpu_torch.opt import nid as nid_mod
+    from pointcloudprocessor_tpu_torch.utils.numeric import to_int32
+
+    kp = nid_mod.prepare_keyframes(kf)
+    with torch.no_grad():
+        proj, knot, inl = nid_mod._project_all(camera, se3.identity("cuda"), kp)
+        s = (proj - knot.to(proj.dtype)).contiguous()
+        taps = tap_gather.direct_take(kp.bin_tiles, knot, WIDTH, HEIGHT)
+        bp = torch.clamp(to_int32(kp.intensity * 16), 0, 15)
+        il = inl.to(torch.float32)
+        hist = nid_hist.hist_fwd_cuda(taps, s, bp, il, 16)
+    n = knot.shape[1]
+    pts = torch.from_numpy(points).cuda()
+    grid = knn.build(pts, torch.ones((n,), dtype=torch.bool, device="cuda"), 0.1,
+                     max(2 * n, 1024), 64)
+    rows = {
+        "bin_pack": (lambda: tap_gather.pack_bins(kp.bin_image),
+                     _bound(_nbytes(kp.bin_image, kp.bin_tiles))),
+        "tap_take": (lambda: tap_gather.direct_take(kp.bin_tiles, knot, WIDTH, HEIGHT),
+                     _bound(2 * _nbytes(knot) + _window_pixels(knot, WIDTH, HEIGHT) / 2)),
+        "nid_hist_fwd": (lambda: nid_hist.hist_fwd_cuda(taps, s, bp, il, 16),
+                         _bound(_nbytes(taps, s, bp, il, hist), K1_OPS * n)),
+        "knn_select": (lambda: knn.knn_select_cuda(grid, pts, pts, 0.1, 60, order=grid.order),
+                       _s1_bound(grid, pts, 0.1, 60)[:2]),
+    }
+    for name, (fn, (b_ms, by)) in rows.items():
+        t = _device_ms(fn)
+        share = "not measured" if t is None else f"{b_ms / t:.3f}"
+        print(f"[{card}] tools path: {name} at K = 1, {n} points: device {_ms(t)} ms, a call "
+              f"{_ms(_median_ms(fn))} ms; bound {b_ms * 1e3:.2f} us ({by}), {share} of it")
+
+
+def _write_png(path, img):
+    try:
+        import cv2
+
+        cv2.imwrite(path, img)
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(img).save(path)
+
+
 DIST_PER_KEYFRAME = dict(max_outer_iterations=1, max_inner_iterations=10)
 DIST_COUNTS = ("nid_hist_fwd", "nid_hist_bwd", "tap_take", "bin_pack", "colorize_scatter",
                "colorize_update")
@@ -4410,6 +4804,8 @@ def main() -> int:
               f"{headline['colorize_fuse_s']:.3f} s vs {eager['colorize_fuse_s']:.3f} s; solve "
               f"peak memory {headline['solve_peak_mib']} vs {eager['solve_peak_mib']} MiB")
         assert all(same.values()), (headline, eager)
+        # The offline tools on the headline run's dumps and odometry.
+        tools_launches = phase_tools_path(card, root)
         camera, kfs = scene_keyframes(root)
         scene = phase_kernels_scene(card, camera, kfs)
         kernels += phase_direct_take(card, camera, kfs, T0)
@@ -4484,7 +4880,7 @@ def main() -> int:
              "recull_path": recull_launches, "cache_manual_path": cache_launches,
              "partial_solve_path": partial_launches,
              "wide_partial_solve_path": wide_partial_launches,
-             "distributed_path": dist_launches}
+             "distributed_path": dist_launches, "tools_path": tools_launches}
     own = {"hpr_support": "small_map_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
            "mls_moments": "mls_path", "knn_select": "mls_path", "wide_take": "cache_manual_path",
            "wide_select": "cache_manual_path", "tap_take_blocks": "partial_solve_path",

@@ -290,3 +290,44 @@ def delta_magnitudes(a: SE3, b: SE3) -> tuple[torch.Tensor, torch.Tensor]:
     `visual_camera_calibration.cpp:67-72`."""
     d = compose(inverse(a), b)
     return torch.linalg.norm(d.t, dim=-1), quat_angle(d.q)
+
+
+# ---------------------------------------------------------------------------
+# Trajectory interpolation (pose_interp.py semantics)
+# ---------------------------------------------------------------------------
+
+
+def interpolate_trajectory(
+    pose_times: torch.Tensor,
+    quats_wxyz: torch.Tensor,
+    positions: torch.Tensor,
+    query_times: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interpolate a pose track at query timestamps: slerp on rotation, lerp
+    on translation (`scripts/pose_interp.py:54-94`, JAX `se3.py:344-373`),
+    one vectorised bracket search + slerp for all queries.
+
+    The bracket search and the fraction run in the dtype of the times: f64
+    times stay f64 (epoch timestamps near 1.6e9 s lose whole milliseconds
+    in f32); the fraction is then cast to the positions' dtype. The
+    fraction divides by a tensor, an IEEE division on every device.
+
+    Args:
+        pose_times: (M,) ascending timestamps of the input track.
+        quats_wxyz: (M, 4) track quaternions.
+        positions: (M, 3) track positions.
+        query_times: (Q,) requested timestamps.
+
+    Returns:
+        (Q, 4) quaternions and (Q, 3) positions.
+    """
+    m = pose_times.shape[0]
+    upper = torch.clamp(torch.searchsorted(pose_times, query_times, right=True), 1, m - 1)
+    lower = upper - 1
+    t0 = pose_times[lower]
+    t1 = pose_times[upper]
+    dt = torch.clamp(t1 - t0, min=_EPS)
+    frac = torch.where(t1 > t0, (query_times - t0) / dt, torch.zeros_like(dt)).to(positions.dtype)
+    q = quat_slerp(quats_wxyz[lower], quats_wxyz[upper], frac)
+    p = (1.0 - frac)[..., None] * positions[lower] + frac[..., None] * positions[upper]
+    return quat_normalize(q), p

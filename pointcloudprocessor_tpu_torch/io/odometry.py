@@ -51,12 +51,13 @@ def write(path: str, traj: Trajectory) -> None:
             )
 
 
-def resample(traj: Trajectory, query_times: np.ndarray) -> Trajectory:
+def resample(traj: Trajectory, query_times: np.ndarray, device="cpu") -> Trajectory:
     """Interpolate the track at query timestamps (slerp + lerp).
 
     Bracket indices and fractions are computed in host float64 (epoch
     timestamps lose sub-second precision in f32); only the slerp runs in
-    f32. Queries outside the track span clamp to the ends."""
+    f32 torch, on ``device``. Queries outside the track span clamp to the
+    ends."""
     times = np.asarray(traj.times, np.float64)
     t = np.clip(np.asarray(query_times, np.float64), times[0], times[-1])
     upper = np.clip(np.searchsorted(times, t, side="right"), 1, len(times) - 1)
@@ -65,9 +66,9 @@ def resample(traj: Trajectory, query_times: np.ndarray) -> Trajectory:
     frac = np.where(dt > 0, (t - times[lower]) / np.maximum(dt, 1e-12), 0.0)
 
     q = se3.quat_normalize(se3.quat_slerp(
-        torch.as_tensor(traj.quats_wxyz[lower], dtype=torch.float32),
-        torch.as_tensor(traj.quats_wxyz[upper], dtype=torch.float32),
-        torch.as_tensor(frac, dtype=torch.float32),
+        torch.as_tensor(traj.quats_wxyz[lower], dtype=torch.float32, device=device),
+        torch.as_tensor(traj.quats_wxyz[upper], dtype=torch.float32, device=device),
+        torch.as_tensor(frac, dtype=torch.float32, device=device),
     ))
     p = (1.0 - frac)[:, None] * np.asarray(traj.positions[lower], np.float64) + frac[
         :, None
@@ -75,5 +76,5 @@ def resample(traj: Trajectory, query_times: np.ndarray) -> Trajectory:
     return Trajectory(
         times=np.asarray(query_times),
         positions=p.astype(np.float32),
-        quats_wxyz=q.numpy(),
+        quats_wxyz=q.cpu().numpy(),
     )

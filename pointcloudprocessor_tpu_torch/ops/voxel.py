@@ -1,4 +1,5 @@
-"""Voxel-grid ops: hashing, one point a voxel, per-voxel means.
+"""Voxel-grid ops: hashing, one point a voxel, per-voxel means, random
+sampling masks.
 
 Port of `pointcloudprocessor_tpu/ops/voxel.py`, the reference's spatial
 hash (`vector3i_hash.hpp:14-37`) and voxel-grid averaging
@@ -87,3 +88,88 @@ def voxel_average(
         (sum_val / denom.reshape((-1,) + (1,) * len(vshape)))[:-1],
         counts[:-1],
     )
+
+
+def _draws(n: int, device, generator, priorities, count: int):
+    """``count`` (N,) f32 uniform draws in [0, 1): the given ``priorities``
+    (JAX `jax.random.uniform` draws, say, so that a mask can be held to the
+    JAX package's), else fresh ones from ``generator`` on ``device``."""
+    if priorities is not None:
+        if len(priorities) != count:
+            raise ValueError(f"expected {count} priority arrays, got {len(priorities)}")
+        return [torch.as_tensor(p, dtype=torch.float32, device=device).reshape(n)
+                for p in priorities]
+    return [torch.rand((n,), generator=generator, device=device) for _ in range(count)]
+
+
+def randomgrid_sampling_mask(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    voxel_resolution: float,
+    sampling_rate: float,
+    table_size: int | None = None,
+    generator: torch.Generator | None = None,
+    priorities=None,
+) -> torch.Tensor:
+    """Budgeted per-voxel random sampling — `randomgrid_sampling`
+    (`frame_cpu.cpp:454-509`, JAX `voxel.py:90-141`) as a static-shape mask.
+
+    Per-voxel budget ``ceil(rate * N / n_voxels)`` (:484), voxels at or
+    under budget keep all points, over-budget voxels keep a uniform random
+    subset (:492-497), and a global cap of ``1.2 * rate * N`` trims by a
+    second uniform draw (:500-504); ``sampling_rate >= 0.99`` is a no-op
+    (:455-458). N counts the valid points.
+
+    The in-voxel ranking sorts by (voxel slot, priority), two stable sorts
+    for JAX's ``lexsort``. The priorities are two (N,) uniform draws from
+    ``generator`` on the points' device, or ``priorities`` = (pri, pri2)
+    given: torch and ``jax.random`` draw different numbers, so a caller
+    holding the mask to the JAX package's passes JAX's own draws."""
+    if sampling_rate >= 0.99:
+        return valid
+    n = points.shape[0]
+    dev = points.device
+    table_size = table_size or max(4 * n, 1024)
+    h = voxel_hash(voxel_coords(points, voxel_resolution), table_size).long()
+    h = torch.where(valid, h, table_size)  # invalid -> sink bucket
+    n_valid = torch.sum(valid.to(torch.int32))
+
+    occupied = torch.zeros((table_size + 1,), dtype=torch.int32, device=dev).scatter_reduce_(
+        0, h, valid.to(torch.int32), reduce="amax")
+    n_voxels = torch.clamp(torch.sum(occupied[:-1]), min=1)
+    rate = torch.tensor(sampling_rate, dtype=torch.float32, device=dev)
+    budget = torch.ceil(rate * n_valid.to(torch.float32) / n_voxels.to(torch.float32)).to(
+        torch.int32)
+
+    pri, pri2 = _draws(n, dev, generator, priorities, 2)
+    by_pri = torch.sort(pri, stable=True).indices
+    order = by_pri[torch.sort(h[by_pri], stable=True).indices]  # by voxel, then priority
+    h_sorted = h[order]
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    rank_sorted = pos - torch.searchsorted(h_sorted, h_sorted)  # rank within the voxel
+    rank = torch.zeros((n,), dtype=torch.int64, device=dev).scatter_(0, order, rank_sorted)
+    keep = valid & (rank < budget)
+
+    # Global cap: uniform re-draw down to 1.2*rate*N when over.
+    cap = torch.tensor(1.2 * sampling_rate, dtype=torch.float32, device=dev)
+    max_num = torch.floor(cap * n_valid.to(torch.float32)).to(torch.int64)
+    pri2 = torch.where(keep, pri2, torch.full_like(pri2, torch.inf))
+    kth = torch.sort(pri2).values[torch.clamp(max_num - 1, 0, n - 1)]
+    over = torch.sum(keep.to(torch.int64)) > max_num
+    return torch.where(over, keep & (pri2 <= kth), keep)
+
+
+def random_sampling_mask(valid: torch.Tensor, num_samples: int,
+                         generator: torch.Generator | None = None,
+                         priorities=None) -> torch.Tensor:
+    """Uniform random subset of valid points (mask with ~num_samples True)
+    — analogue of `random_sampling` (`frame_cpu.cpp:346-360`, JAX
+    `voxel.py:144-150`). The draw is an (N,) uniform from ``generator`` on
+    the mask's device, or ``priorities`` = (draw,) given (JAX's, say)."""
+    n = valid.shape[0]
+    dev = valid.device
+    n_valid = torch.clamp(torch.sum(valid.to(torch.int32)), min=1)
+    p = torch.clamp(torch.tensor(num_samples, dtype=torch.float32, device=dev)
+                    / n_valid.to(torch.float32), max=1.0)
+    (u,) = _draws(n, dev, generator, priorities, 1)
+    return valid & (u < p)

@@ -300,6 +300,47 @@ def nid_from_histograms(hist_joint, hist_image, hist_points, num):
     return (H_joint - MI) / torch.clamp(H_joint, min=1e-12)
 
 
+def nid_histograms(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3, kf: NIDKeyframe,
+                   bins: int = 16):
+    """Joint / marginal histograms of one keyframe under a candidate pose
+    (`nid.py:363-432`): (hist_joint (bins, bins), hist_image (bins,),
+    hist_points (bins,), num_inliers), unnormalized; :func:`nid_from_histograms`
+    divides by the inlier count (`nid_cost.hpp:95-99`).
+
+    ``kf`` holds one keyframe, unbatched (points (N, 3), bin_image (H, W)),
+    as the JAX function takes it, or a batch of one (K = 1, then every
+    result keeps its leading axis). It runs the objective's own path at K =
+    1: :func:`prepare_keyframes` packs the bin tiles (B1 ``bin_pack`` on the
+    card) without building the (H*W, 2) tap table, :func:`_gather_taps`
+    takes each point's window (G1 ``tap_take``), and
+    :func:`_histograms_from_taps` builds the joint (K1 ``nid_hist_fwd``; its
+    plain twin on the CPU). The joint comes out [point_bin, image_bin], the
+    kernel orientation; the JAX XLA branch's is [image_bin, point_bin], its
+    transpose. Bins above 16 are refused (:func:`check_bins`)."""
+    check_bins(bins)
+    single = kf.points.dim() == 2
+    if single:
+        kf = NIDKeyframe(
+            points=kf.points[None], intensity=kf.intensity[None], valid=kf.valid[None],
+            bin_image=kf.bin_image[None],
+            bin_tiles=None if kf.bin_tiles is None else kf.bin_tiles[None])
+    kf = prepare_keyframes(kf)
+    proj, knot, inl = _project_all(camera, T_camera_lidar, kf)
+    s = proj - knot.to(proj.dtype)
+    with torch.no_grad():
+        taps = _gather_taps(camera, kf, knot, inl)
+    bin_pts = torch.clamp(to_int32(kf.intensity * bins), 0, bins - 1)
+    hists = _histograms_from_taps(taps, s, bin_pts, inl.to(proj.dtype), bins)
+    return tuple(h[0] for h in hists) if single else hists
+
+
+def nid_loss(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3, kf: NIDKeyframe,
+             bins: int = 16) -> torch.Tensor:
+    """Scalar NID in [0, 1] of one keyframe, lower = better aligned
+    (`nid.py:909-919`); ``kf`` as :func:`nid_histograms` takes it."""
+    return nid_from_histograms(*nid_histograms(camera, T_camera_lidar, kf, bins))
+
+
 def multi_nid_loss(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
                    kfs: NIDKeyframe, bins: int = 16, use_grouped=None) -> torch.Tensor:
     """Sum of per-keyframe NIDs — `MultiNIDCost::operator()`

@@ -326,6 +326,8 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
     # 4. Culling + NID keyframe assembly (viewCullingAndSaveFilteredPcds).
     with timer.stage("culling"):
         kfs = build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir=filtered_dir)
+    metrics.log("cost_estimate_nid",
+                **profiling.nid_cost_estimate(cfg.culled_capacity, len(kf_idx), cfg.nid.bins))
 
     # 5. Optional NID pose refinement (applyNIDBasedPoseOptimization, :156-164).
     T_correction = se3.identity(device)
@@ -409,6 +411,9 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
             reference_compat_orientation=cfg.fusion.reference_compat_orientation,
             **_culling_kwargs(cfg),
         )
+    metrics.log("cost_estimate_colorize", **profiling.colorize_fuse_cost(
+        int(map_cloud.points.shape[0]), len(kf_idx), cfg.camera.height, cfg.camera.width,
+        cfg.fusion.top_k))
 
     # 6b. Optional spatial color smoothing (smoothColorsWithLocalRegion,
     # :634-703; JAX `runner.py:564-575`).

@@ -1,1 +1,22 @@
-"""Config tree, profiling, numeric helpers and numpy interop."""
+"""Config tree, profiling, numeric helpers, numpy interop, colormaps,
+console styling and headless visualization."""
+
+from .config import (
+    CameraConfig,
+    CullingConfig,
+    FusionConfig,
+    KeyframeConfig,
+    MLSConfig,
+    NIDConfig,
+    PipelineConfig,
+)
+
+__all__ = [
+    "CameraConfig",
+    "CullingConfig",
+    "FusionConfig",
+    "KeyframeConfig",
+    "MLSConfig",
+    "NIDConfig",
+    "PipelineConfig",
+]

@@ -12,10 +12,11 @@ profiling.py`:
 - :func:`median_ms` — the median CUDA-event time of a call on the card (as
   its caller pays it, or its device time alone), and
   :func:`card` — the card's name and power limit, which every such time
-  carries.
-
-The JAX module's byte/FLOP estimates are priced against TPU v5e peaks and
-are not carried over.
+  carries;
+- :func:`roofline` and the per-stage cost estimates (:func:`nid_cost_estimate`,
+  :func:`colorize_fuse_cost`, :func:`mls_cost_estimate`,
+  :func:`hpr_cost_estimate`): analytic operation and byte counts from array
+  shapes, the JAX module's formulas, placed against the H100's peaks.
 """
 
 from __future__ import annotations
@@ -126,6 +127,89 @@ def median_ms(fn, device, reps: int = 20, warmup: int = 3,
         if hidden or not hide_host:
             times.append(a.elapsed_time(b))
     return float(statistics.median(times)) if 2 * len(times) >= reps else None
+
+
+# ---------------------------------------------------------------------------
+# Per-stage byte/FLOP estimates + roofline positioning.
+#
+# Analytic counts from array shapes, the formulas of the JAX package's
+# `utils/profiling.py`, priced for the card this port runs on: NVIDIA H100
+# 80GB HBM3 (SXM), 700.00 W power limit, from NVIDIA's data sheet: 3.35 TB/s
+# of HBM3 and 67 TFLOP/s of f32 outside the tensor cores. A card set below
+# 700 W runs slower under load, so these are upper bounds of its rates.
+# ---------------------------------------------------------------------------
+
+H100_PEAK_F32_FLOPS = 6.7e13  # NVIDIA H100 80GB HBM3, 700.00 W
+H100_HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 80GB HBM3, 700.00 W
+
+
+def roofline(flops: float, bytes_moved: float,
+             peak_flops: float = H100_PEAK_F32_FLOPS,
+             peak_bw: float = H100_HBM_BYTES_PER_S) -> dict:
+    """Arithmetic intensity + bound classification + speed-of-light time."""
+    intensity = flops / max(bytes_moved, 1.0)
+    ridge = peak_flops / peak_bw
+    t_compute = flops / peak_flops
+    t_memory = bytes_moved / peak_bw
+    return {
+        "flops": flops,
+        "bytes": bytes_moved,
+        "intensity_flop_per_byte": round(intensity, 3),
+        "ridge_flop_per_byte": round(ridge, 1),
+        "bound": "compute" if intensity >= ridge else "memory",
+        "speed_of_light_s": round(max(t_compute, t_memory), 6),
+    }
+
+
+def nid_cost_estimate(n_points: int, k_frames: int, bins: int = 16,
+                      with_grad: bool = True) -> dict:
+    """One multi-keyframe NID evaluation (ops/nid_hist.py semantics).
+
+    Per point: project (~30 flops), spline weights (2x ~16), 16-tap
+    histogram accumulate (16 madd); the adjoint ~= the forward. Bytes:
+    points xyz + intensity + 16 nibble-packed taps (8 B) per point."""
+    per_point = 30 + 32 + 2 * 16
+    total = n_points * k_frames
+    flops = total * per_point * (2.0 if with_grad else 1.0)
+    bytes_moved = total * (12 + 4 + 8) * (2.0 if with_grad else 1.0)
+    return roofline(flops, bytes_moved)
+
+
+def colorize_fuse_cost(n_map: int, k_frames: int, height: int, width: int,
+                       top_k: int = 5) -> dict:
+    """Full fuse pass (pipeline/colorize.py): per keyframe per point
+    transform+project+score (~60 flops), one packed-int32 image gather, a
+    z-buffer scatter+gather, and a top-K register update (~3*top_k)."""
+    per_obs = 60 + 3 * top_k
+    flops = n_map * k_frames * per_obs
+    bytes_moved = (
+        k_frames * height * width * 4        # packed image build + gathers
+        + n_map * k_frames * (12 + 4 + 4 + 8)  # xyz in, rgb word, cell, topk rw
+    )
+    return roofline(flops, bytes_moved)
+
+
+def mls_cost_estimate(n_points: int, max_neighbors: int = 32) -> dict:
+    """One MLS pass (ops/mls.py): 27-cell hash probe, per-neighbor weighted
+    covariance (~25), 6x6 normal-equation build (~72) and solve (~200/pt)."""
+    per_point = 27 * 8 + max_neighbors * (25 + 72) + 200 + 36
+    flops = n_points * per_point
+    bytes_moved = n_points * (12 + max_neighbors * 16 + 12 + 24)
+    return roofline(flops, bytes_moved)
+
+
+def hpr_cost_estimate(n_points: int, impl: str = "grid",
+                      grid_size: int = 512, window: int = 16) -> dict:
+    """HPR cull (ops/hpr.py): dense = N^2 support products (3 madd a pair,
+    counted as 6 f32-equivalent passes as the JAX package counts them);
+    grid = O(N) scatter/gather + separable parabolic erosion."""
+    if impl == "dense":
+        flops = 6.0 * n_points * n_points * 2 * 3
+        bytes_moved = n_points * 16 * 2  # blocked: flipped + dirs stream
+    else:
+        flops = n_points * 40 + grid_size * grid_size * (2 * window + 1) * 2 * 2
+        bytes_moved = n_points * (12 + 4 + 4 + 4) + grid_size * grid_size * 4 * 4
+    return roofline(flops, bytes_moved)
 
 
 def card() -> str:
