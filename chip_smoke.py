@@ -77,6 +77,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tools/pick_tool`` on keyframe 0. Each tool's wall is printed with the
    card's name and power limit (crack_width's split into the normals on
    the card and the host's numpy stages).
+4c. The harness path (``phase_harnesses``), the launch counts set to 0
+   before and read after: the nine measurement harnesses of ``tools/``
+   (``nid_bisect``, ``nid_locality``, ``solver_sweep``,
+   ``frozen_guard_sweep``, ``mls_anatomy``, ``mls_dedup_probe``,
+   ``scaling_bench``, ``tap_cache_probe``, ``slab_gather_probe``), each its
+   ``main`` at full scale (4096x3000, 1M map points, 8 x 262,144 culled
+   points, the 1M-point MLS corner) with fewer repeats and sweep rows than
+   its defaults (``HARNESS_ARGS``), printing its rows. Fails unless
+   nid_bisect's value+grad equals ``multi_nid_loss`` at the same pose bit
+   for bit, nid_locality's grouped, streamed and direct value+grad chains
+   agree bit for bit, mls_dedup_probe's two plain passes (and M1 with and
+   without dedup) are bit-identical, tap_cache_probe's partial and full
+   refreshes give the same losses, slab_gather_probe's spans on the card
+   equal the CPU's on the same anchors and scaling_bench's world of 1 over
+   NCCL is bit-equal to the serial solve and fuse. Prints each harness's
+   wall and the path's launches.
 5. G1 and its packer (``phase_direct_take``) on the scene's keyframes in
    map order, as the headline's solve takes them: ``bin_pack`` bit-equal
    to its twin (also at 4095x2999, 1x1, 9x8, 13x21 and 97x401 and on an
@@ -326,7 +342,8 @@ run (each also carries the other paths' counts as ``launches_<path>``:
 the per-keyframe path's as ``launches_per_keyframe_path``, the re-cull
 path's as ``launches_recull_path``, the distributed path's sharded runs'
 as ``launches_distributed_path``, the tools path's as
-``launches_tools_path``), G2's and W1's those of the cache
+``launches_tools_path``, the harness path's as
+``launches_harness_path``), G2's and W1's those of the cache
 options + manual guess run, G1's block form's those of the partial-refresh
 solve of phase 6b and G2's block form's those of its margin-2 solve with
 no coarse phase (each asserted at least 1). G2, W1 and the block forms
@@ -4294,6 +4311,68 @@ def phase_tools(device="cuda"):
         assert anatomy["full"] is not None and anatomy["full_plain"] is not None, anatomy
 
 
+# The harness path's arguments a harness: the full scale with fewer repeats
+# (and fewer sweep rows) than the harnesses' defaults, to fit the smoke's
+# time; the harnesses' own runs give the full rows.
+HARNESS_ARGS = {
+    "nid_bisect": ["--reps", "3", "--split-reps", "5"],
+    "nid_locality": ["--reps", "3"],
+    "solver_sweep": ["--ftols", "0,3e-4", "--reps", "1"],
+    "frozen_guard_sweep": ["--guards", "0.75,1.0", "--reps", "1"],
+    "mls_anatomy": ["--reps", "1"],
+    "mls_dedup_probe": ["--reps", "1"],
+    "scaling_bench": [],
+    "tap_cache_probe": ["--reps", "5"],
+    "slab_gather_probe": ["--reps", "3"],
+}
+
+
+def phase_harnesses(card, device="cuda"):
+    """The harness path (phase 4c): the nine measurement harnesses of
+    ``tools/`` (each ``main``, printing its rows) at full scale on the card
+    (``--quick`` off it), the launch counts set to 0 before and read after.
+    Checks, each failing the run: nid_bisect's value+grad equals
+    ``multi_nid_loss`` at the same pose bit for bit; nid_locality's grouped,
+    streamed and direct value+grad chains agree bit for bit; mls_dedup_probe's
+    two plain passes (and M1 with and without dedup) are bit-identical;
+    tap_cache_probe's partial and full refreshes give the same losses;
+    slab_gather_probe's spans on the card equal the CPU's on the same
+    anchors; scaling_bench at a world of 1 (NCCL) is bit-equal to the serial
+    solve and fuse. Returns the launch counts."""
+    import importlib
+
+    _reset_counts()
+    walls = {}
+    out = {}
+    for name, extra in HARNESS_ARGS.items():
+        mod = importlib.import_module(f"pointcloudprocessor_tpu_torch.tools.{name}")
+        argv = ["--device", device, *extra] + ([] if device == "cuda" else ["--quick"])
+        if name == "scaling_bench" and device != "cuda":
+            argv = ["--device", device, "--keyframes", "2", "--points", "2048", "--width",
+                    "128", "--height", "96", "--inner", "3", "--outer", "1"]
+        t0 = time.perf_counter()
+        out[name] = mod.main(argv)
+        walls[name] = time.perf_counter() - t0
+    counts = _read_counts()
+    print(f"[{card}] harness path walls (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; total {sum(walls.values()):.1f}")
+    print(f"[{card}] harness path launches: "
+          + json.dumps({k: v for k, v in counts.items() if k != "launches_by_n" and v}))
+    bis, loc = out["nid_bisect"], out["nid_locality"]
+    assert bis["value_grad_equals_multi_nid_loss"], bis
+    assert loc["acc_grouped"] == loc["acc_streamed"] == loc["acc_direct"], loc
+    dedup = out["mls_dedup_probe"]
+    assert dedup["exact"] and dedup.get("m1_dedup_exact", device != "cuda"), dedup
+    tap = out["tap_cache_probe"]
+    assert tap["refresh_0.1px_losses_equal"] and tap["refresh_0.33px_losses_equal"], tap
+    assert out["slab_gather_probe"]["spans_cpu_equal"], out["slab_gather_probe"]
+    assert out["scaling_bench"] == 0, "scaling_bench: the world of 1 differs from serial"
+    if device == "cuda":
+        assert bis["value_grad_launches"] and bis["value_grad_wall_ms"], bis
+    return counts
+
+
 # The crack_width phase: the keyframes whose dumps it measures, and the
 # synthetic crack each carries (a band across the wall: the host's numpy
 # skeleton and structure tensor cost ~5 and ~2.5 s a 4096x3000 frame).
@@ -4806,6 +4885,8 @@ def main() -> int:
         assert all(same.values()), (headline, eager)
         # The offline tools on the headline run's dumps and odometry.
         tools_launches = phase_tools_path(card, root)
+        # The nine measurement harnesses at full scale.
+        harness_launches = phase_harnesses(card)
         camera, kfs = scene_keyframes(root)
         scene = phase_kernels_scene(card, camera, kfs)
         kernels += phase_direct_take(card, camera, kfs, T0)
@@ -4880,7 +4961,8 @@ def main() -> int:
              "recull_path": recull_launches, "cache_manual_path": cache_launches,
              "partial_solve_path": partial_launches,
              "wide_partial_solve_path": wide_partial_launches,
-             "distributed_path": dist_launches, "tools_path": tools_launches}
+             "distributed_path": dist_launches, "tools_path": tools_launches,
+             "harness_path": harness_launches}
     own = {"hpr_support": "small_map_path", "hpr_grid": "hpr_path", "smooth_local": "hpr_path",
            "mls_moments": "mls_path", "knn_select": "mls_path", "wide_take": "cache_manual_path",
            "wide_select": "cache_manual_path", "tap_take_blocks": "partial_solve_path",

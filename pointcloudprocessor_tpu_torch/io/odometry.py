@@ -4,7 +4,8 @@ PyTorch port of `pointcloudprocessor_tpu/io/odometry.py`: the pipeline's
 ``ts x y z qw qx qy qz`` odometry input (parsed by the reference at
 `PointCloudProcessor.cpp:970-978`) and the VO resampling of
 `scripts/make_vo_odom_for_fastlio.py:50-188`. Host-side numpy, with the
-slerp in f32 torch on the CPU.
+slerp in f32 torch on the device (the card unless the caller asks for the
+CPU), and :func:`poses`, a track's batched SE3 on the device.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def write(path: str, traj: Trajectory) -> None:
             )
 
 
-def resample(traj: Trajectory, query_times: np.ndarray, device="cpu") -> Trajectory:
+def resample(traj: Trajectory, query_times: np.ndarray, device="cuda") -> Trajectory:
     """Interpolate the track at query timestamps (slerp + lerp).
 
     Bracket indices and fractions are computed in host float64 (epoch
@@ -78,3 +79,24 @@ def resample(traj: Trajectory, query_times: np.ndarray, device="cpu") -> Traject
         positions=p.astype(np.float32),
         quats_wxyz=q.cpu().numpy(),
     )
+
+
+def _fma_norm(q: torch.Tensor) -> torch.Tensor:
+    """(..., 1) f32 norms of the last axis as XLA computes
+    ``jnp.linalg.norm`` on the CPU: a chain of fused multiply-adds of the
+    squares, then a correctly rounded square root (each step in f64, where
+    an f32 product is exact, and rounded to f32)."""
+    q64 = q.to(torch.float64)
+    s = (q64[..., 0] * q64[..., 0]).to(torch.float32)
+    for i in range(1, q.shape[-1]):
+        s = (s.to(torch.float64) + q64[..., i] * q64[..., i]).to(torch.float32)
+    return torch.sqrt(s.to(torch.float64)).to(torch.float32)[..., None]
+
+
+def poses(traj: Trajectory, device="cuda") -> se3.SE3:
+    """Batched SE3 (camera/body -> world) of the track on ``device``, its
+    quaternions normalized (JAX `odometry.py:89-94`), bit for bit as the
+    JAX package normalizes them."""
+    q = torch.as_tensor(traj.quats_wxyz, dtype=torch.float32, device=device)
+    return se3.SE3(q=q / _fma_norm(q),
+                   t=torch.as_tensor(traj.positions, dtype=torch.float32, device=device))

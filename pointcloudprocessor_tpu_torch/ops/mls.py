@@ -311,19 +311,23 @@ def mls_pass_plain(points, valid, *, search_radius, sqr_gauss_param, polynomial_
                    max_neighbors=32, dedup_candidates=True):
     """The plain version of the MLS pass (JAX ``_mls_smooth_jit``,
     mls.py:334-458): the grid with ``bucket_points``, then chunks of
-    ``chunk_size`` queries, each fetched, fitted and projected. With
-    ``dedup_candidates`` (moments only) the queries go in cell order and
-    each chunk fetches one window a run of equal cells, or each query's
-    own where it holds more than ``chunk_size // 4`` runs or the cloud
-    exceeds :func:`knn.pack_cell_key`'s extent; the candidates, and so the
-    results, are the same either way. Returns (positions, normals,
-    MLSSurface, in-radius counts), all in point order."""
+    ``chunk_size`` queries, each fetched, fitted and projected. The
+    moments pass takes the queries in cell order; with
+    ``dedup_candidates`` each chunk fetches one window a run of equal
+    cells, or each query's own where it holds more than ``chunk_size // 4``
+    runs or the cloud exceeds :func:`knn.pack_cell_key`'s extent; the
+    candidates, and so the results, are the same either way. Only the fetch
+    differs, so a point's row has the same place in the same chunk with and
+    without dedup: the two agree bit for bit on the card too, where torch's
+    reduction over a row starts at its 16-byte alignment. Returns
+    (positions, normals, MLSSurface, in-radius counts), all in point
+    order."""
     n = points.shape[0]
     grid = knn.build(points, valid, search_radius, table_size, bucket_capacity,
                      store_points=True)
     run_cap = chunk_size // 4
     dedup = bool(dedup_candidates) and fit_impl == "moments"
-    if dedup:
+    if fit_impl == "moments":
         order, keys, fits = _cell_order(points, valid, search_radius, table_size)
         queries = points[order]
     else:

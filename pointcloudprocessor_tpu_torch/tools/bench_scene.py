@@ -1,14 +1,20 @@
-"""The benchmark scene of `bench.py:101-254` (scene 1), for the port.
+"""The benchmark scenes of `bench.py:101-254`, for the port.
 
-A textured wall at z = 6 m and an occluding slab at z = 2.5 m, seen by K
-keyframes that step along +x and yaw from -4 to 4 degrees, with a planted
-odometry error T0 (`bench.py:734-749`). `bench.py` builds it with jax; this
-module builds it without: the map and the trajectory are drawn with numpy
-from a seed (so that `chip_smoke.py`'s on-disk scene and :func:`build` are
-one scene), the keyframe images are ray-cast with torch on the device.
+Scene 1: a textured wall at z = 6 m and an occluding slab at z = 2.5 m,
+seen by K keyframes that step along +x and yaw from -4 to 4 degrees, with a
+planted odometry error T0 (`bench.py:734-749`). Scene 2 (`bench.py:60-99`)
+slopes the wall in depth (z = 6 + 0.35 x), gives it a broader texture, moves
+the occluder to the left at z = 3 m and pitches the keyframes from -1.5 to
+1.5 degrees as well. `bench.py` builds them with jax; this module builds
+them without: the map and the trajectory are drawn with numpy from a seed
+(so that `chip_smoke.py`'s on-disk scene and :func:`build` are one scene),
+the keyframe images are ray-cast with torch on the device, and
+:func:`nid_keyframes` culls each keyframe's points analytically as
+`bench.py:223-254` does.
 
     scene = build(device="cuda")             # 4096x3000, 1M points, 8 keyframes
-    scene = build(512, 384, 100_000, 4, "cpu")
+    scene = build(512, 384, 100_000, 4, "cpu", scene=2)
+    kfs = nid_keyframes(scene, 262_144)      # opt/nid.NIDKeyframe, camera frame
 
 :func:`mls_scene` is the MLS bench's hardened corner (`bench.py:553-578`),
 :func:`e2e_config` the e2e pipeline config, MLS on or off (`bench.py:766-806`).
@@ -31,6 +37,12 @@ WALL_Z, OCC_Z = 6.0, 2.5
 OCC_X, OCC_Y = (0.3, 1.5), (-0.6, 0.6)
 T0_TANGENT = (0.02, -0.01, 0.01, 0.004, -0.002, 0.004)
 SEED = 0
+# Scene 2 (`bench.py:68-71`): the wall's depth slope, the occluder's depth
+# and extent.
+S2_SLOPE = 0.35
+S2_OCC_Z = 3.0
+S2_OCC_X = (-1.6, -0.4)
+S2_OCC_Y = (-0.5, 0.7)
 
 
 def focal(width: int) -> float:
@@ -47,10 +59,52 @@ def field_occ(mod, x, y):
     return mod.clip(0.5 + 0.25 * mod.sin(13.0 * x + 1.0) + 0.25 * mod.cos(11.0 * y + 2.0), 0.0, 1.0)
 
 
-def scene_map(n_map: int = N_MAP, width: int = WIDTH, height: int = HEIGHT, seed: int = SEED):
+def field_wall2(mod, x, y):
+    """Scene 2's wall texture in [0, 1] (`bench.py:82-92`): three
+    frequencies and a cross term; ``mod`` is numpy or torch."""
+    return mod.clip(
+        0.5
+        + 0.18 * mod.sin(5.2 * x + 0.7)
+        + 0.12 * mod.cos(11.7 * y)
+        + 0.10 * mod.sin(23.0 * x + 3.0 * y)
+        + 0.05 * mod.cos(41.0 * y + 1.0),
+        0.0,
+        1.0,
+    )
+
+
+def field_occ2(mod, x, y):
+    """Scene 2's occluder texture in [0, 1] (`bench.py:95-98`)."""
+    return mod.clip(0.5 + 0.2 * mod.sin(17.0 * x) + 0.2 * mod.cos(8.0 * y + 0.5), 0.0, 1.0)
+
+
+class Geometry(NamedTuple):
+    """What tells the scenes apart (`bench.py:121-126, 154-155`)."""
+
+    slope: float  # the wall's depth z = WALL_Z + slope * x
+    occ_z: float
+    occ_x: tuple
+    occ_y: tuple
+    field_wall: object
+    field_occ: object
+    margin_y: float  # the wall's vertical margin past the view
+    pitch_deg: float  # the keyframes pitch from -pitch_deg to pitch_deg
+
+
+def geometry(scene: int) -> Geometry:
+    if scene == 1:
+        return Geometry(0.0, OCC_Z, OCC_X, OCC_Y, field_wall, field_occ, 0.2, 0.0)
+    if scene == 2:
+        return Geometry(S2_SLOPE, S2_OCC_Z, S2_OCC_X, S2_OCC_Y, field_wall2, field_occ2, 0.4, 1.5)
+    raise ValueError(f"bench scene {scene}: 1 or 2")
+
+
+def scene_map(n_map: int = N_MAP, width: int = WIDTH, height: int = HEIGHT, seed: int = SEED,
+              scene: int = 1):
     """(n_map, 3) f32 points, 7/8 on the wall (spanning every keyframe's
     view with a margin) and 1/8 on the occluder, and their f32 intensities
     (the textures at the points)."""
+    g = geometry(scene)
     rng = np.random.default_rng(seed)
     f_px = focal(width)
     n_occ = n_map // 8
@@ -58,25 +112,34 @@ def scene_map(n_map: int = N_MAP, width: int = WIDTH, height: int = HEIGHT, seed
     half_x = (width / 2.0) / f_px * WALL_Z
     half_y = (height / 2.0) / f_px * WALL_Z
     wx = rng.uniform(-half_x - 0.6, half_x + 1.6, n_wall).astype(np.float32)
-    wy = rng.uniform(-half_y - 0.2, half_y + 0.2, n_wall).astype(np.float32)
-    ox = rng.uniform(OCC_X[0], OCC_X[1], n_occ).astype(np.float32)
-    oy = rng.uniform(OCC_Y[0], OCC_Y[1], n_occ).astype(np.float32)
+    wy = rng.uniform(-half_y - g.margin_y, half_y + g.margin_y, n_wall).astype(np.float32)
+    ox = rng.uniform(g.occ_x[0], g.occ_x[1], n_occ).astype(np.float32)
+    oy = rng.uniform(g.occ_y[0], g.occ_y[1], n_occ).astype(np.float32)
+    wz = WALL_Z + g.slope * wx  # slope 0: exactly WALL_Z
     points = np.concatenate([
-        np.stack([wx, wy, np.full_like(wx, WALL_Z)], -1),
-        np.stack([ox, oy, np.full_like(ox, OCC_Z)], -1),
+        np.stack([wx, wy, wz], -1),
+        np.stack([ox, oy, np.full_like(ox, g.occ_z)], -1),
     ])
-    inten = np.concatenate([field_wall(np, wx, wy), field_occ(np, ox, oy)]).astype(np.float32)
+    inten = np.concatenate([g.field_wall(np, wx, wy), g.field_occ(np, ox, oy)]).astype(np.float32)
     return points, inten
 
 
-def scene_trajectory(k: int = K):
+def scene_trajectory(k: int = K, scene: int = 1):
     """Keyframe poses P_i (wxyz quaternions and positions, f32): +x
-    translation of 0.12 m a keyframe, yaw about y from -4 to 4 degrees."""
+    translation of 0.12 m a keyframe, yaw about y from -4 to 4 degrees;
+    scene 2 also pitches about x, q = qy(yaw) qx(pitch) (`bench.py:137-148`)."""
     kf_x = 0.12 * np.arange(k, dtype=np.float32)
     yaw = np.radians(np.linspace(-4.0, 4.0, k)).astype(np.float32)
-    quats = np.stack(
-        [np.cos(yaw / 2), np.zeros_like(yaw), np.sin(yaw / 2), np.zeros_like(yaw)], -1
-    ).astype(np.float32)
+    if scene == 1:
+        quats = np.stack(
+            [np.cos(yaw / 2), np.zeros_like(yaw), np.sin(yaw / 2), np.zeros_like(yaw)], -1
+        ).astype(np.float32)
+    else:
+        span = geometry(scene).pitch_deg
+        pitch = np.radians(np.linspace(-span, span, k)).astype(np.float32)
+        cy_, sy_ = np.cos(yaw / 2), np.sin(yaw / 2)
+        cx_, sx_ = np.cos(pitch / 2), np.sin(pitch / 2)
+        quats = np.stack([cy_ * cx_, cy_ * sx_, sy_ * cx_, -sy_ * sx_], -1).astype(np.float32)
     positions = np.stack([kf_x, np.zeros_like(kf_x), np.zeros_like(kf_x)], -1)
     return quats, positions
 
@@ -89,9 +152,14 @@ def scene_odometry(k: int = K):
     return T0, se3.compose(se3.SE3(torch.from_numpy(quats), torch.from_numpy(positions)), T0)
 
 
-def render_gray(q: torch.Tensor, t: torch.Tensor, width: int, height: int) -> torch.Tensor:
+def render_gray(q: torch.Tensor, t: torch.Tensor, width: int, height: int,
+                scene: int = 1) -> torch.Tensor:
     """(height, width) uint8 image of the scene from the camera at pose
-    (q wxyz, t), ray-cast off the occluder and the wall, on q's device."""
+    (q wxyz, t), ray-cast off the occluder and the wall, on q's device. The
+    ray meets the wall z = WALL_Z + slope x at s = (WALL_Z + slope t_x -
+    t_z) / (d_z - slope d_x) (`bench.py:180-206`; scene 1's slope 0 adds and
+    subtracts exact zeros)."""
+    g = geometry(scene)
     f_px = focal(width)
     dev = q.device
     uu = ((torch.arange(width, dtype=torch.float32, device=dev) - width / 2.0) / f_px)[None, :]
@@ -100,12 +168,12 @@ def render_gray(q: torch.Tensor, t: torch.Tensor, width: int, height: int) -> to
     dx = uu * R[0, 0] + vv * R[0, 1] + R[0, 2]
     dy = uu * R[1, 0] + vv * R[1, 1] + R[1, 2]
     dz = uu * R[2, 0] + vv * R[2, 1] + R[2, 2]
-    s_occ = (OCC_Z - t[2]) / dz
+    s_occ = (g.occ_z - t[2]) / dz
     hx, hy = t[0] + s_occ * dx, t[1] + s_occ * dy
-    hit = (hx >= OCC_X[0]) & (hx <= OCC_X[1]) & (hy >= OCC_Y[0]) & (hy <= OCC_Y[1])
-    s_wall = (WALL_Z - t[2]) / dz
-    gray = torch.where(hit, field_occ(torch, hx, hy),
-                       field_wall(torch, t[0] + s_wall * dx, t[1] + s_wall * dy))
+    hit = (hx >= g.occ_x[0]) & (hx <= g.occ_x[1]) & (hy >= g.occ_y[0]) & (hy <= g.occ_y[1])
+    s_wall = (WALL_Z + g.slope * t[0] - t[2]) / (dz - g.slope * dx)
+    gray = torch.where(hit, g.field_occ(torch, hx, hy),
+                       g.field_wall(torch, t[0] + s_wall * dx, t[1] + s_wall * dy))
     return (gray * 255.0).to(torch.uint8)
 
 
@@ -117,21 +185,22 @@ class BenchScene(NamedTuple):
     valid: torch.Tensor  # (N,) bool
     images: torch.Tensor  # (K, H, W, 3) uint8 RGB (gray in all three channels)
     T0: se3.SE3  # the planted odometry error
+    scene: int = 1  # bench.py's scene number
 
 
 def build(width: int = WIDTH, height: int = HEIGHT, n_map: int = N_MAP, k: int = K,
-          device="cuda", seed: int = SEED) -> BenchScene:
-    """The scene on ``device``: the map and the true poses from the seed,
-    the K images rendered there."""
+          device="cuda", seed: int = SEED, scene: int = 1) -> BenchScene:
+    """Scene ``scene`` (1 or 2) on ``device``: the map and the true poses
+    from the seed, the K images rendered there."""
     f_px = focal(width)
     camera = cam.create_camera("pinhole", (f_px, f_px, width / 2.0, height / 2.0), (0.0,) * 5,
                                width, height, device)
-    points, inten = scene_map(n_map, width, height, seed)
-    quats, positions = scene_trajectory(k)
+    points, inten = scene_map(n_map, width, height, seed, scene)
+    quats, positions = scene_trajectory(k, scene)
     poses = se3.SE3(torch.from_numpy(quats).to(device), torch.from_numpy(positions).to(device))
     images = torch.stack([
-        render_gray(poses.q[i], poses.t[i], width, height)[..., None].expand(height, width, 3)
-        for i in range(k)
+        render_gray(poses.q[i], poses.t[i], width, height, scene)[..., None]
+        .expand(height, width, 3) for i in range(k)
     ]).contiguous()
     T0, _ = scene_odometry(k)
     return BenchScene(
@@ -142,6 +211,62 @@ def build(width: int = WIDTH, height: int = HEIGHT, n_map: int = N_MAP, k: int =
         valid=torch.ones((n_map,), dtype=torch.bool, device=device),
         images=images,
         T0=se3.SE3(T0.q.to(device), T0.t.to(device)),
+        scene=scene,
+    )
+
+
+def keyframe_rank(n_map: int, kf: int, seed: int = SEED) -> torch.Tensor:
+    """(n_map,) f32 uniform draws in [0, 1) from a CPU generator seeded
+    with ``seed + kf``: the cull's random priority (bench.py draws it from
+    ``PRNGKey(kf)``)."""
+    g = torch.Generator().manual_seed(seed + kf)
+    return torch.rand((n_map,), generator=g, dtype=torch.float32)
+
+
+def nid_keyframes(scene: BenchScene, n_cull: int = N_CULL, rank: torch.Tensor | None = None,
+                  seed: int = SEED):
+    """The NID solve's keyframes, culled analytically as `bench.py:223-254`
+    culls them: for keyframe i, the map in its camera frame at the true
+    pose, visible where it projects into the image at z > 0 and, for a
+    point behind the occluder's plane, where its ray to the camera misses
+    the occluder; then the ``n_cull`` points of highest ``rank + visible``
+    (visible points first, ties to the lower index: a stable sort, as
+    ``jnp.argsort``), in that order. ``rank`` (K, n_map) f32 in [0, 1)
+    gives each keyframe's priorities (a test passes JAX's draws); None
+    draws them with :func:`keyframe_rank`. Returns ``opt/nid.NIDKeyframe``
+    with the camera-frame points, their intensities and the bin images of
+    the rendered frames (16 bins), on the scene's device; a solve from
+    ``scene.T0`` should return to the identity."""
+    from ..opt import nid
+
+    g = geometry(scene.scene)
+    camera, pts, dev = scene.camera, scene.points, scene.points.device
+    k, n_map = scene.images.shape[0], pts.shape[0]
+    f_px, w, h = float(camera.intrinsic[0]), camera.width, camera.height
+    kf_pts, kf_int = [], []
+    for i in range(k):
+        t = scene.poses.t[i]
+        R = se3.quat_to_matrix(scene.poses.q[i])
+        pc = (pts - t[None, :]) @ R  # R^T applied to rows
+        u = f_px * pc[:, 0] / pc[:, 2] + w / 2.0
+        v = f_px * pc[:, 1] / pc[:, 2] + h / 2.0
+        inb = (pc[:, 2] > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        s = (g.occ_z - t[2]) / (pts[:, 2] - t[2])
+        cx = t[0] + s * (pts[:, 0] - t[0])
+        cy = t[1] + s * (pts[:, 1] - t[1])
+        shadowed = ((pts[:, 2] > g.occ_z + 0.1) & (cx >= g.occ_x[0]) & (cx <= g.occ_x[1])
+                    & (cy >= g.occ_y[0]) & (cy <= g.occ_y[1]))
+        r = keyframe_rank(n_map, i, seed) if rank is None else rank[i]
+        key = r.to(dev) + (inb & ~shadowed).to(torch.float32)
+        sel = torch.sort(-key, stable=True).indices[:n_cull]
+        kf_pts.append(pc[sel])
+        kf_int.append(scene.intensity[sel])
+    gray = scene.images[..., 0].to(torch.float32)
+    return nid.NIDKeyframe(
+        points=torch.stack(kf_pts),
+        intensity=torch.stack(kf_int),
+        valid=torch.ones((k, n_cull), dtype=torch.bool, device=dev),
+        bin_image=nid.quantize_image(gray / torch.tensor(255.0, device=dev), 16),
     )
 
 
@@ -337,3 +462,14 @@ def e2e_config(root: str, nid, enable_mls: bool = False, width: int = WIDTH,
         mls=cfg_mod.MLSConfig(upsampling="none"),
         nid=nid,
     )
+
+
+def nid_scene(width: int = WIDTH, height: int = HEIGHT, n_map: int = N_MAP,
+              n_cull: int = N_CULL, k: int = K, device="cuda", scene: int = 1,
+              seed: int = SEED):
+    """(camera, keyframes with their packed bin tiles, T0): bench.py's
+    ``build_bench_scene(...)[0, 6, 7]`` for the solve harnesses."""
+    from ..opt import nid
+
+    s = build(width, height, n_map, k, device, seed, scene)
+    return s.camera, nid.prepare_keyframes(nid_keyframes(s, n_cull, seed=seed)), s.T0

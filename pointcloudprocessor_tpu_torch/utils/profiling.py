@@ -7,10 +7,12 @@ profiling.py`:
   only after the CUDA device has finished its queued work, so the time is
   execution, not enqueue;
 - :func:`trace` — a torch.profiler capture (CPU + CUDA activities) written
-  as a Chrome trace;
+  as a Chrome trace, and :func:`annotate` — a named region inside one;
 - :class:`MetricsLogger` — append-only JSONL metrics, one object per event;
 - :func:`median_ms` — the median CUDA-event time of a call on the card (as
-  its caller pays it, or its device time alone), and
+  its caller pays it, or its device time alone), :func:`repeat_ms` — each
+  call's time with its median and spread, :func:`eval_split` — where a
+  call's time goes (wall, host, device busy, launches, host syncs), and
   :func:`card` — the card's name and power limit, which every such time
   carries;
 - :func:`roofline` and the per-stage cost estimates (:func:`nid_cost_estimate`,
@@ -72,6 +74,15 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region of a :func:`trace` (or any torch.profiler capture):
+    ``torch.profiler.record_function``, so the trace shows the stage under
+    ``name``. Outside a capture it records nothing."""
+    with torch.profiler.record_function(name):
+        yield
+
+
 class MetricsLogger:
     """Append-only JSONL metrics: one `{"ts": ..., "event": ..., **fields}`
     object per line. Pass ``path=None`` (or "") to disable."""
@@ -127,6 +138,103 @@ def median_ms(fn, device, reps: int = 20, warmup: int = 3,
         if hidden or not hide_host:
             times.append(a.elapsed_time(b))
     return float(statistics.median(times)) if 2 * len(times) >= reps else None
+
+
+def floor_ms(nbytes: float) -> float:
+    """The time to move ``nbytes`` once at the card's memory rate (3.35
+    TB/s): no honest time of work that moves them can be smaller."""
+    return nbytes / H100_HBM_BYTES_PER_S * 1e3
+
+
+def repeat_ms(fn, device, reps: int = 3, warmup: int = 1, floor: float = 0.0) -> dict:
+    """Each of ``reps`` calls of ``fn()`` timed with CUDA events after
+    ``warmup`` calls, as its caller pays it (host included; a call that
+    waits on the card is timed to its end): ``{"ms": median, "calls_ms":
+    [...], "spread_ms": max - min, "below_floor": bool}``. A median under
+    ``floor`` ms cannot be real: it is given as None with ``below_floor``
+    set. Off the card ``fn`` runs once and every time is None."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return {"ms": None, "calls_ms": [], "spread_ms": None, "below_floor": False}
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    med = float(statistics.median(times))
+    below = med < floor
+    return {"ms": None if below else med, "calls_ms": times,
+            "spread_ms": max(times) - min(times), "below_floor": below}
+
+
+def eval_split(fn, device, reps: int = 5, warmup: int = 1) -> dict:
+    """Where a call of ``fn()`` spends its time on the card, a call, over
+    ``reps`` calls after ``warmup``: ``wall_ms`` (host clock from the call
+    to the card's end of its work, median), ``host_ms`` (host clock until
+    the call returns, median: the time to queue it, and to wait at its host
+    syncs), and from one ``torch.profiler`` capture of ``reps`` calls
+    ``device_busy_ms`` (the union of the card's kernel, memset and copy
+    intervals), ``idle_share`` (1 - busy / wall), ``launches`` (kernels)
+    and ``syncs`` (the host's waits on the card: ``cuda*Synchronize``
+    calls, as ``.item()``, ``bool()`` of a card tensor or a copy to the
+    host make). Off the card ``fn`` runs once and every entry is None."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        fn()
+        return dict.fromkeys(("wall_ms", "host_ms", "device_busy_ms", "idle_share", "launches",
+                              "syncs"))
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(dev)
+    walls, hosts = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        hosts.append(t1 - t0)
+        walls.append(time.perf_counter() - t0)
+
+    def capture(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(dev)
+        return prof.events()
+
+    def is_sync(e):
+        return (e.device_type != torch.autograd.DeviceType.CUDA and e.name.startswith("cuda")
+                and e.name.endswith("Synchronize"))
+
+    # A capture of no call holds the capture's own syncs (its trailing
+    # synchronize among them): they are not the calls'.
+    syncs = -sum(map(is_sync, capture(0)))
+    spans, launches = [], 0
+    for e in capture(reps):
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            launches += not e.name.startswith(("Memset", "Memcpy"))
+        elif is_sync(e):
+            syncs += 1
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    wall = statistics.median(walls) * 1e3
+    busy = busy_us / 1e3 / reps
+    return {"wall_ms": wall, "host_ms": statistics.median(hosts) * 1e3,
+            "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall),
+            "launches": launches / reps, "syncs": syncs / reps}
 
 
 # ---------------------------------------------------------------------------
