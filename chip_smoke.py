@@ -1190,13 +1190,9 @@ def phase_runner(card, root, T0, nid, label, device="cuda", masks=False, hpr=Fal
     launches = _read_counts()
     with open(os.path.join(cfg.output_path, "metrics.jsonl")) as f:
         events = [json.loads(line) for line in f]
-    costs = [e for e in events if e["event"].startswith("cost_estimate_")]
-    assert [e["event"] for e in costs] == ["cost_estimate_nid", "cost_estimate_colorize"], costs
-    if label == "headline schedule":
-        for e in costs:
-            print(f"{label}: {e['event']}: {e['flops']:.4g} flop, {e['bytes']:.4g} B, "
-                  f"{e['bound']}-bound, speed of light {e['speed_of_light_s']} s at the "
-                  "H100's peaks (utils/profiling)")
+    # No profile_trace_dir: no capture, so no counters event either.
+    assert not [e for e in events if e["event"] in ("counters", "cost_estimate_nid",
+                                                   "cost_estimate_colorize")], events
     refined = [e for e in events if e["event"] == "nid_refined"][-1]
     recull = [e for e in events if e["event"] == "nid_recull_outer"]
     smoothed = [e for e in events if e["event"] == "pose_graph_smoothed"]

@@ -18,6 +18,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.profiling import to_device
+
 _EPS = 1e-8
 
 
@@ -62,7 +64,7 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return q * to_device([1.0, -1.0, -1.0, -1.0], q.device, q.dtype)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,13 @@ outcomes, not just evaluation counts (CLAUDE.md).
 
 The objective may return +inf to reject an iterate (the trust-region guard,
 `MultiNIDCost::operator()` :102); the line search then backtracks.
+
+Every decision on a tensor is read through ``utils.profiling.host_read``
+and every constant made through ``to_device`` (one device sync each on
+the card). Each step of :func:`minimize_cached` is two spans:
+``bfgs.line_search`` (the probes, where the objective's spans nest) and
+``bfgs.update`` (the host's direction, curvature, inverse-Hessian update and
+convergence tests).
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.profiling import host_read, span, spanned, to_device
 
 
 class BFGSResult(NamedTuple):
@@ -32,7 +41,7 @@ class BFGSResult(NamedTuple):
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    return to_device(x, like.device, like.dtype)
 
 
 def minimize(
@@ -92,6 +101,7 @@ def minimize_cached(
     eye = torch.eye(d, dtype=x0.dtype, device=x0.device)
     c1 = _f32(armijo_c1, x0)
 
+    @spanned("bfgs.line_search")
     def line_search(x, direction, val, g, alpha0, cache):
         """Backtracking Armijo; also backtracks out of +inf regions. Each
         probe evaluates value AND gradient; the accepted probe's gradient is
@@ -101,14 +111,14 @@ def minimize_cached(
         dg = torch.dot(g, direction)
 
         def accepted(alpha, new_val):
-            return bool(torch.isfinite(new_val) & (new_val <= val + c1 * alpha * dg))
+            return host_read(torch.isfinite(new_val) & (new_val <= val + c1 * alpha * dg))
 
         alpha = alpha0
         new_val, new_g, cache = vg_c(x + alpha * direction, cache)
         it = 0
         while not accepted(alpha, new_val) and it < max_backtracks:
             denom = new_val - val - dg * alpha
-            if bool(torch.isfinite(new_val) & (denom > 0)):
+            if host_read(torch.isfinite(new_val) & (denom > 0)):
                 interp = -dg * alpha * alpha / (2.0 * denom)
                 alpha = torch.clamp(interp, 0.1 * alpha, 0.5 * alpha)
             else:
@@ -124,49 +134,52 @@ def minimize_cached(
     H = eye if H0 is None else H0
     it = 0
     evals = 1
-    done = bool(torch.linalg.norm(g) < grad_tol)
+    with span("bfgs.update"):
+        done = host_read(torch.linalg.norm(g) < grad_tol)
     prev_alpha = _f32(1.0, x0)
     one, sixteenth = _f32(1.0, x0), _f32(1.0 / 16.0, x0)
     while not done and it < max_iterations:
-        direction = -(H @ g)
-        # Not a descent direction (H lost positive definiteness): steepest.
-        if not bool(torch.dot(direction, g) < 0):
-            direction = -g
-        if it == 0:
-            # Under an identity metric a raw |g| step overshoots steep
-            # objectives: start from min(1, 1/|g|) (Nocedal-Wright).
-            alpha0 = (
-                torch.minimum(one, 1.0 / (torch.linalg.norm(g) + 1e-12))
-                if scale_initial
-                else one
-            )
-        else:
-            alpha0 = torch.clamp(1.5 * prev_alpha, sixteenth, one)
+        with span("bfgs.update"):
+            direction = -(H @ g)
+            # Not a descent direction (H lost positive definiteness): steepest.
+            if not host_read(torch.dot(direction, g) < 0):
+                direction = -g
+            if it == 0:
+                # Under an identity metric a raw |g| step overshoots steep
+                # objectives: start from min(1, 1/|g|) (Nocedal-Wright).
+                alpha0 = (
+                    torch.minimum(one, 1.0 / (torch.linalg.norm(g) + 1e-12))
+                    if scale_initial
+                    else one
+                )
+            else:
+                alpha0 = torch.clamp(1.5 * prev_alpha, sixteenth, one)
         alpha, val_new, g_new, probes, cache = line_search(x, direction, val, g, alpha0, cache)
-        step = alpha * direction
-        x_new = x + step
+        with span("bfgs.update"):
+            step = alpha * direction
+            x_new = x + step
 
-        s = step
-        y = g_new - g
-        sy = torch.dot(s, y)
-        yy = torch.dot(y, y)
-        curv = bool(sy > 1e-12)
-        rho = 1.0 / sy if curv else torch.zeros_like(sy)
-        H_base = H
-        if it == 0 and curv and bool(yy > 1e-12) and scale_initial:
-            H_base = (sy / torch.clamp(yy, min=1e-20)) * eye
-        V = eye - rho * torch.outer(s, y)
-        H_new = V @ H_base @ V.T + rho * torch.outer(s, s) if curv else H
+            s = step
+            y = g_new - g
+            sy = torch.dot(s, y)
+            yy = torch.dot(y, y)
+            curv = host_read(sy > 1e-12)
+            rho = 1.0 / sy if curv else torch.zeros_like(sy)
+            H_base = H
+            if it == 0 and curv and host_read(yy > 1e-12) and scale_initial:
+                H_base = (sy / torch.clamp(yy, min=1e-20)) * eye
+            V = eye - rho * torch.outer(s, y)
+            H_new = V @ H_base @ V.T + rho * torch.outer(s, s) if curv else H
 
-        stalled = bool(alpha == 0.0)
-        moved = torch.linalg.norm(step)
-        rel_drop_small = bool((val - val_new) <= ftol * (torch.abs(val_new) + 1e-12))
-        done = (
-            stalled
-            or bool(torch.linalg.norm(g_new) < grad_tol)
-            or bool(moved < step_tol)
-            or (ftol > 0 and not stalled and rel_drop_small)
-        )
+            stalled = host_read(alpha == 0.0)
+            moved = torch.linalg.norm(step)
+            rel_drop_small = host_read((val - val_new) <= ftol * (torch.abs(val_new) + 1e-12))
+            done = (
+                stalled
+                or host_read(torch.linalg.norm(g_new) < grad_tol)
+                or host_read(moved < step_tol)
+                or (ftol > 0 and not stalled and rel_drop_small)
+            )
         if not stalled:
             x, val, g, H, prev_alpha = x_new, val_new, g_new, H_new, alpha
         it += 1
@@ -273,7 +286,7 @@ def minimize_batched(
     prev_alpha = torch.ones(b, dtype=dtype, device=device)
     while True:
         run = ~done & (it < max_iterations)
-        if not bool(run.any()):
+        if not host_read(run.any()):
             break
         direction = -_dot(H, g[:, None, :])
         # Not a descent direction (H lost positive definiteness): steepest.
@@ -291,7 +304,7 @@ def minimize_batched(
         probes = run.to(torch.int64)
         backtracks = torch.zeros(b, dtype=torch.int64, device=device)
         search = run & ~accepted(alpha, new_val) & (backtracks < max_backtracks)
-        while bool(search.any()):
+        while host_read(search.any()):
             denom = new_val - val - dg * alpha
             quad = torch.isfinite(new_val) & (denom > 0)
             interp = -dg * alpha * alpha / (2.0 * torch.where(quad, denom, one))

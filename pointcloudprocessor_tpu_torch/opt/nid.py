@@ -25,7 +25,11 @@ partial refresh (the block forms of G1 and G2 re-take only the drifted
 128-point blocks, in place), the raster sort that makes gathers
 near-monotone, and the grouped gathers over the row table
 (`ops/tap_gather`: kernels K3/K4). Its ``lax.cond`` branches are Python
-branches on host values: each costs one device sync.
+branches on host values: each costs one device sync, read through
+``utils.profiling.host_read``. Its layers are spans: ``nid.prepare``,
+``nid.cache``, ``nid.project``, ``nid.gather`` (a full gather, a refresh
+or W1's selection), ``nid.guard``, ``nid.histograms`` and
+``nid.entropies``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..models import camera as cam
 from ..ops import nid_hist, tap_gather
 from ..ops.nid_hist import spline_weights, unpack_tap_nibbles  # noqa: F401 (API)
 from ..utils.numeric import bits_to_int32, to_int32
+from ..utils.profiling import host_read, span, spanned
 
 
 def quantize_image(image_gray01: torch.Tensor, bins: int = 16) -> torch.Tensor:
@@ -139,6 +144,7 @@ def build_tap_slabs(bin_image: torch.Tensor, slab: int) -> torch.Tensor:
     return torch.cat([w0.reshape(r // slab, slab), w1.reshape(r // slab, slab)], dim=1)
 
 
+@spanned("nid.prepare")
 def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool = False,
                       grouped: bool = False, wide_margin: int = 0) -> NIDKeyframe:
     """Attach the pose-independent gather sources (`nid.py:187-237`): the
@@ -182,6 +188,7 @@ def prepare_keyframes(kfs: NIDKeyframe, build_slabs: bool = False,
     return kfs
 
 
+@spanned("nid.project")
 def _project_all(camera: cam.PinholeCamera, T: se3.SE3, kfs: NIDKeyframe):
     """Batched projection over keyframes: (proj (K,N,2), knot (K,N,2) int32,
     inlier (K,N) bool). Knots and gates are pose-constant (detached)."""
@@ -199,6 +206,7 @@ def _project_all(camera: cam.PinholeCamera, T: se3.SE3, kfs: NIDKeyframe):
     return proj, knot, inl
 
 
+@spanned("nid.prepare")
 def sort_by_raster(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
                    kfs: NIDKeyframe) -> NIDKeyframe:
     """Permute each keyframe's points into projected raster order at
@@ -221,6 +229,7 @@ def sort_by_raster(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     )
 
 
+@spanned("nid.gather")
 def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor,
                  inlier: torch.Tensor, use_grouped=None):
     """(K, N, 2) knots -> (K, N, 2) packed tap rows (`nid.py:490-560`).
@@ -262,6 +271,7 @@ def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor
     return taps.reshape(k, n, c)
 
 
+@spanned("nid.histograms")
 def _histograms_from_taps(taps, s, bin_pts, inlier_f, bins: int):
     """(hist_joint (K,bins,bins) [point_bin, image_bin], hist_image (K,bins),
     hist_points (K,bins), num (K,)) from already-gathered tap rows — the
@@ -278,6 +288,7 @@ def _histograms_from_taps(taps, s, bin_pts, inlier_f, bins: int):
     return hist_joint, hist_image, hist_points, num
 
 
+@spanned("nid.entropies")
 def nid_from_histograms(hist_joint, hist_image, hist_points, num):
     """Entropies -> NID per keyframe (`nid_cost.hpp:95-105`, log(p + 1e-6)).
 
@@ -416,10 +427,12 @@ def _take(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor,
     `_gather_wide`, `nid.py:630-638`) under a margin, else the tap rows."""
     margin = _wide_margin_of(kfs)
     if margin:
-        return tap_gather.wide_take(kfs.bin_tiles, knot, camera.width, camera.height, margin)
+        with span("nid.gather"):
+            return tap_gather.wide_take(kfs.bin_tiles, knot, camera.width, camera.height, margin)
     return _gather_taps(camera, kfs, knot, inlier, use_grouped)
 
 
+@spanned("nid.cache")
 def make_tap_cache(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
                    kfs: NIDKeyframe, use_grouped=None) -> TapCache:
     """A fresh gather at ``T_camera_lidar`` (`nid.py:699-721`; kfs must
@@ -457,23 +470,26 @@ def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, knot_true
     cap = int(round(nb * partial_frac)) if partial_frac > 0 else 0
     partial = False
     if 0 < cap <= nb:
-        dirty = torch.any(drifted.reshape(k, nb, block), dim=2)
-        partial = int(torch.amax(torch.sum(dirty, dim=1))) <= cap  # one device sync
+        with span("nid.guard"):
+            dirty = torch.any(drifted.reshape(k, nb, block), dim=2)
+            # One device sync.
+            partial = host_read(torch.amax(torch.sum(dirty, dim=1)), int) <= cap
     if not partial:
         taps, knot, inl = _take(camera, kfs, knot_true, inl_true, use_grouped), knot_true, inl_true_f
     else:
-        iota = torch.arange(nb, dtype=torch.int32, device=dirty.device)
-        blocks = torch.sort(torch.where(dirty, iota, nb), dim=1).values[:, :cap].contiguous()
-        w, h = camera.width, camera.height
-        if margin:
-            taps = tap_gather.wide_take_blocks(kfs.bin_tiles, knot_true, blocks, c.taps, w, h,
-                                               margin)
-            in_dirty = dirty[:, :, None].expand(k, nb, block).reshape(k, n)
-            knot = torch.where(in_dirty[..., None], knot_true, c.knot)
-            inl = torch.where(in_dirty, inl_true_f, c.inlier)
-        else:
-            taps = tap_gather.tap_take_blocks(kfs.bin_tiles, knot_true, blocks, c.taps, w, h)
-            knot, inl = knot_true, inl_true_f
+        with span("nid.gather"):
+            iota = torch.arange(nb, dtype=torch.int32, device=dirty.device)
+            blocks = torch.sort(torch.where(dirty, iota, nb), dim=1).values[:, :cap].contiguous()
+            w, h = camera.width, camera.height
+            if margin:
+                taps = tap_gather.wide_take_blocks(kfs.bin_tiles, knot_true, blocks, c.taps, w, h,
+                                                   margin)
+                in_dirty = dirty[:, :, None].expand(k, nb, block).reshape(k, n)
+                knot = torch.where(in_dirty[..., None], knot_true, c.knot)
+                inl = torch.where(in_dirty, inl_true_f, c.inlier)
+            else:
+                taps = tap_gather.tap_take_blocks(kfs.bin_tiles, knot_true, blocks, c.taps, w, h)
+                knot, inl = knot_true, inl_true_f
     return TapCache(taps, knot, inl, c.refreshes + 1, c.partials + all_partial(int(partial)),
                     c.drift_accum + frac1)
 
@@ -532,24 +548,27 @@ def cached_objective(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3, kfs: NI
     margin = _wide_margin_of(kfs)
 
     with torch.no_grad():
-        # f32 on purpose: behind-camera knots reach ~1e9, and int32
-        # differences would overflow (those points are masked by `care`,
-        # but the arithmetic still runs).
-        shift = torch.amax(torch.abs(knot_true.float() - cache.knot.float()), dim=-1)
-        care = inl_true | (cache.inlier > 0)
-        # A margin-m window serves exact sub-windows up to m px of drift.
-        thr = float(margin + 1)
-        drifted = (shift >= thr) & care
-        counts = reduce.counts(torch.stack(
-            [torch.sum(care), torch.sum(drifted), torch.sum((shift >= thr + 1.0) & care)]))
-        n_care = torch.clamp(counts[0], min=1).to(torch.float32)
-        frac1 = counts[1] / n_care
-        frac2 = counts[2] / n_care
-        if allow_refresh and bool((frac1 > guard_frac) | (frac2 > 0.001)):
+        with span("nid.guard"):
+            # f32 on purpose: behind-camera knots reach ~1e9, and int32
+            # differences would overflow (those points are masked by `care`,
+            # but the arithmetic still runs).
+            shift = torch.amax(torch.abs(knot_true.float() - cache.knot.float()), dim=-1)
+            care = inl_true | (cache.inlier > 0)
+            # A margin-m window serves exact sub-windows up to m px of drift.
+            thr = float(margin + 1)
+            drifted = (shift >= thr) & care
+            counts = reduce.counts(torch.stack(
+                [torch.sum(care), torch.sum(drifted), torch.sum((shift >= thr + 1.0) & care)]))
+            n_care = torch.clamp(counts[0], min=1).to(torch.float32)
+            frac1 = counts[1] / n_care
+            frac2 = counts[2] / n_care
+            refresh = allow_refresh and host_read((frac1 > guard_frac) | (frac2 > 0.001))
+        if refresh:
             cache = _refresh(camera, kfs, cache, knot_true, inl_true, inl_true.to(proj.dtype),
                              drifted, frac1, use_grouped, partial_frac, reduce.all_partial)
         if margin:
-            taps, eff_knot = tap_gather.wide_select(cache.taps, knot_true, cache.knot, margin)
+            with span("nid.gather"):
+                taps, eff_knot = tap_gather.wide_select(cache.taps, knot_true, cache.knot, margin)
         else:
             taps, eff_knot = cache.taps, cache.knot
 

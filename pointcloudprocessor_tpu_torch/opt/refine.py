@@ -21,7 +21,11 @@ With no reference analogue, as in the JAX package: a coarse-to-fine
 schedule, the frozen-tap cache (`opt/nid.multi_nid_loss_cached`), the
 raster sort and the grouped gathers. The JAX package's `lax.while_loop`s
 and `lax.cond`s are Python loops and branches on host values: each branch
-costs one device sync.
+costs one device sync, read through ``utils.profiling.host_read``. The
+solve's layers are spans: ``refine.solve`` > ``refine.coarse`` /
+``refine.fine`` > ``refine.outer`` > the inner BFGS's (`opt/bfgs`), whose
+evaluations hold ``refine.guard``, ``refine.pose``, the ``nid.*`` spans
+and ``refine.backward``; ``refine.final_nid``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from ..core import se3
 from ..models import camera as cam
+from ..utils.profiling import host_read, span, spanned, to_device
 from . import bfgs
 from . import nid as _nid
 from .nid import NIDKeyframe
@@ -65,16 +70,19 @@ def _guarded_objective(trust_trans: float, trust_rot: float, loss):
     `refine.py:258-274`)."""
 
     def value_and_grad(xi: torch.Tensor, T_init: se3.SE3, cache):
-        with torch.no_grad():
+        with span("refine.guard"), torch.no_grad():
             trans = torch.linalg.norm(se3.exp(xi).t)
             rot = torch.linalg.norm(xi[3:])
-            if bool((trans > trust_trans) | (rot > trust_rot)):  # one device sync
+            if host_read((trans > trust_trans) | (rot > trust_rot)):  # one device sync
                 inf = torch.full((), float("inf"), dtype=xi.dtype, device=xi.device)
                 return inf, torch.zeros_like(xi), cache
         x = xi.detach().requires_grad_(True)
         with torch.enable_grad():
-            value, cache = loss(se3.compose(T_init, se3.exp(x)), cache)
-            (grad,) = torch.autograd.grad(value, x)
+            with span("refine.pose"):
+                T = se3.compose(T_init, se3.exp(x))
+            value, cache = loss(T, cache)
+            with span("refine.backward"):
+                (grad,) = torch.autograd.grad(value, x)
         return value.detach(), grad, cache
 
     return value_and_grad
@@ -104,6 +112,7 @@ class _Outer(NamedTuple):
     H: torch.Tensor  # carried inverse-Hessian metric (carry_hessian)
 
 
+@spanned("refine.solve")
 def refine_pose(
     camera: cam.PinholeCamera,
     kfs: NIDKeyframe,  # batched over keyframes
@@ -182,7 +191,7 @@ def refine_pose(
             cache,
             max_iterations=max_inner_iterations,
             H0=H if carry_hessian else None,
-            scale_initial=bool(torch.all(H == eye6)) if carry_hessian else True,
+            scale_initial=host_read(torch.all(H == eye6)) if carry_hessian else True,
             ftol=ftol,
         )
 
@@ -216,28 +225,29 @@ def refine_pose(
         objective = _guarded_objective(trust_region_trans, trust_region_rot, loss)
         st = init
         while not st.done and st.it < max_iters:
-            res, cache = inner(lambda xi, c, T=st.T: objective(xi, T, c), cache, st.H)
-            with torch.no_grad():
-                T_new = se3.compose(st.T, se3.exp(res.x))
-                dt, dr = se3.delta_magnitudes(st.T, T_new)
-            st = _Outer(
-                T=T_new,
-                nid=res.value,
-                it=st.it + 1,
-                done=bool((dt < delta_trans_thresh) & (dr < delta_rot_thresh)),
-                evals=st.evals + res.evaluations,
-                # The cache counts this phase's gathers; the phase-entry
-                # total keeps earlier phases' gathers.
-                gathers=init.gathers + cache.refreshes if use_frozen else st.gathers,
-                pgathers=init.pgathers + cache.partials if use_frozen else st.pgathers,
-                drift=init.drift + cache.drift_accum if use_frozen else st.drift,
-                H=res.H if carry_hessian else st.H,
-            )
+            with span("refine.outer"):
+                res, cache = inner(lambda xi, c, T=st.T: objective(xi, T, c), cache, st.H)
+                with torch.no_grad():
+                    T_new = se3.compose(st.T, se3.exp(res.x))
+                    dt, dr = se3.delta_magnitudes(st.T, T_new)
+                st = _Outer(
+                    T=T_new,
+                    nid=res.value,
+                    it=st.it + 1,
+                    done=host_read((dt < delta_trans_thresh) & (dr < delta_rot_thresh)),
+                    evals=st.evals + res.evaluations,
+                    # The cache counts this phase's gathers; the phase-entry
+                    # total keeps earlier phases' gathers.
+                    gathers=init.gathers + cache.refreshes if use_frozen else st.gathers,
+                    pgathers=init.pgathers + cache.partials if use_frozen else st.pgathers,
+                    drift=init.drift + cache.drift_accum if use_frozen else st.drift,
+                    H=res.H if carry_hessian else st.H,
+                )
         return st
 
     state = _Outer(
         T=T_init,
-        nid=torch.tensor(float("inf"), dtype=dtype, device=device),
+        nid=to_device(float("inf"), device, dtype),
         it=0,
         done=False,
         evals=0,
@@ -251,22 +261,24 @@ def refine_pose(
         # the stride multiplies sorted-point gaps, so grouped windows would
         # overflow, and it takes the large steps that would refresh a
         # frozen cache constantly.
-        coarse = solve_phase(
-            state, _subsample_keyframes(kfs, coarse_stride), coarse_outer_iterations,
-            use_frozen=False, phase_grouped=False,
-        )
+        with span("refine.coarse"):
+            coarse = solve_phase(
+                state, _subsample_keyframes(kfs, coarse_stride), coarse_outer_iterations,
+                use_frozen=False, phase_grouped=False,
+            )
         # The fine phase starts from the coarse pose with a reset iteration
         # and convergence state; evaluations, gathers and H carry over.
         state = coarse._replace(nid=state.nid, it=0, done=False)
-    final = solve_phase(
-        state, kfs, max_outer_iterations, use_frozen=frozen_taps,
-        phase_grouped=use_grouped_gather,
-    )
+    with span("refine.fine"):
+        final = solve_phase(
+            state, kfs, max_outer_iterations, use_frozen=frozen_taps,
+            phase_grouped=use_grouped_gather,
+        )
     nid_final = final.nid
     if frozen_taps:
         # The exact full-resolution objective at the final pose, not the
         # last surrogate value (one extra forward evaluation).
-        with torch.no_grad():
+        with span("refine.final_nid"), torch.no_grad():
             nid_final = exact(use_grouped_gather)(camera, final.T, kfs, bins)
     return RefineResult(
         T_camera_lidar=final.T,
@@ -276,7 +288,7 @@ def refine_pose(
         evaluations=final.evals,
         gathers=final.gathers,
         partial_gathers=final.pgathers,
-        gather_drift=float(final.drift),
+        gather_drift=host_read(final.drift, float),
     )
 
 
@@ -301,10 +313,11 @@ def _guarded_per_keyframe(camera: cam.PinholeCamera, kfs: NIDKeyframe, bins: int
             nids = _nid.multi_nid_per_keyframe(camera, se3.compose(T_init, se3.exp(x)), kfs, bins)
             # Keyframe j's NID depends on row j alone: the gradient of the
             # sum is each keyframe's own in its row.
-            (grad,) = torch.autograd.grad(nids.sum(), x)
+            with span("refine.backward"):
+                (grad,) = torch.autograd.grad(nids.sum(), x)
         value = torch.where(outside, torch.full_like(nids, float("inf")), nids.detach())
         grad = torch.where(outside[:, None], torch.zeros_like(grad), grad)
-        out = torch.cat([value[:, None], grad], dim=1).cpu()
+        out = host_read(torch.cat([value[:, None], grad], dim=1), torch.Tensor.cpu)
         return out[:, 0], out[:, 1:]
 
     return value_and_grad
@@ -355,7 +368,7 @@ def refine_pose_per_keyframe(
     calls = 0
     while True:
         active = ~done & (it < max_outer_iterations)
-        if not bool(active.any()):
+        if not bool(active.any()):  # a host tensor
             break
         res = bfgs.minimize_batched(
             _guarded_per_keyframe(camera, kfs, bins, trust_region_trans, trust_region_rot, T),
@@ -367,7 +380,8 @@ def refine_pose_per_keyframe(
         with torch.no_grad():
             T_new = se3.compose(T, se3.exp(res.x.to(device)))
             dt, dr = se3.delta_magnitudes(T, T_new)
-        converged = ((dt < delta_trans_thresh) & (dr < delta_rot_thresh)).cpu()
+        converged = host_read((dt < delta_trans_thresh) & (dr < delta_rot_thresh),
+                              torch.Tensor.cpu)
         on = active.to(device)
         T = se3.SE3(torch.where(on[:, None], T_new.q, T.q), torch.where(on[:, None], T_new.t, T.t))
         nid = torch.where(on, res.value.to(device), nid)

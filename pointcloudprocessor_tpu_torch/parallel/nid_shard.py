@@ -37,6 +37,7 @@ from ..opt import nid as _nid
 from ..opt.nid import NIDKeyframe, TapCache
 from ..opt.refine import RefineResult, refine_pose, refine_pose_per_keyframe
 from ..utils.numeric import to_int32
+from ..utils.profiling import host_read
 from . import mesh as mesh_lib
 
 
@@ -129,7 +130,7 @@ def _reductions(mesh: DeviceMesh) -> _nid.Reductions:
         # The diagnostic counts a refresh as partial only where every
         # rank's was (JAX's pmin, `nid_shard.py:299-300`).
         t = torch.tensor([flag], dtype=torch.int32, device=mesh.device_type)
-        return int(mesh_lib.all_reduce(t, world, dist.ReduceOp.MIN))
+        return host_read(mesh_lib.all_reduce(t, world, dist.ReduceOp.MIN), int)
 
     return _nid.Reductions(counts=counts, all_partial=all_partial, sum_nid=sharded_sum_nid(mesh))
 

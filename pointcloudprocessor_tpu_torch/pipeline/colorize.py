@@ -34,7 +34,12 @@ raises. The CPU takes the same two steps through the twins
 (:func:`depth_keys_plain` or :func:`hpr_masks`, then the twin step against
 those cell minima or masks).
 Any other device raises. Both paths update the state in place and agree bit
-for bit. ``launch_counts`` counts each kernel's launches.
+for bit. ``launch_counts`` counts each kernel's launches. A fuse's layers
+are spans: ``colorize.fuse`` > ``colorize.keys`` (pass (a) of a batch of
+keyframes) or ``colorize.cull`` (H2 of a batch), ``colorize.keyframe``
+(each keyframe's update) and ``colorize.blend``. The fuse reads nothing of
+the card on the host; its uploads (the views' constants, host images) go
+through ``utils.profiling.to_device``, counted as host syncs.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ..kernels import build as kbuild
 from ..models import camera as cam
 from ..ops import fusion, hpr, zbuffer
 from ..utils.numeric import to_int32
+from ..utils.profiling import span, spanned, to_device
 
 # Launches of each CUDA kernel in this process (see reset_launch_counts).
 launch_counts = {"colorize_scatter": 0, "colorize_update": 0}
@@ -655,21 +661,27 @@ def fuse_state(
     for start in range(0, k, SCATTER_VIEWS):
         stop = min(start + SCATTER_VIEWS, k)
         batch = views.at(slice(start, stop))
-        keys = (depth_keys(camera, batch, points_world, valid, cull["downsample_factor"])
-                if scatter else None)
-        vis = hpr_masks(camera, batch, points_world, valid, cull) if batch_hpr else None
+        keys = vis = None
+        if scatter:
+            with span("colorize.keys"):
+                keys = depth_keys(camera, batch, points_world, valid, cull["downsample_factor"])
+        if batch_hpr:
+            with span("colorize.cull"):
+                vis = hpr_masks(camera, batch, points_world, valid, cull)
         for j in range(start, stop):
-            step(state, camera, images[j].to(device), views.at(j), points_world, valid,
-                 mask_images[j].to(device) if labelled else None,
-                 optimal_distance=optimal_distance, score_floor=score_floor,
-                 saturation_scale=saturation_scale, brightness_scale=brightness_scale,
-                 reference_compat_orientation=reference_compat_orientation,
-                 keys=None if keys is None else keys[j - start],
-                 vis=None if vis is None else vis[j - start], **culling)
+            with span("colorize.keyframe"):
+                step(state, camera, to_device(images[j], device), views.at(j), points_world,
+                     valid, to_device(mask_images[j], device) if labelled else None,
+                     optimal_distance=optimal_distance, score_floor=score_floor,
+                     saturation_scale=saturation_scale, brightness_scale=brightness_scale,
+                     reference_compat_orientation=reference_compat_orientation,
+                     keys=None if keys is None else keys[j - start],
+                     vis=None if vis is None else vis[j - start], **culling)
     return state
 
 
 @torch.no_grad()
+@spanned("colorize.fuse")
 def fuse(
     camera: cam.PinholeCamera,
     points_world: torch.Tensor,  # (N, 3)
@@ -702,7 +714,8 @@ def fuse(
     options)."""
     state = fuse_state(camera, points_world, valid, images, kf_poses, T_correction, mask_images,
                        **kwargs)
-    rgb, colored = fusion.blend_topk(state.topk)
+    with span("colorize.blend"):
+        rgb, colored = fusion.blend_topk(state.topk)
     return FusionResult(
         rgb=rgb,
         colored=colored & valid,

@@ -268,15 +268,18 @@ def process(cfg: PipelineConfig, device) -> PipelineResult:
     metrics = profiling.MetricsLogger(metrics_path)
     metrics.log("pipeline_start", config_keyframes_cap=cfg.max_keyframes, device=str(device))
     timer = profiling.StageTimer(device)
-    trace_ctx = (
-        profiling.trace(cfg.profile_trace_dir)
-        if cfg.profile_trace_dir
-        else contextlib.nullcontext()
-    )
+    trace_ctx = contextlib.nullcontext()
+    if cfg.profile_trace_dir:
+        # The capture's spans and counters are this run's alone.
+        profiling.reset_trace()
+        trace_ctx = profiling.trace(cfg.profile_trace_dir)
     with trace_ctx:
         _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics)
     result.timings = dict(timer.timings)
     result.timings["total"] = time.perf_counter() - t_start
+    if cfg.profile_trace_dir:
+        # What the capture counted (utils/profiling.count: host_sync).
+        metrics.log("counters", **profiling.counter_values())
     metrics.log("pipeline_done", **{k: round(v, 4) for k, v in result.timings.items()})
     return result
 
@@ -326,8 +329,6 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
     # 4. Culling + NID keyframe assembly (viewCullingAndSaveFilteredPcds).
     with timer.stage("culling"):
         kfs = build_nid_keyframes(camera, map_cloud, frames, kf_idx, cfg, save_dir=filtered_dir)
-    metrics.log("cost_estimate_nid",
-                **profiling.nid_cost_estimate(cfg.culled_capacity, len(kf_idx), cfg.nid.bins))
 
     # 5. Optional NID pose refinement (applyNIDBasedPoseOptimization, :156-164).
     T_correction = se3.identity(device)
@@ -411,9 +412,6 @@ def _process_stages(cfg, camera, device, filtered_dir, result, timer, metrics):
             reference_compat_orientation=cfg.fusion.reference_compat_orientation,
             **_culling_kwargs(cfg),
         )
-    metrics.log("cost_estimate_colorize", **profiling.colorize_fuse_cost(
-        int(map_cloud.points.shape[0]), len(kf_idx), cfg.camera.height, cfg.camera.width,
-        cfg.fusion.top_k))
 
     # 6b. Optional spatial color smoothing (smoothColorsWithLocalRegion,
     # :634-703; JAX `runner.py:564-575`).

@@ -66,7 +66,7 @@ def regather_cost(camera, kfs, device, reps: int = 10) -> dict:
     for name, T in (("frozen", ident), ("regather", moved)):
         xi = torch.zeros(6, dtype=torch.float32, device=device)
         refreshes = vg(xi, T, cache)[2].refreshes - cache.refreshes
-        with profiling.annotate(f"frozen_guard_sweep/{name}_eval"):
+        with profiling.span(f"frozen_guard_sweep/{name}_eval"):
             split = profiling.eval_split(lambda: vg(xi, T, cache), device, reps)
         out[name] = {"refreshes": refreshes, **split}
     return out

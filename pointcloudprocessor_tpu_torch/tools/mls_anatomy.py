@@ -133,7 +133,7 @@ def main(argv: Optional[list] = None) -> dict:
 
     res, rows = {}, []
     for stage in STAGES:
-        with profiling.annotate(f"mls_anatomy/{stage}"):
+        with profiling.span(f"mls_anatomy/{stage}"):
             t = profiling.repeat_ms(lambda: stage_value(pts, valid, stage, kw), dev,
                                     reps=args.reps, floor=floor)
         res[stage] = _seconds(t)
@@ -167,7 +167,7 @@ def main(argv: Optional[list] = None) -> dict:
         # without planes, its sort order as the schedule, M1 in one launch.
         k5 = {key: kw[key] for key in ("search_radius", "sqr_gauss_param", "polynomial_order",
                                        "bucket_capacity", "table_size")}
-        with profiling.annotate("mls_anatomy/m1_path"):
+        with profiling.span("mls_anatomy/m1_path"):
             def build():
                 return knn.build(pts, valid, kw["search_radius"], kw["table_size"],
                                  kw["bucket_capacity"])

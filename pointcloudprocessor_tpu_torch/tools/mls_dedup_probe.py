@@ -62,7 +62,7 @@ def main(argv: Optional[list] = None) -> dict:
     floor = profiling.floor_ms(n * 12.0)
     out = {"n_points": n}
     for dedup, tag in ((False, "per_query"), (True, "dedup")):
-        with profiling.annotate(f"mls_dedup_probe/{tag}"):
+        with profiling.span(f"mls_dedup_probe/{tag}"):
             t = profiling.repeat_ms(lambda: run_pass(pts, valid, dedup, kw), dev,
                                     reps=args.reps, floor=floor)
         s = None if t["ms"] is None else t["ms"] / 1e3
@@ -76,7 +76,7 @@ def main(argv: Optional[list] = None) -> dict:
                       else out["per_query_s"] / out["dedup_s"])
     if dev.type == "cuda":
         cfg = MLSConfig()
-        with profiling.annotate("mls_dedup_probe/m1"):
+        with profiling.span("mls_dedup_probe/m1"):
             for dedup, tag in ((False, "per_query"), (True, "dedup")):
                 ms = profiling.median_ms(
                     lambda d=dedup: mls.mls_smooth(pts, valid, cfg, dedup_candidates=d), dev)

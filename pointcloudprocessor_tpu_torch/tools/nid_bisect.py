@@ -176,7 +176,7 @@ def main(argv: Optional[list] = None) -> dict:
     }
     rows = []
     for name, (fn, kk, bytes_a_point) in chained.items():
-        with profiling.annotate(f"nid_bisect/{name}"):
+        with profiling.span(f"nid_bisect/{name}"):
             t = profiling.repeat_ms(lambda: fn(camera, kk, xi0, args.reps), dev,
                                     floor=profiling.floor_ms(pts * bytes_a_point * args.reps))
             split = profiling.eval_split(lambda: fn(camera, kk, xi0, 1), dev, args.split_reps)
@@ -191,7 +191,7 @@ def main(argv: Optional[list] = None) -> dict:
     xk = torch.zeros((k, 6), dtype=torch.float32)
     for name, fn in single.items():
         arg = xk if name == "per_keyframe" else xi0
-        with profiling.annotate(f"nid_bisect/{name}"):
+        with profiling.span(f"nid_bisect/{name}"):
             split = profiling.eval_split(lambda: fn(arg), dev, args.split_reps)
         row = {"variant": name, **split}
         rows.append(row)

@@ -144,7 +144,7 @@ def run_case(fn, camera, kfs, reps: int, label: str, device, floor_bytes: float)
     def call():
         last[:] = [fn(camera, kfs, xi0, reps)]
 
-    with profiling.annotate(f"nid_locality/{label}"):
+    with profiling.span(f"nid_locality/{label}"):
         t = profiling.repeat_ms(call, device, floor=profiling.floor_ms(floor_bytes * reps))
     acc = float(last[0][1])
     per = {"ms": None if t["ms"] is None else t["ms"] / reps,

@@ -118,7 +118,7 @@ def run_once(k: int, n_points: int, width: int, height: int, inner: int, outer: 
                     coarse_outer_iterations=1 if c2f else 0, coarse_stride=2)
 
     def step():
-        with profiling.annotate("scaling_bench/step"):
+        with profiling.span("scaling_bench/step"):
             res = nid_shard.refine_pose_sharded(camera, local, T0, mesh, **solve_kw)
             fused = fusion_shard.fuse_sharded(camera, map_pts, map_valid, kf_images, kf_poses,
                                               res.T_camera_lidar, mesh, **FUSE_KW)

@@ -146,7 +146,7 @@ def main(argv: Optional[list] = None) -> dict:
             n_rows, slab * 2)
         idx = torch.from_numpy(np.sort(rs.integers(0, n_rows, n_idx))).to(dev)
         bytes_out = n_idx * slab * 2 * 4
-        with profiling.annotate(f"slab_gather_probe/take_slab{slab}"):
+        with profiling.span(f"slab_gather_probe/take_slab{slab}"):
             t = profiling.repeat_ms(lambda: chain_take(table, idx, reps), dev,
                                     floor=profiling.floor_ms(bytes_out * reps))
         ms = None if t["ms"] is None else t["ms"] / reps
@@ -163,7 +163,7 @@ def main(argv: Optional[list] = None) -> dict:
     n_flags = 16_384 if args.quick else 131_072
     flags = torch.from_numpy(rs.integers(0, 2, n_flags).astype(np.int32)).to(dev)
     for k_sel in (256, 2048, 8192):
-        with profiling.annotate(f"slab_gather_probe/topk{k_sel}"):
+        with profiling.span(f"slab_gather_probe/topk{k_sel}"):
             t = profiling.repeat_ms(lambda: chain_topk(flags, k_sel, reps), dev)
         row = {"probe": "top_k", "n": n_flags, "k": k_sel,
                "ms": None if t["ms"] is None else t["ms"] / reps}

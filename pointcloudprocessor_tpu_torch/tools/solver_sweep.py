@@ -55,7 +55,7 @@ def pose_error(T: se3.SE3):
 def run_row(camera, kfs, T0, kw: dict, reps: int, device, label: str) -> dict:
     """One sweep row: ``refine_pose(camera, kfs, T0, **kw)`` once (the
     row's result and the warm-up), then ``reps`` timed calls."""
-    with profiling.annotate(label):
+    with profiling.span(label):
         res = refine.refine_pose(camera, kfs, T0, **kw)
         n_pts = kfs.points.shape[0] * kfs.points.shape[1]
         floor = profiling.floor_ms(res.evaluations * n_pts * 16.0)

@@ -110,7 +110,7 @@ def _chained(fn, reps, device, label, floor_bytes):
     def call():
         last[:] = [fn()]
 
-    with profiling.annotate(f"tap_cache_probe/{label}"):
+    with profiling.span(f"tap_cache_probe/{label}"):
         t = profiling.repeat_ms(call, device, floor=profiling.floor_ms(floor_bytes * reps))
     ms = None if t["ms"] is None else t["ms"] / reps
     print(f"# {label}: {ms} ms a rep", file=sys.stderr)
@@ -153,7 +153,7 @@ def main(argv: Optional[list] = None) -> dict:
     # the sorted indices.
     pix = idx0.reshape(k, n_pts).to(torch.int32)
     knot = torch.stack([pix % width, pix // width], -1)
-    with profiling.annotate("tap_cache_probe/g1_g2"):
+    with profiling.span("tap_cache_probe/g1_g2"):
         out["g1_device_ms"] = profiling.median_ms(
             lambda: tap_gather.direct_take(kfs.bin_tiles, knot, width, height), dev,
             hide_host=True)
@@ -163,7 +163,7 @@ def main(argv: Optional[list] = None) -> dict:
                 hide_host=True)
 
     # --- 2. the wide table the port does not build ---------------------------
-    with profiling.annotate("tap_cache_probe/b1"):
+    with profiling.span("tap_cache_probe/b1"):
         out["b1_pack_device_ms"] = profiling.median_ms(
             lambda: tap_gather.pack_bins(kfs.bin_image), dev, hide_host=True)
     out["wide_table_m2_bytes"] = k * r * (4 + 2 * 2) * 4

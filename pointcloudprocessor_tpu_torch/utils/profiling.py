@@ -1,29 +1,34 @@
-"""Stage timing, profiler capture and structured metrics.
+"""Stage timing, profiler capture, the port's spans and counters, and
+structured metrics.
 
 Port of the timing and metrics half of `pointcloudprocessor_tpu/utils/
 profiling.py`:
 
 - :class:`StageTimer` — named stage timings; with ``sync`` a stage ends
   only after the CUDA device has finished its queued work, so the time is
-  execution, not enqueue;
+  execution, not enqueue; each stage is also the span ``stage.<name>``;
 - :func:`trace` — a torch.profiler capture (CPU + CUDA activities) written
-  as a Chrome trace, and :func:`annotate` — a named region inside one;
+  as a Chrome trace;
+- :func:`span` (:func:`spanned` for a whole function), :func:`count`,
+  :func:`host_read` and :func:`to_device` — the port's named
+  regions and counters, recorded in memory while any torch.profiler capture
+  records (:func:`span_records`, :func:`counter_values`,
+  :func:`reset_trace`) and costing one flag check while none does; inside a
+  :func:`trace` each span is also a ``record_function`` on the capture's
+  clock;
 - :class:`MetricsLogger` — append-only JSONL metrics, one object per event;
 - :func:`median_ms` — the median CUDA-event time of a call on the card (as
   its caller pays it, or its device time alone), :func:`repeat_ms` — each
   call's time with its median and spread, :func:`eval_split` — where a
   call's time goes (wall, host, device busy, launches, host syncs), and
   :func:`card` — the card's name and power limit, which every such time
-  carries;
-- :func:`roofline` and the per-stage cost estimates (:func:`nid_cost_estimate`,
-  :func:`colorize_fuse_cost`, :func:`mls_cost_estimate`,
-  :func:`hpr_cost_estimate`): analytic operation and byte counts from array
-  shapes, the JAX module's formulas, placed against the H100's peaks.
+  carries.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -42,7 +47,9 @@ def synchronize(device) -> None:
 
 
 class StageTimer:
-    """Collects named stage durations (seconds, host clock)."""
+    """Collects named stage durations (seconds, host clock). Each stage is
+    also the span ``stage.<name>``, so that a capture nests the port's
+    spans under the stages."""
 
     def __init__(self, device=None):
         self.timings: dict[str, float] = {}
@@ -51,36 +58,186 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str):
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self._device is not None:
-                synchronize(self._device)
-            self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
+        with span(f"stage.{name}"):
+            try:
+                yield
+            finally:
+                if self._device is not None:
+                    synchronize(self._device)
+                self.timings[name] = self.timings.get(name, 0.0) + time.perf_counter() - t0
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """torch.profiler capture around a block, written to
-    ``<log_dir>/trace.json`` (open with Perfetto or chrome://tracing)."""
+    ``<log_dir>/trace.json`` (open with Perfetto or chrome://tracing). The
+    port's spans opened in the block are ``record_function`` regions of the
+    capture too, stamped on the clock its kernels carry."""
+    global _own_capture
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    outer = _own_capture
     with profile(activities=activities) as prof:
-        yield prof
+        _own_capture = True
+        try:
+            yield prof
+        finally:
+            _own_capture = outer
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region of a :func:`trace` (or any torch.profiler capture):
-    ``torch.profiler.record_function``, so the trace shows the stage under
-    ``name``. Outside a capture it records nothing."""
-    with torch.profiler.record_function(name):
-        yield
+# ---------------------------------------------------------------------------
+# Spans and counters.
+#
+# The gate is torch's own flag, true while any torch.profiler capture
+# records (the benchmark's, a tool's, :func:`trace`). With it off a span is a
+# shared no-op and a count returns at once: the hot path pays one attribute
+# read. With it on, each span appends a :class:`SpanRecord` (host clock,
+# ``time.perf_counter_ns``) and each count ticks a total and the innermost
+# open span. Only inside :func:`trace` does a span open a ``record_function``:
+# other captures keep their event lists to themselves.
+# ---------------------------------------------------------------------------
+
+_autograd_profiler = torch.autograd.profiler
+_own_capture = False  # set by trace(): spans become record_function regions too
+
+
+class SpanRecord:
+    """One closed or open span: ``name``, ``parent`` (the index in
+    :func:`span_records` of the span open around it, -1 for a root),
+    ``start_ns`` and ``end_ns`` (``time.perf_counter_ns``; ``end_ns`` 0
+    while open) and ``counts`` (counter -> ticks while it was the innermost
+    open span)."""
+
+    __slots__ = ("name", "parent", "start_ns", "end_ns", "counts")
+
+    def __init__(self, name: str, parent: int):
+        self.name, self.parent = name, parent
+        self.start_ns = self.end_ns = 0
+        self.counts: dict[str, int] = {}
+
+
+_records: list[SpanRecord] = []
+_open: list[int] = []  # indices of the open spans, the innermost last
+_counters: dict[str, int] = {}
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "record", "region")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        parent = _open[-1] if _open else -1
+        self.record = SpanRecord(self.name, parent)
+        _open.append(len(_records))
+        _records.append(self.record)
+        self.region = torch.profiler.record_function(self.name) if _own_capture else None
+        if self.region is not None:
+            self.region.__enter__()
+        self.record.start_ns = time.perf_counter_ns()
+        return None
+
+    def __exit__(self, *exc):
+        self.record.end_ns = time.perf_counter_ns()
+        if self.region is not None:
+            self.region.__exit__(*exc)
+        # reset_trace() inside the span leaves nothing to pop.
+        if _open and _records[_open[-1]] is self.record:
+            _open.pop()
+        return False
+
+
+def span(name: str):
+    """``with span(name): ...`` — a named region of the port's work. While a
+    torch.profiler capture records it appends a :class:`SpanRecord` nested
+    under the span open around it, and inside :func:`trace` it is also a
+    ``record_function`` of that name; otherwise it does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is a :func:`span` ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Tick counter ``name`` by ``n`` while a capture records: its total
+    (:func:`counter_values`) and the innermost open span's ``counts``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    _counters[name] = _counters.get(name, 0) + n
+    if _open:
+        c = _records[_open[-1]].counts
+        c[name] = c.get(name, 0) + n
+
+
+def host_read(value, cast=bool):
+    """``cast(value)`` — ``bool``, ``int``, ``float`` or ``torch.Tensor.cpu``
+    — counted as one ``host_sync``: every point where the solve or the fuse
+    reads a tensor's value on the host goes through here (on the card, one
+    wait for the stream)."""
+    count("host_sync")
+    return cast(value)
+
+
+def to_device(data, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype=dtype, device=device)``, counted as one
+    ``host_sync`` unless ``data`` is a tensor on ``device`` already: a copy
+    of host values, which on the card waits for the stream. The solve's and
+    the fuse's constants and uploads go through here."""
+    if _autograd_profiler._is_profiler_enabled and not (
+            isinstance(data, torch.Tensor) and data.device == torch.device(device)):
+        count("host_sync")
+    return torch.as_tensor(data, dtype=dtype, device=device)
+
+
+def span_records() -> list[SpanRecord]:
+    """The spans recorded since the last :func:`reset_trace`, in the order
+    they opened (a parent before its children); not cleared."""
+    return list(_records)
+
+
+def counter_values() -> dict[str, int]:
+    """Each counter's total since the last :func:`reset_trace`; not
+    cleared."""
+    return dict(_counters)
+
+
+def reset_trace() -> None:
+    """Forget every span record and counter."""
+    _records.clear()
+    _open.clear()
+    _counters.clear()
 
 
 class MetricsLogger:
@@ -138,6 +295,12 @@ def median_ms(fn, device, reps: int = 20, warmup: int = 3,
         if hidden or not hide_host:
             times.append(a.elapsed_time(b))
     return float(statistics.median(times)) if 2 * len(times) >= reps else None
+
+
+# NVIDIA H100 80GB HBM3 (SXM), 700.00 W power limit, from NVIDIA's data
+# sheet: a card set below 700 W runs slower under load, so this is an upper
+# bound of its rate.
+H100_HBM_BYTES_PER_S = 3.35e12
 
 
 def floor_ms(nbytes: float) -> float:
@@ -235,89 +398,6 @@ def eval_split(fn, device, reps: int = 5, warmup: int = 1) -> dict:
     return {"wall_ms": wall, "host_ms": statistics.median(hosts) * 1e3,
             "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall),
             "launches": launches / reps, "syncs": syncs / reps}
-
-
-# ---------------------------------------------------------------------------
-# Per-stage byte/FLOP estimates + roofline positioning.
-#
-# Analytic counts from array shapes, the formulas of the JAX package's
-# `utils/profiling.py`, priced for the card this port runs on: NVIDIA H100
-# 80GB HBM3 (SXM), 700.00 W power limit, from NVIDIA's data sheet: 3.35 TB/s
-# of HBM3 and 67 TFLOP/s of f32 outside the tensor cores. A card set below
-# 700 W runs slower under load, so these are upper bounds of its rates.
-# ---------------------------------------------------------------------------
-
-H100_PEAK_F32_FLOPS = 6.7e13  # NVIDIA H100 80GB HBM3, 700.00 W
-H100_HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 80GB HBM3, 700.00 W
-
-
-def roofline(flops: float, bytes_moved: float,
-             peak_flops: float = H100_PEAK_F32_FLOPS,
-             peak_bw: float = H100_HBM_BYTES_PER_S) -> dict:
-    """Arithmetic intensity + bound classification + speed-of-light time."""
-    intensity = flops / max(bytes_moved, 1.0)
-    ridge = peak_flops / peak_bw
-    t_compute = flops / peak_flops
-    t_memory = bytes_moved / peak_bw
-    return {
-        "flops": flops,
-        "bytes": bytes_moved,
-        "intensity_flop_per_byte": round(intensity, 3),
-        "ridge_flop_per_byte": round(ridge, 1),
-        "bound": "compute" if intensity >= ridge else "memory",
-        "speed_of_light_s": round(max(t_compute, t_memory), 6),
-    }
-
-
-def nid_cost_estimate(n_points: int, k_frames: int, bins: int = 16,
-                      with_grad: bool = True) -> dict:
-    """One multi-keyframe NID evaluation (ops/nid_hist.py semantics).
-
-    Per point: project (~30 flops), spline weights (2x ~16), 16-tap
-    histogram accumulate (16 madd); the adjoint ~= the forward. Bytes:
-    points xyz + intensity + 16 nibble-packed taps (8 B) per point."""
-    per_point = 30 + 32 + 2 * 16
-    total = n_points * k_frames
-    flops = total * per_point * (2.0 if with_grad else 1.0)
-    bytes_moved = total * (12 + 4 + 8) * (2.0 if with_grad else 1.0)
-    return roofline(flops, bytes_moved)
-
-
-def colorize_fuse_cost(n_map: int, k_frames: int, height: int, width: int,
-                       top_k: int = 5) -> dict:
-    """Full fuse pass (pipeline/colorize.py): per keyframe per point
-    transform+project+score (~60 flops), one packed-int32 image gather, a
-    z-buffer scatter+gather, and a top-K register update (~3*top_k)."""
-    per_obs = 60 + 3 * top_k
-    flops = n_map * k_frames * per_obs
-    bytes_moved = (
-        k_frames * height * width * 4        # packed image build + gathers
-        + n_map * k_frames * (12 + 4 + 4 + 8)  # xyz in, rgb word, cell, topk rw
-    )
-    return roofline(flops, bytes_moved)
-
-
-def mls_cost_estimate(n_points: int, max_neighbors: int = 32) -> dict:
-    """One MLS pass (ops/mls.py): 27-cell hash probe, per-neighbor weighted
-    covariance (~25), 6x6 normal-equation build (~72) and solve (~200/pt)."""
-    per_point = 27 * 8 + max_neighbors * (25 + 72) + 200 + 36
-    flops = n_points * per_point
-    bytes_moved = n_points * (12 + max_neighbors * 16 + 12 + 24)
-    return roofline(flops, bytes_moved)
-
-
-def hpr_cost_estimate(n_points: int, impl: str = "grid",
-                      grid_size: int = 512, window: int = 16) -> dict:
-    """HPR cull (ops/hpr.py): dense = N^2 support products (3 madd a pair,
-    counted as 6 f32-equivalent passes as the JAX package counts them);
-    grid = O(N) scatter/gather + separable parabolic erosion."""
-    if impl == "dense":
-        flops = 6.0 * n_points * n_points * 2 * 3
-        bytes_moved = n_points * 16 * 2  # blocked: flipped + dirs stream
-    else:
-        flops = n_points * 40 + grid_size * grid_size * (2 * window + 1) * 2 * 2
-        bytes_moved = n_points * (12 + 4 + 4 + 4) + grid_size * grid_size * 4 * 4
-    return roofline(flops, bytes_moved)
 
 
 def card() -> str:

@@ -1,5 +1,5 @@
 """PyTorch port vs the JAX package: the harnesses' helpers and shared
-scene — `utils/profiling.annotate`, `io/odometry.poses` and `resample`'s
+scene — `utils/profiling.span`, `io/odometry.poses` and `resample`'s
 device, `tools/bench_scene`'s scene 2 and analytic keyframe cull against
 `bench.py`, and `tools/scaling_bench.run_once` on a world of 1 and on 2 Gloo
 CPU ranks against JAX's `run_once(1, ...)`, on the CPU.
@@ -45,17 +45,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def test_annotate_names_a_region_in_a_cpu_trace():
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with profiling.annotate("harness/stage_a"):
+def test_annotate_names_a_region_in_a_cpu_trace(tmp_path):
+    """The tools' stage labels are ``profiling.span``s: recorded under any
+    capture, and a region of the trace inside ``profiling.trace``."""
+    profiling.reset_trace()
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.span("harness/stage_a"):
             torch.ones(8).sum()
     names = [e.name for e in prof.events()]
     assert "harness/stage_a" in names
+    assert [r.name for r in profiling.span_records()] == ["harness/stage_a"]
     # Outside a capture the region records nothing and costs no error.
-    with profiling.annotate("harness/outside"):
+    profiling.reset_trace()
+    with profiling.span("harness/outside"):
         pass
+    assert profiling.span_records() == []
 
 
 def test_timers_measure_nothing_off_the_card():
