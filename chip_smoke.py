@@ -479,13 +479,14 @@ def phase_env():
 
 
 def phase_build():
-    """The eight kernel libraries, one nvcc each, started together."""
+    """The nine kernel libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pointcloudprocessor_tpu_torch.kernels import build as kbuild
 
     t0 = time.perf_counter()
-    names = ("nid_hist", "tap_gather", "zbuffer", "colorize", "hpr", "smooth", "mls", "sor")
+    names = ("nid_hist", "nid_project", "tap_gather", "zbuffer", "colorize", "hpr", "smooth",
+             "mls", "sor")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(kbuild.build, names))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} libraries in parallel")
@@ -757,6 +758,113 @@ def phase_kernels(card, device="cuda"):
     ]
 
 
+def _nid_project_inputs(k, n, device):
+    """P1/P2's inputs at K x N on the rig (4096 x 3000, the bench scene's
+    intrinsics, nonzero distortion): points on a wall 2-8 m ahead, a few
+    behind the camera and at z = 0; a correction 2 cm / 0.3 deg off; a
+    frozen-tap cache made 1.5 px away; ds of the gated points, smooth in
+    the point (no cancellation in the sums, so the sums' order shows)."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.models import camera as cam
+    from pointcloudprocessor_tpu_torch.opt import nid
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    camera = cam.create_camera("pinhole", [4818.2, 4818.2, 2048.0, 1500.0],
+                               [-0.08, 0.11, 2e-4, -3e-4, -0.02], WIDTH, HEIGHT, device)
+    z = 2.0 + 6.0 * torch.rand(k, n, generator=g, device=device)
+    xy = (torch.rand(k, n, 2, generator=g, device=device) - 0.5) * z[..., None] * \
+        torch.tensor([0.9, 0.66], device=device)
+    pts = torch.cat([xy, z[..., None]], dim=-1)
+    pts[:, :64, 2] = torch.linspace(-1.0, 0.0, 64, device=device)
+    kfs = nid.NIDKeyframe(points=pts, intensity=torch.rand(k, n, generator=g, device=device),
+                          valid=torch.rand(k, n, generator=g, device=device) > 0.05,
+                          bin_image=torch.zeros((k, 1, 1), dtype=torch.int32, device=device))
+    xi = torch.tensor([0.02, -0.01, 0.005, 0.003, -0.004, 0.002], device=device)
+    T = se3.exp(xi)
+    cache_T = se3.exp(xi + torch.tensor([0.0, 0.0, 0.0, 3e-4, 0.0, 0.0], device=device))
+    with torch.no_grad():
+        c = nid.project_points(camera, cache_T, kfs, 16)
+    return camera, kfs, T, c.knot, c.inlier
+
+
+def phase_nid_project(card, device="cuda"):
+    """P1/P2 (`csrc/nid_project.cu`) against their twins on the card at 8
+    and 64 x 262,144: P1's outputs bit for bit against the eager chain
+    (exact, and with the cache's knot, gate and guard), P2's pose gradient
+    against its torch twin and against autograd through the eager chain
+    (relative, in norm); each kernel's device ms a call beside its bytes
+    over 3.35 TB/s. Returns the records of the fine 64-keyframe shape."""
+    import torch
+
+    from pointcloudprocessor_tpu_torch.core import se3
+    from pointcloudprocessor_tpu_torch.ops import nid_project as npj
+    from pointcloudprocessor_tpu_torch.opt import nid
+
+    records = []
+    for k in (K, 64):
+        camera, kfs, T, cknot, cgate = _nid_project_inputs(k, N_CULL, device)
+        q, t = T.q.reshape(1, 4), T.t.reshape(1, 3)
+        pts, inten, valid = kfs.points, kfs.intensity, kfs.valid
+        for label, extra in (("exact", ()), ("cached", (cknot, cgate, 1.0))):
+            got = nid.project_points(camera, T, kfs, 16, *extra)
+            want = nid.project_points_plain(camera, T, kfs, 16, *extra)
+            differ = {f: int((a != b).sum()) if a.dtype != torch.float32 else
+                      int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+                      for f, a, b in zip(npj.Projected._fields, got, want) if a is not None}
+            print(f"[{card}] P1 {label} {k}x{N_CULL}: elements that differ from the eager "
+                  f"chain {differ}; counts {None if got.counts is None else got.counts.tolist()}")
+            assert not any(differ.values()), differ
+            ref = extra[0] if extra else None
+            ds = got.inlier[..., None] * torch.stack(
+                [1.0 + 0.1 * torch.sin(pts[..., 0]), 0.5 + 0.1 * torch.cos(pts[..., 1])], -1)
+            dq, dt = npj.project_bwd_cuda(ds, camera.intrinsic, camera.distortion, q, t, pts, ref)
+            tq, tt = npj.project_bwd_plain(ds, camera, q, t, pts, ref)
+            qd, td = q.clone().requires_grad_(True), t.clone().requires_grad_(True)
+            sp = nid.project_points_plain(camera, se3.SE3(qd[0], td[0]), kfs, 16, *extra[:2]).s
+            aq, at = torch.autograd.grad(torch.sum(ds * sp), (qd, td))
+            mine, twin, auto = (torch.cat([a, b], -1) for a, b in ((dq, dt), (tq, tt), (aq, at)))
+            e_twin = float(torch.linalg.norm(mine - twin) / torch.linalg.norm(twin))
+            e_auto = float(torch.linalg.norm(mine - auto) / torch.linalg.norm(auto))
+            print(f"[{card}] P2 {label} {k}x{N_CULL}: relative to its twin {e_twin:.3e}, to "
+                  f"autograd {e_auto:.3e}")
+            assert e_twin <= 1e-4 and e_auto <= 1e-4, (e_twin, e_auto)
+            n_ds = int((ds != 0).any(-1).sum())
+            gate = [] if ref is None else [ref, cgate]
+            fwd_bytes = _nbytes(pts, inten, valid, *gate, got.s, got.knot, got.inlier, got.bin_pts)
+            bwd_bytes = _nbytes(ds) + n_ds * (12 + (8 if ref is not None else 0))
+            with torch.no_grad():
+                fwd_twin_ms = _device_ms(
+                    lambda: nid.project_points_plain(camera, T, kfs, 16, *extra), device)
+            bwd_twin_ms = _device_ms(
+                lambda: npj.project_bwd_plain(ds, camera, q, t, pts, ref), device)
+            for name, fn, nbytes, twin_ms in (
+                    ("nid_project_fwd", lambda: npj.project_fwd_cuda(
+                        camera.intrinsic, camera.distortion, WIDTH, HEIGHT, q, t, pts, inten, valid,
+                        16, *extra), fwd_bytes, fwd_twin_ms),
+                    ("nid_project_bwd", lambda: npj.project_bwd_cuda(
+                        ds, camera.intrinsic, camera.distortion, q, t, pts, ref), bwd_bytes,
+                     bwd_twin_ms)):
+                ms = _device_ms(fn, device)
+                bound, by = _bound(nbytes)
+                rec = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/nid_project.cu",
+                       "replaces": "pointcloudprocessor_tpu/opt/nid.py:435 (+ :307-357, :770-781)",
+                       "library_ms": None, "k": k, "n": N_CULL, "case": label, "ms": ms,
+                       "twin_ms": twin_ms, "bytes": nbytes, "bound_ms": bound, "bound_by": by,
+                       "share": None if ms is None else bound / ms,
+                       "twin_rel_err" if name.endswith("bwd") else "bit_equal":
+                       e_twin if name.endswith("bwd") else True}
+                print(f"[{card}] {name} {label} {k}x{N_CULL}: device {_ms(ms)} ms a call "
+                      f"(twin {_ms(twin_ms)}), {nbytes / 1e6:.1f} MB, bound {bound * 1e3:.1f} us "
+                      f"({by}), share {_ms(rec['share'])}")
+                if k == 64 and label == "cached":
+                    records.append(rec)
+        del kfs, pts, inten, valid, cknot, cgate, got, want, ds
+        torch.cuda.empty_cache()
+    return records
+
+
 # Ragged random sets of phase 3: (K, N, offset). An odd N starts every other
 # keyframe on the second point of a pair (the kernels' scalar loads and
 # split stores); an offset of 1 moves every pointer 8 bytes off 16-byte
@@ -926,22 +1034,25 @@ def _config(root, nid, masks=False, hpr=False, mls=False, small=False):
 
 
 def _reset_counts():
-    from pointcloudprocessor_tpu_torch.ops import hpr, knn, mls, nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.ops import (hpr, knn, mls, nid_hist, nid_project,
+                                                   tap_gather, zbuffer)
     from pointcloudprocessor_tpu_torch.pipeline import colorize
 
-    for mod in (nid_hist, tap_gather, zbuffer, colorize, hpr, knn, mls):
+    for mod in (nid_hist, nid_project, tap_gather, zbuffer, colorize, hpr, knn, mls):
         mod.reset_launch_counts()
 
 
 def _read_counts():
     from pointcloudprocessor_tpu_torch.kernels import build as kbuild
-    from pointcloudprocessor_tpu_torch.ops import hpr, knn, mls, nid_hist, tap_gather, zbuffer
+    from pointcloudprocessor_tpu_torch.ops import (hpr, knn, mls, nid_hist, nid_project,
+                                                   tap_gather, zbuffer)
     from pointcloudprocessor_tpu_torch.pipeline import colorize
 
-    by_n = {name: {} for name in (*nid_hist.launch_counts, "tap_take")}
+    by_n = {name: {} for name in (*nid_hist.launch_counts, *nid_project.launch_counts, "tap_take")}
     for (name, n), c in sorted(kbuild.launch_shapes.items()):
         by_n[name][str(n)] = c
-    return {**nid_hist.launch_counts, **tap_gather.launch_counts, **tap_gather.call_counts,
+    return {**nid_hist.launch_counts, **nid_project.launch_counts,
+            **tap_gather.launch_counts, **tap_gather.call_counts,
             **{f"{k}_fallbacks": v for k, v in tap_gather.fallback_counts.items()},
             **zbuffer.launch_counts, **colorize.launch_counts, **hpr.launch_counts,
             **knn.launch_counts,
@@ -4861,6 +4972,7 @@ def main() -> int:
     card = phase_env()
     phase_build()
     kernels = phase_kernels(card)
+    kernels += phase_nid_project(card)
     root = os.path.join(REPO, ".smoke_work")
     shutil.rmtree(root, ignore_errors=True)
     try:

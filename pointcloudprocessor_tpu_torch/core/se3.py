@@ -213,6 +213,12 @@ def exp(tangent: torch.Tensor) -> SE3:
     branch's 1-cos(theta) cancels catastrophically in f32 below it. Do not
     tighten. The unselected `where` branch is still evaluated and
     differentiated, so its denominators are clamped away from zero."""
+    return SE3(*_exp_terms(tangent)[:2])
+
+
+def _exp_terms(tangent: torch.Tensor):
+    """(q, t, terms): :func:`exp` and the terms its gradient reads
+    (:class:`_Perturb`)."""
     rho, omega = tangent[..., :3], tangent[..., 3:]
     theta2 = torch.sum(omega * omega, dim=-1)
     small = theta2 < 1e-2
@@ -221,27 +227,109 @@ def exp(tangent: torch.Tensor) -> SE3:
     theta4 = theta2 * theta2
 
     half = 0.5 * theta
+    sin_half, cos_half = torch.sin(half), torch.cos(half)
     sinc_half = torch.where(
-        small, 0.5 - theta2 / 48.0 + theta4 / 3840.0, torch.sin(half) / theta
+        small, 0.5 - theta2 / 48.0 + theta4 / 3840.0, sin_half / theta
     )
-    qw = torch.where(small, 1.0 - theta2 / 8.0 + theta4 / 384.0, torch.cos(half))
+    qw = torch.where(small, 1.0 - theta2 / 8.0 + theta4 / 384.0, cos_half)
     qv = omega * sinc_half[..., None]
-    q = quat_normalize(torch.cat([qw[..., None], qv], dim=-1))
+    q_raw = torch.cat([qw[..., None], qv], dim=-1)
+    q_norm = torch.linalg.norm(q_raw, dim=-1, keepdim=True)
+    q = q_raw / q_norm  # quat_normalize
 
     W = _skew(omega)
     W2 = W @ W
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
     a = torch.where(
-        small, 0.5 - theta2 / 24.0 + theta4 / 720.0, (1.0 - torch.cos(theta)) / theta2_safe
+        small, 0.5 - theta2 / 24.0 + theta4 / 720.0, (1.0 - cos_t) / theta2_safe
     )
     b = torch.where(
         small,
         1.0 / 6.0 - theta2 / 120.0 + theta4 / 5040.0,
-        (theta - torch.sin(theta)) / (theta2_safe * theta),
+        (theta - sin_t) / (theta2_safe * theta),
     )
     eye = torch.eye(3, dtype=tangent.dtype, device=tangent.device).expand(W.shape)
     V = eye + a[..., None, None] * W + b[..., None, None] * W2
     t = (V @ rho[..., :, None])[..., 0]
-    return SE3(q, t)
+    return q, t, (theta2, small, theta2_safe, theta, sin_half, cos_half, sin_t, cos_t,
+                  sinc_half, q_norm, a, b)
+
+
+class _Perturb(torch.autograd.Function):
+    """``T_init ∘ exp(x)`` (:func:`perturb`): the forward is :func:`exp`'s and
+    :func:`compose`'s ops, op for op; the backward is their gradient with
+    respect to ``x`` in closed form, a few dozen small ops in place of
+    autograd's ~200 nodes over the two. In exp's Taylor window the gradient
+    is that of the Taylor branch, outside it that of the closed forms, as
+    autograd takes it through the ``where``."""
+
+    @staticmethod
+    def forward(ctx, x, q0, t0):
+        qe, te, terms = _exp_terms(x)
+        m = quat_multiply(q0, qe)
+        m_norm = torch.linalg.norm(m, dim=-1, keepdim=True)
+        q = m / m_norm  # compose: quat_normalize(q0 ⊗ qe)
+        t = quat_rotate(q0, te) + t0
+        ctx.save_for_backward(x, q0, qe, q, m_norm, *terms)
+        ctx.mark_non_differentiable(te)
+        return q, t, te
+
+    @staticmethod
+    def backward(ctx, gq, gt, _):
+        (x, q0, qe, q, m_norm, theta2, small, t2s, theta, sin_half, cos_half, sin_t, cos_t,
+         sinc_half, q_norm, a, b) = ctx.saved_tensors
+        rho, omega = x[..., :3], x[..., 3:]
+        w0, x0, y0, z0 = q0.unbind(-1)
+        # t = R(q0) te + t0: the rotation formula at the conjugate is its transpose.
+        gte = quat_rotate(torch.cat([q0[..., :1], -q0[..., 1:]], dim=-1), gt)
+        # q = m / |m|, m = L(q0) qe (the Hamilton product's left matrix).
+        gm = (gq - q * torch.sum(q * gq, dim=-1, keepdim=True)) / m_norm
+        L = torch.stack([w0, -x0, -y0, -z0, x0, w0, -z0, y0, y0, z0, w0, -x0, z0, -y0, x0, w0],
+                        dim=-1).reshape(q0.shape[:-1] + (4, 4))
+        gqe = (gm[..., None, :] @ L)[..., 0, :]
+        # qe = q_raw / |q_raw|, q_raw = [qw, omega sinc_half].
+        g_raw = (gqe - qe * torch.sum(qe * gqe, dim=-1, keepdim=True)) / q_norm
+        g_qw, g_qv = g_raw[..., 0], g_raw[..., 1:]
+        # te = rho + a (omega x rho) + b (omega x (omega x rho)).
+        w_rho = torch.linalg.cross(omega, rho, dim=-1)
+        ww_rho = torch.linalg.cross(omega, w_rho, dim=-1)
+        # d/d theta2 of qw, sinc_half, a, b on the branch exp took.
+        taylor = torch.stack([-1.0 / 8.0 + theta2 / 192.0, -1.0 / 48.0 + theta2 / 1920.0,
+                              -1.0 / 24.0 + theta2 / 360.0, -1.0 / 120.0 + theta2 / 2520.0],
+                             dim=-1)
+        h = 0.5 / theta  # d theta / d theta2
+        closed = torch.stack([-0.5 * sin_half * h,
+                              (0.5 * cos_half / theta - sin_half / t2s) * h,
+                              sin_t * h / t2s - (1.0 - cos_t) / (t2s * t2s),
+                              ((1.0 - cos_t) / (t2s * theta) - 3.0 * (theta - sin_t) / (t2s * t2s))
+                              * h], dim=-1)
+        d = torch.where(small[..., None], taylor, closed)
+        dots = torch.stack([g_qw, torch.sum(omega * g_qv, dim=-1), torch.sum(gte * w_rho, dim=-1),
+                            torch.sum(gte * ww_rho, dim=-1)], dim=-1)
+        g_t2 = torch.sum(dots * d, dim=-1, keepdim=True)
+        a_, b_ = a[..., None], b[..., None]
+        w_g = torch.linalg.cross(omega, gte, dim=-1)
+        g_rho = gte - a_ * w_g + b_ * torch.linalg.cross(omega, w_g, dim=-1)
+        g_omega = (sinc_half[..., None] * g_qv + a_ * torch.linalg.cross(rho, gte, dim=-1)
+                   + b_ * (rho * torch.sum(omega * gte, dim=-1, keepdim=True)
+                           + torch.sum(omega * rho, dim=-1, keepdim=True) * gte
+                           - 2.0 * omega * torch.sum(rho * gte, dim=-1, keepdim=True))
+                   + 2.0 * omega * g_t2)
+        return torch.cat([g_rho, g_omega], dim=-1), None, None
+
+
+def perturb(T_init: SE3, x: torch.Tensor) -> tuple[SE3, torch.Tensor]:
+    """``compose(T_init, exp(x))``, the right perturbation of a solve, and
+    ``exp(x).t``. Batched as :func:`compose`: x (..., 6) against T_init
+    (...). On CUDA tensors its gradient with respect to ``x`` is
+    :class:`_Perturb`'s closed form (``T_init`` a constant: no gradient
+    reaches it), where autograd's ~200 nodes over the two would each be a
+    launch; elsewhere autograd's, through :func:`compose` and :func:`exp`."""
+    if x.device.type == "cuda":
+        q, t, te = _Perturb.apply(x, T_init.q.detach(), T_init.t.detach())
+        return SE3(q, t), te
+    step = exp(x)
+    return compose(T_init, step), step.t
 
 
 def log(x: SE3) -> torch.Tensor:

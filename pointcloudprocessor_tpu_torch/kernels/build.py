@@ -55,7 +55,8 @@ _loaded: dict[str, tuple[Build, ctypes.CDLL]] = {}
 
 # Launches of the kernels that take a (K, N) batch of keyframes, keyed by
 # (kernel, N), N the points a keyframe, so that a run splits its launches by
-# shape: K1/K2 (ops/nid_hist) and G1 (ops/tap_gather) record here.
+# shape: K1/K2 (ops/nid_hist), P1/P2 (ops/nid_project) and G1
+# (ops/tap_gather) record here.
 launch_shapes: Counter = Counter()
 
 

@@ -30,6 +30,13 @@ branches on host values: each costs one device sync, read through
 ``nid.cache``, ``nid.project``, ``nid.gather`` (a full gather, a refresh
 or W1's selection), ``nid.guard``, ``nid.histograms`` and
 ``nid.entropies``.
+
+Every evaluation takes its per-point terms (``s``, knots, gate, point
+bins, the point-bin histogram, the guard's counts) from
+:func:`project_points`: on the card kernel P1, whose backward P2 takes the
+histogram's gradient straight to the pose (`ops/nid_project`), so autograd
+walks no graph over the points; on the CPU the eager chain
+:func:`project_points_plain`, its twin.
 """
 
 from __future__ import annotations
@@ -42,8 +49,9 @@ import torch
 
 from ..core import se3
 from ..models import camera as cam
-from ..ops import nid_hist, tap_gather
+from ..ops import nid_hist, nid_project, tap_gather
 from ..ops.nid_hist import spline_weights, unpack_tap_nibbles  # noqa: F401 (API)
+from ..ops.nid_project import Projected
 from ..utils.numeric import bits_to_int32, to_int32
 from ..utils.profiling import host_read, span, spanned
 
@@ -206,6 +214,69 @@ def _project_all(camera: cam.PinholeCamera, T: se3.SE3, kfs: NIDKeyframe):
     return proj, knot, inl
 
 
+def _point_histogram(bin_pts, gate, bins: int):
+    """(hist_points (K, bins), num (K,)): the points of each bin, and all
+    points, under the 0/1 gate (`nid.py:325-331`)."""
+    levels = torch.arange(bins, device=bin_pts.device)
+    hist_points = torch.sum((bin_pts[..., None] == levels).to(gate.dtype) * gate[..., None],
+                            dim=-2)
+    return hist_points, torch.sum(gate, dim=-1)
+
+
+def _guard_masks(knot, inl, cache_knot, cache_gate, thr: float):
+    """The frozen-tap guard's masks (`nid.py:770-781`): care (live now or
+    at the gather), and care points whose anchor moved ``thr`` px or more,
+    and ``thr`` + 1 px or more, from the cached knot."""
+    # f32 on purpose: behind-camera knots reach ~1e9, and int32 differences
+    # would overflow (those points are masked by `care`, but the arithmetic
+    # still runs).
+    shift = torch.amax(torch.abs(knot.float() - cache_knot.float()), dim=-1)
+    care = inl | (cache_gate > 0)
+    return care, (shift >= thr) & care, (shift >= thr + 1.0) & care
+
+
+def project_points_plain(camera: cam.PinholeCamera, T: se3.SE3, kfs: NIDKeyframe, bins: int,
+                         ref_knot=None, gate=None, guard_thr=None) -> Projected:
+    """The eager chain that kernels P1/P2 replace, on any device and
+    differentiable by autograd: :func:`_project_all`, then ``s`` = proj -
+    knot, or with the frozen-tap cache's knot ``ref_knot`` clamp(proj -
+    ref_knot, -1.5, 2.5); the intensity bins; the point-bin histogram under
+    ``gate`` (the points' own gate where None); and with ``guard_thr`` (and
+    the cache's knot and gate) the guard's three counts. The clip bound lies
+    outside everything the guard lets through, so live gradients are
+    unaffected."""
+    proj, knot, inl = _project_all(camera, T, kfs)
+    if ref_knot is None:
+        s = proj - knot.to(proj.dtype)
+    else:
+        s = torch.clamp(proj - ref_knot.to(proj.dtype), -1.5, 2.5)
+    inl_f = inl.to(proj.dtype)
+    bin_pts = torch.clamp(to_int32(kfs.intensity * bins), 0, bins - 1)
+    hist_points, num = _point_histogram(bin_pts, inl_f if gate is None else gate, bins)
+    counts = None
+    if guard_thr is not None:
+        with torch.no_grad():
+            counts = torch.stack([torch.sum(m) for m in _guard_masks(knot, inl, ref_knot, gate,
+                                                                      guard_thr)])
+    return Projected(s, knot, inl_f, bin_pts, hist_points, num, counts)
+
+
+def project_points(camera: cam.PinholeCamera, T: se3.SE3, kfs: NIDKeyframe, bins: int,
+                   ref_knot=None, gate=None, guard_thr=None) -> Projected:
+    """An evaluation's per-point terms (:class:`ops.nid_project.Projected`)
+    at the pose ``T``, one correction (q (4,) or (1, 4)) or one a keyframe
+    ((K, 4)), with the options of :func:`project_points_plain`. CUDA
+    tensors take kernel P1 (P2 on the backward; a failure raises) in the
+    span ``nid.project``, CPU ones the eager chain, whose
+    :func:`_project_all` is that span."""
+    if kfs.points.device.type == "cuda":
+        with span("nid.project"):
+            return nid_project.project(camera, T.q.reshape(-1, 4), T.t.reshape(-1, 3),
+                                       kfs.points, kfs.intensity, kfs.valid, bins, ref_knot,
+                                       gate, guard_thr)
+    return project_points_plain(camera, T, kfs, bins, ref_knot, gate, guard_thr)
+
+
 @spanned("nid.prepare")
 def sort_by_raster(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
                    kfs: NIDKeyframe) -> NIDKeyframe:
@@ -217,9 +288,9 @@ def sort_by_raster(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     ``lax.sort``, ties included. The NID is a sum over points, so the
     permutation changes only the f32 summation order."""
     with torch.no_grad():
-        _, knot, inb = _project_all(camera, T_camera_lidar, kfs)
-        anchor = knot[..., 1] * camera.width + knot[..., 0]
-        key = torch.where(inb, anchor, 2**31 - 1)
+        p = project_points(camera, T_camera_lidar, kfs, nid_project.MAX_BINS)
+        anchor = p.knot[..., 1] * camera.width + p.knot[..., 0]
+        key = torch.where(p.inlier > 0, anchor, 2**31 - 1)
         order = torch.sort(key, dim=-1, stable=True).indices
     return replace(
         kfs,
@@ -243,8 +314,8 @@ def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor
     wherever the keyframes carry a slab width: all keyframes flatten into
     one call over the stacked row tables (flat index kf*H*W + anchor), which
     :func:`prepare_keyframes` builds on a grouped request. Rows whose
-    ``inlier`` is False hold unspecified data under the grouped gathers; the
-    histogram gate zeroes them."""
+    ``inlier`` (bool, or the 0/1 f32 gate) is 0 hold unspecified data under
+    the grouped gathers; the histogram gate zeroes them."""
     if not use_grouped or kfs.slab_width is None:
         return tap_gather.direct_take(kfs.bin_tiles, knot, camera.width, camera.height)
     if kfs.tap_rows is None:
@@ -266,26 +337,32 @@ def _gather_taps(camera: cam.PinholeCamera, kfs: NIDKeyframe, knot: torch.Tensor
         if use_grouped == "streamed"
         else tap_gather.grouped_take_slabbed
     )
-    taps = impl(kfs.tap_rows.reshape(k * r, c), flat_idx.reshape(-1), inlier.reshape(-1),
-                slab=kfs.slab_width)
+    ok = inlier.reshape(-1)
+    taps = impl(kfs.tap_rows.reshape(k * r, c), flat_idx.reshape(-1),
+                ok if ok.dtype == torch.bool else ok > 0, slab=kfs.slab_width)
     return taps.reshape(k, n, c)
 
 
 @spanned("nid.histograms")
-def _histograms_from_taps(taps, s, bin_pts, inlier_f, bins: int):
+def _histograms_from_taps(taps, s, bin_pts, inlier_f, bins: int, point_hist=None):
     """(hist_joint (K,bins,bins) [point_bin, image_bin], hist_image (K,bins),
     hist_points (K,bins), num (K,)) from already-gathered tap rows — the
     kernel branch of `nid.py:321-333`: the image marginal is the per-point-
-    bin sum of the joint, so its pose gradient stays exact."""
+    bin sum of the joint, so its pose gradient stays exact. ``point_hist``
+    (hist_points, num), as :func:`project_points` gives them, saves their
+    sums."""
     inlier_f = inlier_f.detach()
     hist_joint = nid_hist.joint_histogram(taps, s, bin_pts, inlier_f, bins)
-    levels = torch.arange(bins, device=s.device)
-    hist_points = torch.sum(
-        (bin_pts[..., None] == levels).to(s.dtype) * inlier_f[..., None], dim=-2
-    )
+    hist_points, num = point_hist or _point_histogram(bin_pts, inlier_f, bins)
     hist_image = torch.sum(hist_joint, dim=-2)
-    num = torch.sum(inlier_f, dim=-1)
     return hist_joint, hist_image, hist_points, num
+
+
+def _histograms(taps, p: Projected, gate, bins: int):
+    """The histograms of an evaluation from its taps and its
+    :func:`project_points` terms under ``gate``, the gate they were
+    reduced under."""
+    return _histograms_from_taps(taps, p.s, p.bin_pts, gate, bins, (p.hist_points, p.num))
 
 
 @spanned("nid.entropies")
@@ -336,12 +413,10 @@ def nid_histograms(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3, kf: NIDKe
             bin_image=kf.bin_image[None],
             bin_tiles=None if kf.bin_tiles is None else kf.bin_tiles[None])
     kf = prepare_keyframes(kf)
-    proj, knot, inl = _project_all(camera, T_camera_lidar, kf)
-    s = proj - knot.to(proj.dtype)
+    p = project_points(camera, T_camera_lidar, kf, bins)
     with torch.no_grad():
-        taps = _gather_taps(camera, kf, knot, inl)
-    bin_pts = torch.clamp(to_int32(kf.intensity * bins), 0, bins - 1)
-    hists = _histograms_from_taps(taps, s, bin_pts, inl.to(proj.dtype), bins)
+        taps = _gather_taps(camera, kf, p.knot, p.inlier)
+    hists = _histograms(taps, p, p.inlier, bins)
     return tuple(h[0] for h in hists) if single else hists
 
 
@@ -359,11 +434,10 @@ def multi_nid_loss(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     ``use_grouped`` selects the tap gather (see :func:`_gather_taps`)."""
     check_bins(bins)
     kfs = prepare_keyframes(kfs, grouped=bool(use_grouped))
-    proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
-    s = proj - knot.to(proj.dtype)
+    p = project_points(camera, T_camera_lidar, kfs, bins)
     with torch.no_grad():
-        taps = _gather_taps(camera, kfs, knot, inl, use_grouped)
-    return _sum_nid(taps, s, kfs.intensity, inl.to(proj.dtype), bins)
+        taps = _gather_taps(camera, kfs, p.knot, p.inlier, use_grouped)
+    return _sum_nid(_histograms(taps, p, p.inlier, bins))
 
 
 def multi_nid_per_keyframe(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
@@ -381,20 +455,15 @@ def multi_nid_per_keyframe(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     the JAX package's per-keyframe solves never group (`refine.py:468-473`)."""
     check_bins(bins)
     kfs = prepare_keyframes(kfs)
-    proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
-    s = proj - knot.to(proj.dtype)
+    p = project_points(camera, T_camera_lidar, kfs, bins)
     with torch.no_grad():
-        taps = _gather_taps(camera, kfs, knot, inl)
-    return _keyframe_nids(taps, s, kfs.intensity, inl.to(proj.dtype), bins)
+        taps = _gather_taps(camera, kfs, p.knot, p.inlier)
+    return nid_from_histograms(*_histograms(taps, p, p.inlier, bins))
 
 
-def _keyframe_nids(taps, s, intensity, inlier_f, bins: int) -> torch.Tensor:
-    bin_pts = torch.clamp(to_int32(intensity * bins), 0, bins - 1)
-    return nid_from_histograms(*_histograms_from_taps(taps, s, bin_pts, inlier_f, bins))
-
-
-def _sum_nid(taps, s, intensity, inlier_f, bins: int) -> torch.Tensor:
-    return torch.sum(_keyframe_nids(taps, s, intensity, inlier_f, bins))
+def _sum_nid(hists) -> torch.Tensor:
+    """The summed NID of a batch's histograms (:func:`_histograms_from_taps`)."""
+    return torch.sum(nid_from_histograms(*hists))
 
 
 class TapCache(NamedTuple):
@@ -440,20 +509,20 @@ def make_tap_cache(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     see :func:`prepare_keyframes`). Under a wide margin the cache holds the
     (K, 4+2m, N) wide planes instead of (K, N, 2) rows."""
     with torch.no_grad():
-        proj, knot, inl = _project_all(camera, T_camera_lidar, kfs)
-        taps = _take(camera, kfs, knot, inl, use_grouped)
+        p = project_points(camera, T_camera_lidar, kfs, nid_project.MAX_BINS)
+        taps = _take(camera, kfs, p.knot, p.inlier, use_grouped)
     return TapCache(
-        taps, knot, inl.to(proj.dtype), 1, 0,
-        torch.zeros((), dtype=torch.float32, device=proj.device),
+        taps, p.knot, p.inlier, 1, 0,
+        torch.zeros((), dtype=torch.float32, device=p.knot.device),
     )
 
 
-def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, knot_true, inl_true,
-             inl_true_f, drifted, frac1, use_grouped, partial_frac: float,
-             all_partial=int) -> TapCache:
-    """The cache re-gathered at ``knot_true`` (the ``fresh`` branch of
-    `nid.py:796-846`). With ``partial_frac`` > 0 and N a whole number of
-    128-point blocks, cap = round(nb * partial_frac) blocks a keyframe: when
+def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, p: Projected,
+             thr: float, frac1, use_grouped, partial_frac: float, all_partial=int) -> TapCache:
+    """The cache re-gathered at the knots ``p.knot`` with the gate
+    ``p.inlier`` of the evaluation's :func:`project_points` (the ``fresh``
+    branch of `nid.py:796-846`). With ``partial_frac`` > 0 and N a whole
+    number of 128-point blocks, cap = round(nb * partial_frac) blocks a keyframe: when
     no keyframe has more than cap blocks holding a drifted point (one host
     read), only those blocks are re-taken, in place, by G1's or G2's block
     form over the (K, cap) block list, ascending and padded with nb (JAX's
@@ -468,14 +537,17 @@ def _refresh(camera: cam.PinholeCamera, kfs: NIDKeyframe, c: TapCache, knot_true
     block = tap_gather.PARTIAL_BLOCK
     nb = n // block if n % block == 0 else 0
     cap = int(round(nb * partial_frac)) if partial_frac > 0 else 0
+    knot_true, inl_true_f = p.knot, p.inlier
     partial = False
     if 0 < cap <= nb:
         with span("nid.guard"):
+            drifted = _guard_masks(knot_true, inl_true_f > 0, c.knot, c.inlier, thr)[1]
             dirty = torch.any(drifted.reshape(k, nb, block), dim=2)
             # One device sync.
             partial = host_read(torch.amax(torch.sum(dirty, dim=1)), int) <= cap
     if not partial:
-        taps, knot, inl = _take(camera, kfs, knot_true, inl_true, use_grouped), knot_true, inl_true_f
+        taps = _take(camera, kfs, knot_true, inl_true_f, use_grouped)
+        knot, inl = knot_true, inl_true_f
     else:
         with span("nid.gather"):
             iota = torch.arange(nb, dtype=torch.int32, device=dirty.device)
@@ -523,9 +595,9 @@ class Reductions(NamedTuple):
     the shards of a keyframe batch: ``counts`` the (3,) int64 guard counts
     (care, drifted past the margin, past it by one more pixel),
     ``all_partial`` a refresh's partial flag, ``sum_nid`` the histograms
-    into the summed NID (:func:`_sum_nid`'s signature). :data:`LOCAL` is one
-    process holding the whole batch; `parallel/nid_shard` reduces each over
-    the mesh."""
+    (:func:`_histograms_from_taps`'s four) into the summed NID. :data:`LOCAL`
+    is one process holding the whole batch; `parallel/nid_shard` reduces each
+    over the mesh."""
 
     counts: object
     all_partial: object
@@ -544,35 +616,29 @@ def cached_objective(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3, kfs: NI
     check_bins(bins)
     if kfs.bin_tiles is None:
         raise ValueError("call prepare_keyframes first")
-    proj, knot_true, inl_true = _project_all(camera, T_camera_lidar, kfs)
     margin = _wide_margin_of(kfs)
+    # A margin-m window serves exact sub-windows up to m px of drift.
+    thr = float(margin + 1)
+    p = project_points(camera, T_camera_lidar, kfs, bins, cache.knot, cache.inlier, thr)
 
     with torch.no_grad():
         with span("nid.guard"):
-            # f32 on purpose: behind-camera knots reach ~1e9, and int32
-            # differences would overflow (those points are masked by `care`,
-            # but the arithmetic still runs).
-            shift = torch.amax(torch.abs(knot_true.float() - cache.knot.float()), dim=-1)
-            care = inl_true | (cache.inlier > 0)
-            # A margin-m window serves exact sub-windows up to m px of drift.
-            thr = float(margin + 1)
-            drifted = (shift >= thr) & care
-            counts = reduce.counts(torch.stack(
-                [torch.sum(care), torch.sum(drifted), torch.sum((shift >= thr + 1.0) & care)]))
+            counts = reduce.counts(p.counts)
             n_care = torch.clamp(counts[0], min=1).to(torch.float32)
             frac1 = counts[1] / n_care
             frac2 = counts[2] / n_care
             refresh = allow_refresh and host_read((frac1 > guard_frac) | (frac2 > 0.001))
         if refresh:
-            cache = _refresh(camera, kfs, cache, knot_true, inl_true, inl_true.to(proj.dtype),
-                             drifted, frac1, use_grouped, partial_frac, reduce.all_partial)
+            cache = _refresh(camera, kfs, cache, p, thr, frac1, use_grouped, partial_frac,
+                             reduce.all_partial)
         if margin:
             with span("nid.gather"):
-                taps, eff_knot = tap_gather.wide_select(cache.taps, knot_true, cache.knot, margin)
+                taps, eff_knot = tap_gather.wide_select(cache.taps, p.knot, cache.knot, margin)
         else:
             taps, eff_knot = cache.taps, cache.knot
 
-    # The clip bound lies outside everything the guard lets through, so
-    # live gradients are unaffected.
-    s = torch.clamp(proj - eff_knot.to(proj.dtype), -1.5, 2.5)
-    return reduce.sum_nid(taps, s, kfs.intensity, cache.inlier, bins), cache
+    if refresh or margin:
+        # s against the knots the taps were taken at, and the point
+        # histogram under the cache's gate, after the refresh and W1.
+        p = project_points(camera, T_camera_lidar, kfs, bins, eff_knot, cache.inlier)
+    return reduce.sum_nid(_histograms(taps, p, cache.inlier, bins)), cache

@@ -67,19 +67,21 @@ def _guarded_objective(trust_trans: float, trust_rot: float, loss):
     `jnp.where`. The loss is not evaluated there, since the line search
     discards a rejected probe's value and gradient, so such a probe cannot
     refresh a frozen-tap cache (``allow_refresh`` False in the JAX package,
-    `refine.py:258-274`)."""
+    `refine.py:258-274`). The pose is ``se3.perturb`` (T_init∘exp(xi), on
+    the card with its gradient in closed form), whose exp(xi) the guard
+    reads."""
 
     def value_and_grad(xi: torch.Tensor, T_init: se3.SE3, cache):
+        x = xi.detach().requires_grad_(True)
+        with torch.enable_grad(), span("refine.pose"):
+            T, step_t = se3.perturb(T_init, x)
         with span("refine.guard"), torch.no_grad():
-            trans = torch.linalg.norm(se3.exp(xi).t)
+            trans = torch.linalg.norm(step_t)
             rot = torch.linalg.norm(xi[3:])
             if host_read((trans > trust_trans) | (rot > trust_rot)):  # one device sync
                 inf = torch.full((), float("inf"), dtype=xi.dtype, device=xi.device)
                 return inf, torch.zeros_like(xi), cache
-        x = xi.detach().requires_grad_(True)
         with torch.enable_grad():
-            with span("refine.pose"):
-                T = se3.compose(T_init, se3.exp(x))
             value, cache = loss(T, cache)
             with span("refine.backward"):
                 (grad,) = torch.autograd.grad(value, x)
@@ -91,12 +93,13 @@ def _guarded_objective(trust_trans: float, trust_rot: float, loss):
 def _subsample_keyframes(kfs: NIDKeyframe, stride: int) -> NIDKeyframe:
     """Every ``stride``-th point of each keyframe (`refine.py:68-76`; tap
     tables and bin images shared). Culled points arrive in map or raster
-    order, so a strided slice is a spatially unbiased subsample."""
+    order, so a strided slice is a spatially unbiased subsample. Copied
+    contiguous once a phase: kernel P1 reads contiguous points."""
     return replace(
         kfs,
-        points=kfs.points[:, ::stride],
-        intensity=kfs.intensity[:, ::stride],
-        valid=kfs.valid[:, ::stride],
+        points=kfs.points[:, ::stride].contiguous(),
+        intensity=kfs.intensity[:, ::stride].contiguous(),
+        valid=kfs.valid[:, ::stride].contiguous(),
     )
 
 
@@ -304,13 +307,14 @@ def _guarded_per_keyframe(camera: cam.PinholeCamera, kfs: NIDKeyframe, bins: int
     device = kfs.points.device
 
     def value_and_grad(xi: torch.Tensor):
-        x = xi.to(device)
-        with torch.no_grad():
-            trans = torch.linalg.norm(se3.exp(x).t, dim=-1)
-            outside = (trans > trust_trans) | (torch.linalg.norm(x[:, 3:], dim=-1) > trust_rot)
-        x = x.detach().requires_grad_(True)
+        x = xi.to(device).detach().requires_grad_(True)
         with torch.enable_grad():
-            nids = _nid.multi_nid_per_keyframe(camera, se3.compose(T_init, se3.exp(x)), kfs, bins)
+            T, step_t = se3.perturb(T_init, x)
+        with torch.no_grad():
+            trans = torch.linalg.norm(step_t, dim=-1)
+            outside = (trans > trust_trans) | (torch.linalg.norm(x[:, 3:], dim=-1) > trust_rot)
+        with torch.enable_grad():
+            nids = _nid.multi_nid_per_keyframe(camera, T, kfs, bins)
             # Keyframe j's NID depends on row j alone: the gradient of the
             # sum is each keyframe's own in its row.
             with span("refine.backward"):

@@ -36,7 +36,6 @@ from ..models import camera as cam
 from ..opt import nid as _nid
 from ..opt.nid import NIDKeyframe, TapCache
 from ..opt.refine import RefineResult, refine_pose, refine_pose_per_keyframe
-from ..utils.numeric import to_int32
 from ..utils.profiling import host_read
 from . import mesh as mesh_lib
 
@@ -75,14 +74,12 @@ def replicated_pose(T: se3.SE3) -> se3.SE3:
 
 
 def sharded_sum_nid(mesh: DeviceMesh):
-    """``(taps, s, intensity, inlier_f, bins) -> summed NID`` over the mesh,
-    ``opt/nid._sum_nid`` with the histograms summed over ``pt`` (one
-    all-reduce of the four packed flat) and the keyframes' NIDs over ``kf``."""
+    """``hists -> summed NID`` over the mesh, ``opt/nid._sum_nid`` with this
+    shard's histograms summed over ``pt`` (one all-reduce of the four packed
+    flat) and the keyframes' NIDs over ``kf``."""
     pt, kf = mesh.get_group(mesh_lib.PT_AXIS), mesh.get_group(mesh_lib.KF_AXIS)
 
-    def sum_nid(taps, s, intensity, inlier_f, bins: int) -> torch.Tensor:
-        bin_pts = torch.clamp(to_int32(intensity * bins), 0, bins - 1)
-        hists = _nid._histograms_from_taps(taps, s, bin_pts, inlier_f, bins)
+    def sum_nid(hists) -> torch.Tensor:
         packed = _SumForward.apply(torch.cat([h.reshape(-1) for h in hists]), pt)
         parts, at = [], 0
         for h in hists:
@@ -103,11 +100,10 @@ def sharded_multi_nid_loss(camera: cam.PinholeCamera, T_camera_lidar: se3.SE3,
     whole objective's."""
     _nid.check_bins(bins)
     kfs = _nid.prepare_keyframes(kfs)
-    proj, knot, inl = _nid._project_all(camera, replicated_pose(T_camera_lidar), kfs)
-    s = proj - knot.to(proj.dtype)
+    p = _nid.project_points(camera, replicated_pose(T_camera_lidar), kfs, bins)
     with torch.no_grad():
-        taps = _nid._gather_taps(camera, kfs, knot, inl)
-    return sharded_sum_nid(mesh)(taps, s, kfs.intensity, inl.to(proj.dtype), bins)
+        taps = _nid._gather_taps(camera, kfs, p.knot, p.inlier)
+    return sharded_sum_nid(mesh)(_nid._histograms(taps, p, p.inlier, bins))
 
 
 def make_sharded_loss(mesh: DeviceMesh):

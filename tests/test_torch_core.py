@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pointcloudprocessor_tpu.core import cloud as jcl
@@ -55,6 +56,43 @@ def test_exp_grad_finite_at_identity():
     T = tse3.exp(xi)
     (T.q.sum() + T.t.sum()).backward()
     assert torch.isfinite(xi.grad).all()
+
+
+@pytest.mark.parametrize("batch", [(), (5,)])
+@pytest.mark.parametrize("rot_scale", [0.0, 1e-4, 0.03, 0.3, 1.0])
+def test_perturb_is_compose_exp_with_its_gradient(batch, rot_scale):
+    """``se3.perturb``'s closed form (``_Perturb``, what CUDA tensors take):
+    the pose bit-equal to compose(T_init, exp(x)) and exp(x).t, the
+    gradient with respect to x within 1e-6 of autograd's through the two,
+    in norm, on both sides of exp's Taylor window, and against the JAX
+    package's jax.grad of the same map (f32 class, 1e-5). On the CPU
+    ``perturb`` is the two, autograd's gradient."""
+    rng = np.random.default_rng(11)
+    T0 = tse3.exp(torch.from_numpy((rng.normal(size=batch + (6,)) * 0.3).astype(np.float32)))
+    x = torch.from_numpy((rng.normal(size=batch + (6,)) * np.float32(rot_scale)).astype(np.float32))
+    gq = torch.from_numpy(rng.normal(size=batch + (4,)).astype(np.float32))
+    gt = torch.from_numpy(rng.normal(size=batch + (3,)).astype(np.float32))
+    xa = x.clone().requires_grad_(True)
+    Ta = tse3.compose(T0, tse3.exp(xa))
+    (ga,) = torch.autograd.grad(torch.sum(Ta.q * gq) + torch.sum(Ta.t * gt), xa)
+    xb = x.clone().requires_grad_(True)
+    qb, tb, te = tse3._Perturb.apply(xb, T0.q, T0.t)
+    assert torch.equal(qb, Ta.q.detach()) and torch.equal(tb, Ta.t.detach())
+    assert torch.equal(te, tse3.exp(x).t)
+    (gb,) = torch.autograd.grad(torch.sum(qb * gq) + torch.sum(tb * gt), xb)
+    assert torch.linalg.norm(gb - ga) <= 1e-6 * torch.linalg.norm(ga)
+    xc = x.clone().requires_grad_(True)
+    Tc, tc = tse3.perturb(T0, xc)
+    (gc,) = torch.autograd.grad(torch.sum(Tc.q * gq) + torch.sum(Tc.t * gt), xc)
+    assert torch.equal(Tc.q, Ta.q.detach()) and torch.equal(tc, te) and torch.equal(gc, ga)
+    Tj0 = jse3.SE3(jnp.asarray(T0.q.numpy()), jnp.asarray(T0.t.numpy()))
+
+    def jloss(z):
+        T = jse3.compose(Tj0, jse3.exp(z))
+        return jnp.sum(T.q * jnp.asarray(gq.numpy())) + jnp.sum(T.t * jnp.asarray(gt.numpy()))
+
+    gj = np.asarray(jax.grad(jloss)(jnp.asarray(x.numpy())))
+    assert np.linalg.norm(gb.numpy() - gj) <= 1e-5 * np.linalg.norm(gj)
 
 
 def test_group_ops_match_jax():
